@@ -1,0 +1,114 @@
+"""All-pairs formulation of the exact gapped k-mer kernel, in PyTorch.
+
+Counterpart of ``fastsk_tpu/ops/pairs.py``. The kernel is
+
+    K[i, j] = sum_{p, q} C(matches(w_ip, w_jq), k)
+
+where ``matches`` counts the agreeing positions of two g-mers and C is the
+binomial coefficient: a position subset contributes to a window pair iff
+all k kept positions agree, and there are exactly C(#agreeing, k) of them.
+With a position-one-hot window encoding, ``matches`` is the dot product of
+two 0/1 rows, so the whole kernel is one 0/1 matrix product, an exact
+integer weight and a window-to-sequence sum (rows are sequence-aligned,
+``p_pad`` per sequence).
+
+``pairs_counts_plain`` is the plain version of kernel A
+(``ops/pairs_cuda.py``): the CPU path, and what the kernel is held to on
+the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+def binom_exact(x: torch.Tensor, k: int) -> torch.Tensor:
+    """C(x, k) for small integer-valued f32 x — exact in float32.
+
+    Stepwise ``c_{j+1} = c_j * (x - j) / (j + 1)``: every intermediate is
+    (j+1) * C(x, j+1) <= C(20, 10) * 20 < 2^24, and each division's true
+    quotient is an integer, so f32 arithmetic is exact end to end. Integer
+    x < k hits a zero factor, so windows with too few matches (and
+    padding, which matches nothing) get weight 0.
+    """
+    c = torch.ones_like(x)
+    for j in range(k):
+        c = c * (x - j) / float(j + 1)
+    return c
+
+
+def onehot_windows(
+    ids: torch.Tensor,  # [N, L] int32
+    lengths: torch.Tensor,  # [N]
+    *,
+    g: int,
+    alpha: int,  # hash alphabet size (code_max - code_min + 1)
+    code_min: int,
+    p_pad: int,
+) -> torch.Tensor:
+    """Per-window one-hot position encoding ``X [N, p_pad, g * alpha]`` int8.
+
+    Row (n, p) holds the concatenated one-hots of the g codes of window p
+    of sequence n; invalid windows (p > len - g) and the padding rows up to
+    ``p_pad`` are all-zero, so their match count against anything is 0 and
+    their binomial weight vanishes (k >= 1).
+    """
+    n, length = ids.shape
+    p = length - g + 1
+    win = ids.unfold(1, g, 1)  # [N, P, g]
+    pos = torch.arange(p, device=ids.device)
+    valid = pos[None, :] <= (lengths[:, None] - g)  # [N, P]
+    codes = torch.arange(alpha, device=ids.device, dtype=ids.dtype)
+    oh = (win[..., None] - code_min) == codes  # [N, P, g, alpha]
+    oh = (oh & valid[:, :, None, None]).to(torch.int8)
+    oh = oh.reshape(n, p, g * alpha)
+    if p_pad > p:
+        oh = torch.nn.functional.pad(oh, (0, 0, 0, p_pad - p))
+    return oh
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """f32 matrix products in full f32 (no TF32) for the enclosed block:
+    the match counts and Grams must be the exact values, not 10-bit ones."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def pairs_counts_plain(
+    x: torch.Tensor,  # [n_pad * p_pad, F] int8, sequence-aligned rows
+    *,
+    k: int,
+    p_pad: int,
+    strip_rows: int = 16384,
+) -> torch.Tensor:
+    """Full symmetric count matrix ``[n_pad, n_pad]`` int32.
+
+    Strips of ``c`` sequences (about ``strip_rows`` window rows) are
+    computed for the upper block triangle only and mirrored. Per strip
+    pair: ``D = X_i X_j^T`` in f32 (0/1 operands, exact counts <= g),
+    ``C(D, k)`` exact in f32, then the window -> sequence reshape-sum in
+    integers. Every per-pair total is < 2^31 by the engine's guard.
+    """
+    n_pad = x.shape[0] // p_pad
+    c = max(1, strip_rows // p_pad)
+    xf = x.to(torch.float32)
+    out = torch.empty((n_pad, n_pad), dtype=torch.int32, device=x.device)
+    with full_f32_matmul():
+        for i0 in range(0, n_pad, c):
+            i1 = min(i0 + c, n_pad)
+            xi = xf[i0 * p_pad : i1 * p_pad]
+            for j0 in range(i0, n_pad, c):
+                j1 = min(j0 + c, n_pad)
+                d = xi @ xf[j0 * p_pad : j1 * p_pad].T
+                w = binom_exact(d, k).to(torch.int32)
+                part = w.reshape(i1 - i0, p_pad, j1 - j0, p_pad).sum(dim=(1, 3))
+                out[i0:i1, j0:j1] = part
+                out[j0:j1, i0:i1] = part.T
+    return out
