@@ -22,13 +22,13 @@ from typing import List, Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fastsk_tpu_torch")
 CSRC = os.path.join(_PKG, "csrc")
-KERNEL_SOURCES = ("pairs.cu", "smo.cu")
+KERNEL_SOURCES = ("pairs.cu", "smo.cu", "pairs_packed.cu")
 
 # --fmad=false: kernel B must follow its plain twin's f32 trajectory op for
 # op, and a contracted multiply-add rounds once where the twin rounds twice.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 _LOCK = threading.Lock()
@@ -67,6 +67,36 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _build_parallel(srcs: List[str], out: str) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link
+    into ``out``; returns the compilers' stderr (ptxas -v)."""
+    nvcc = nvcc_path()
+    tag = f"{out}.tmp{os.getpid()}"
+    objs = [f"{tag}.{i}.o" for i in range(len(srcs))]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for src, obj in zip(srcs, objs)
+    ]
+    log = []
+    for cmd_src, proc in zip(srcs, procs):
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            for other in procs:
+                other.wait()
+            raise RuntimeError(f"build failed ({cmd_src}):\n{stderr}{stdout}")
+        log.append(stderr)
+    try:
+        log.append(_compile([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tag], out))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(log)
+
+
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library, built from ``csrc/`` on first call."""
     global _KERNELS, build_log
@@ -82,10 +112,7 @@ def kernels() -> ctypes.CDLL:
             BUILD_DIR, f"libfastsk_kernels_{_digest(srcs + headers, NVCC_FLAGS)}.so"
         )
         if not os.path.exists(out):
-            tmp = f"{out}.tmp{os.getpid()}"
-            build_log = _compile(
-                [nvcc_path(), *NVCC_FLAGS, *srcs, "-o", tmp], out
-            )
+            build_log = _build_parallel(srcs, out)
         lib = ctypes.CDLL(out)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pairs_counts_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
@@ -94,6 +121,17 @@ def kernels() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, cf, ci, vp
         ]
         lib.smo_solve_launch.restype = ci
+        ll = ctypes.c_longlong
+        lib.packed_band_launch.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ci, ci, vp]
+        lib.packed_pairlist_launch.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp
+        ]
+        lib.packed_grouped_launch.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, ci, ci, ci, ci, vp
+        ]
+        for fn in (lib.packed_band_launch, lib.packed_pairlist_launch,
+                   lib.packed_grouped_launch):
+            fn.restype = ci
         _KERNELS = lib
         return lib
 

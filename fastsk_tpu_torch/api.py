@@ -4,13 +4,13 @@ Counterpart of ``fastsk_tpu/api.py:FastSK``, with the same signature and
 methods for exact mode: ``compute_kernel / compute_train / kernel /
 kernel_counts / get_train_kernel / get_test_kernel / save_kernel / fit /
 score / score_report / save_predictions``. The kernel comes from the
-sequence-aligned all-pairs engine and the SVM is the binary C-SVC, both
-on ``KernelConfig.device``.
+sequence-aligned or the packed (ragged) all-pairs engine, chosen as the
+JAX package chooses, and the SVM is the binary C-SVC, both on
+``KernelConfig.device``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
-another way: approx mode (ROADMAP.md slice 3), the packed and theta exact
-engines and the automatic route to the packed engine for ragged data
-(slices 2 and 3), and every ``svm_type`` other than ``c_svc`` (slice 4).
+another way: approx mode (ROADMAP.md slice 3), the theta exact engine
+(slice 3), and every ``svm_type`` other than ``c_svc`` (slice 4).
 """
 
 from __future__ import annotations
@@ -67,51 +67,56 @@ class FastSK:
     # ------------------------------------------------------------ kernel
 
     def _make_exact_engine(self, enc: EncodedSeqs):
-        """The sequence-aligned all-pairs engine; the routes of
-        ``fastsk_tpu``'s auto choice that lead elsewhere raise."""
-        from .kernel.pairs_engine import PairsGkmEngine
+        """The JAX package's choice: the sequence-aligned engine when
+        lengths are near-uniform, the packed one on ragged data (padding
+        waste > 1.5) or when the sequence-aligned engine refuses the
+        shape; the theta engine, the last fallback, raises."""
+        from .kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
 
         choice = self.config.exact_engine
-        if choice in ("packed", "theta"):
+        if choice == "theta":
             raise NotImplementedError(
-                f"exact_engine={choice!r} is not ported yet: ROADMAP.md "
-                + ("slice 2 (ragged packed engine)" if choice == "packed"
-                   else "slice 3 (theta engines)")
+                "exact_engine='theta' is not ported yet: ROADMAP.md slice 3 "
+                "(theta engines)"
             )
+        if choice == "packed":
+            return PackedPairsEngine(enc, self.g, self.m, self.config)
         windows = enc.num_windows(self.g)
         waste = enc.n * ((int(windows.max()) + 7) // 8 * 8) / max(
             int(((windows + 7) // 8 * 8).sum()), 1
         )
-        if choice == "auto" and waste > 1.5:
-            raise NotImplementedError(
-                f"ragged lengths (padding waste {waste:.2f} > 1.5) route to "
-                "the packed engine, which is not ported yet: ROADMAP.md "
-                "slice 2; pass exact_engine='pairs' to use the "
-                "sequence-aligned engine anyway"
-            )
         try:
+            if choice == "auto" and waste > 1.5:
+                return PackedPairsEngine(enc, self.g, self.m, self.config)
             return PairsGkmEngine(enc, self.g, self.m, self.config)
         except ValueError as exc:
             if choice == "pairs":
                 raise
-            raise NotImplementedError(
-                f"{exc}; the packed and theta engines that take such shapes "
-                "are not ported yet: ROADMAP.md slices 2 and 3"
-            ) from exc
+            try:
+                return PackedPairsEngine(enc, self.g, self.m, self.config)
+            except ValueError as packed_exc:
+                raise NotImplementedError(
+                    f"{exc}; {packed_exc}; the theta engine that takes such "
+                    "shapes is not ported yet: ROADMAP.md slice 3"
+                ) from packed_exc
 
     def _compute(self, enc: EncodedSeqs) -> None:
         validate_g(enc, self.g, self.m)
         engine = self._make_exact_engine(enc)
         self._counts_dev = None
         self._K_dev = None
-        if self.config.device_resident:
-            self._counts_dev = engine.exact_device()
-            self._K_dev = self._counts_dev.normalized_f32()
+        counts = (
+            engine.exact_device() if self.config.device_resident else engine.exact()
+        )
+        if isinstance(counts, np.ndarray):
+            # host path, or counts past int32 from the packed engine
+            self._counts = counts
+            self._K = cosine_normalize(counts)
+        else:  # DeviceCounts
+            self._counts_dev = counts
+            self._K_dev = counts.normalized_f32()
             self._counts = None
             self._K = None
-        else:
-            self._counts = engine.exact()
-            self._K = cosine_normalize(self._counts)
         self.n_str_train = enc.n_train
         self.n_str_test = enc.n_test
         # total g-mer count across all sequences — the reference's nfeat

@@ -22,13 +22,17 @@ class KernelConfig:
     # the CPU their plain PyTorch versions run instead.
     device: Union[str, torch.device] = "cuda"
 
-    # Exact-mode engine: "auto" and "pairs" take the sequence-aligned
-    # all-pairs engine (kernel/pairs_engine.py). "packed" and "theta" are
-    # accepted names whose engines are not ported yet; they raise.
+    # Exact-mode engine: "pairs" is the sequence-aligned all-pairs engine,
+    # "packed" the ragged one (kernel/pairs_engine.py); "auto" picks as the
+    # JAX package does (api.py:_make_exact_engine). "theta" is an accepted
+    # name whose engine is not ported yet; it raises.
     exact_engine: str = "auto"
 
-    # All-pairs backend: "auto" is the one route of this slice — kernel A
-    # (csrc/pairs.cu) for CUDA tensors, its plain version for CPU tensors.
+    # Packed-engine route: "auto" and "pallas" take kernel D (the band
+    # sweep; kernel E with FASTSK_PACKED_PAIRLIST=1), "pallas_grouped"
+    # kernel G. The sequence-aligned engine always takes kernel A. The
+    # JAX package's "xla" and "*_interpret" are refused: on a card they
+    # would put the plain version on the main path.
     pairs_backend: str = "auto"
 
     # Keep the counts on the device (kernel/device_counts.py): normalize,
@@ -43,9 +47,9 @@ class KernelConfig:
         self.device = torch.device(self.device)
         if self.exact_engine not in ("auto", "pairs", "packed", "theta"):
             raise ValueError(f"unknown exact_engine {self.exact_engine!r}")
-        if self.pairs_backend != "auto":
-            raise NotImplementedError(
-                f"pairs_backend={self.pairs_backend!r}: the port has one "
-                "all-pairs route ('auto'); the grouped Pallas variant "
-                "(kernel G) is still to be ported (ROADMAP.md queue 2)"
+        if self.pairs_backend not in ("auto", "pallas", "pallas_grouped"):
+            raise ValueError(
+                f"pairs_backend={self.pairs_backend!r}: the port takes 'auto', "
+                "'pallas' (kernel D) or 'pallas_grouped' (kernel G); the "
+                "plain versions run only for CPU tensors"
             )

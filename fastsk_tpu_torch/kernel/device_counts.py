@@ -6,8 +6,9 @@ for the host matrix; fit/score (normalize -> Gram -> SMO -> decision
 values) then run on the device and pull only O(n) values.
 
 One int32 tensor holds the counts: the sequence-aligned engine's
-constructor guard (``p_pad**2 * C(g, k) < 2**31``) bounds every entry, so
-the JAX package's ``lo + 2**30 * hi`` carry pair is not needed here.
+constructor guard (``p_pad**2 * C(g, k) < 2**31``) bounds every entry, and
+the packed engine returns host int64 instead when a count reaches 2**31,
+so the JAX package's ``lo + 2**30 * hi`` carry pair is not needed here.
 """
 
 from __future__ import annotations

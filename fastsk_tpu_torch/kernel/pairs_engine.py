@@ -1,14 +1,17 @@
-"""All-pairs exact-kernel engine over sequence-aligned windows.
+"""All-pairs exact-kernel engines.
 
-Counterpart of ``fastsk_tpu/kernel/pairs_engine.py:PairsGkmEngine``. It
-computes the full exact gapped k-mer kernel in one sweep over window pairs,
-``K[i,j] = sum_{p,q} C(matches(w_ip, w_jq), k)`` (ops/pairs.py), instead of
-the C(g, m) counting passes of the theta engine.
+Counterpart of ``fastsk_tpu/kernel/pairs_engine.py``'s ``PairsGkmEngine``
+(sequence-aligned windows) and ``PackedPairsEngine`` (ragged windows packed
+back to back). Both compute the full exact gapped k-mer kernel in one sweep
+over window pairs, ``K[i,j] = sum_{p,q} C(matches(w_ip, w_jq), k)``
+(ops/pairs.py), instead of the C(g, m) counting passes of the theta engine.
 
-Exactness: integer counts bit-identical to the reference. Guard: every K
-entry must stay < 2^31 (int32 sums); the engine checks the worst case
-``p_pad^2 * C(g, k)`` and refuses shapes where one sequence pair could
-overflow.
+Exactness: integer counts bit-identical to the reference. The
+sequence-aligned engine's guard: every K entry must stay < 2^31 (int32
+sums); it checks the worst case ``p_pad^2 * C(g, k)`` and refuses shapes
+where one sequence pair could overflow. It also refuses the shapes kernel A
+cannot take (one-hot width, shared memory), on every device, so the API
+routes them to the packed engine, which sums int64 and has no such bound.
 
 On a local card there is no transfer to hide, so ``exact()`` is the device
 path followed by ``.cpu()``: the TPU tile sizing and the byte-plane
@@ -18,15 +21,19 @@ streaming of the JAX engine are not needed.
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops import pairs
+from ..ops import pairs, pairs_packed
 from ..ops.encode import EncodedSeqs
-from ..ops.pairs_cuda import pairs_counts
+from ..ops.pairs_cuda import padded_width, pairs_counts, tile_sequences
+from ..ops.pairs_packed_cuda import (
+    PackedRows, band_fits, packed_band, packed_grouped, packed_pairlist,
+)
 from .config import KernelConfig
 from .device_counts import DeviceCounts
 
@@ -64,6 +71,10 @@ class PairsGkmEngine:
         # kernel A tiles up to 8 sequences a side; padding sequences have
         # no valid windows and count 0
         self.n_pad = _next_multiple(self.n, 8)
+        # kernel A's limits, checked on shapes alone so that every device
+        # makes the same choice: the padded one-hot width (<= 512 bytes)
+        # and one sequence's windows in shared memory
+        tile_sequences(self.n_pad, self.p_pad, padded_width(g * self.alpha))
 
     def _build_x(self) -> torch.Tensor:
         """One-hot windows ``[n_pad * p_pad, g * alpha]`` int8 on the device."""
@@ -101,3 +112,158 @@ class PairsGkmEngine:
     def exact(self) -> np.ndarray:
         """Exact unnormalized kernel, int64 [N, N] on the host."""
         return self.exact_device().to_host_int64()
+
+
+class PackedPairsEngine:
+    """Ragged-aware all-pairs exact engine (ops/pairs_packed.py).
+
+    Sequences sorted by descending length pack back to back (rows rounded
+    to 8), so the work tracks the true window count instead of
+    N * max_windows (up to ~35x less on SCOP or NLP data), and int64 sums
+    remove the sequence-aligned engine's int32 per-pair bound.
+
+    Routes, as in the JAX engine: kernel D (``packed_band``, one launch)
+    by default; kernel E (``packed_pairlist``, slabs of strip pairs) with
+    ``FASTSK_PACKED_PAIRLIST=1`` or where D's grid does not fit;
+    kernel G (``packed_grouped``) with ``pairs_backend="pallas_grouped"``.
+    """
+
+    TILE = 2048
+    GROUP = 8  # b strips per kernel G launch
+    SLAB_BYTES = 128 << 20  # kernel E's part blocks per launch
+
+    def __init__(
+        self,
+        enc: EncodedSeqs,
+        g: int,
+        m: int,
+        config: Optional[KernelConfig] = None,
+    ):
+        self.enc = enc
+        self.g = g
+        self.m = m
+        self.k = g - m
+        self.config = config or KernelConfig()
+        self.alpha = enc.hash_base
+        self.code_min = enc.code_min
+        self.n = enc.n
+
+        # the JAX engine's refusal (its smallest digit base, 2, must keep
+        # p_max^2 * (base - 1) < 2^31); kept so that the API falls back
+        # at the same shapes
+        p_max = int(enc.num_windows(g).max())
+        if p_max**2 >= 2**31:
+            raise ValueError(
+                f"windows per sequence too large for int32 digit planes "
+                f"(p_max={p_max})"
+            )
+        if self.alpha > 256:
+            raise ValueError(
+                f"alphabet {self.alpha} exceeds the packed kernels' one-byte codes"
+            )
+
+        self.order = np.argsort(-np.asarray(enc.lengths), kind="stable")
+        lengths_sorted = np.asarray(enc.lengths)[self.order]
+        self.tile = self.TILE
+        backend = self.config.pairs_backend
+        self.route = "grouped" if backend == "pallas_grouped" else "band"
+        self.group = self.GROUP if self.route == "grouped" else 1
+        self.pack = pairs_packed.pack_windows(
+            lengths_sorted, g, self.tile, self.group
+        )
+        self.n_strips = self.pack["n_strips"]
+        self.c_max = self.pack["c_max"]
+        self.c_pad = -(-self.c_max // 16) * 16
+        self.total_rows = self.pack["total_pad"]
+        if self.route == "band" and (
+            os.environ.get("FASTSK_PACKED_PAIRLIST") == "1"
+            or not band_fits(self.total_rows)
+        ):
+            self.route = "pairlist"
+        self._ids_sorted = np.asarray(enc.ids)[self.order]
+
+    def rows(self) -> PackedRows:
+        """The packed window table on the configured device."""
+        dev = self.config.device
+        seq_of = torch.from_numpy(self.pack["seq_of"]).to(dev)
+        codes = pairs_packed.window_codes(
+            torch.from_numpy(self._ids_sorted).to(dev),
+            seq_of,
+            torch.from_numpy(self.pack["win_of"]).to(dev),
+            g=self.g, code_min=self.code_min,
+        ).to(torch.int32)
+        return PackedRows(
+            codes=codes.contiguous(), seq_of=seq_of,
+            first_seq=torch.from_numpy(self.pack["first_seq"]).to(dev),
+            tile=self.tile, c_pad=self.c_pad, alpha=self.alpha,
+        )
+
+    def counts_sorted(self) -> torch.Tensor:
+        """The full symmetric count matrix ``[n, n]`` int64 on the device,
+        in length-sorted order."""
+        rows = self.rows()
+        if self.route == "band":
+            return packed_band(rows, k=self.k, n_out=self.n)
+        dev = rows.device
+        ns = self.n_strips
+        fs = rows.first_seq
+        mat = torch.zeros(
+            (self.n + self.c_pad,) * 2, dtype=torch.int64, device=dev
+        )
+        if self.route == "pairlist":
+            pa = torch.repeat_interleave(
+                torch.arange(ns), torch.arange(ns, 0, -1)
+            )
+            pb = torch.cat([torch.arange(a, ns) for a in range(ns)])
+            slab = max(1, self.SLAB_BYTES // (self.c_pad**2 * 8))
+            for s0 in range(0, len(pa), slab):
+                a = pa[s0 : s0 + slab].to(dev, torch.int32)
+                b = pb[s0 : s0 + slab].to(dev, torch.int32)
+                parts = packed_pairlist(rows, a, b, k=self.k)
+                pairs_packed.land_parts(mat, parts, fs[a.long()], fs[b.long()], b > a)
+        else:  # grouped: strip a against the groups of strips b >= a
+            group = self.group
+            for a in range(ns):
+                g0 = a // group
+                parts = torch.cat([
+                    packed_grouped(rows, a, gi, k=self.k, group=group)
+                    for gi in range(g0, ns // group)
+                ])[a - g0 * group :]
+                b = torch.arange(a, ns, device=dev)
+                pairs_packed.land_parts(
+                    mat, parts, fs[torch.full_like(b, a)], fs[b], b > a
+                )
+        return mat[: self.n, : self.n]
+
+    def _counts(self) -> torch.Tensor:
+        """Exact int64 counts ``[n, n]`` in the input order, on the device
+        (the length sort is undone there)."""
+        t0 = time.perf_counter()
+        k_sorted = self.counts_sorted()
+        pos = np.empty(self.n, dtype=np.int64)
+        pos[self.order] = np.arange(self.n)
+        pos_t = torch.from_numpy(pos).to(k_sorted.device)
+        full = k_sorted.index_select(0, pos_t).index_select(1, pos_t)
+        if not self.config.quiet:
+            if full.is_cuda:
+                torch.cuda.synchronize(full.device)
+            print(
+                f"packed pairs exact ({self.route}): {self.n} sequences, "
+                f"{self.total_rows} window rows, strips={self.n_strips}, "
+                f"c_max={self.c_max}, {time.perf_counter() - t0:.3f} s on "
+                f"{full.device}"
+            )
+        return full
+
+    def exact_device(self):
+        """Exact unnormalized kernel: ``DeviceCounts`` (int32, on the
+        device) when every count is < 2^31, and host int64 numpy otherwise,
+        as the JAX engine returns; callers take both."""
+        full = self._counts()
+        if int(full.max()) < 2**31:
+            return DeviceCounts(full.to(torch.int32))
+        return full.cpu().numpy()
+
+    def exact(self) -> np.ndarray:
+        """Exact unnormalized kernel, int64 [N, N] on the host."""
+        return self._counts().cpu().numpy()

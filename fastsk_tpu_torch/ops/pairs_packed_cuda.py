@@ -1,0 +1,251 @@
+"""Wrappers of kernels D, E and G (``csrc/pairs_packed.cu``).
+
+Counterparts of ``fastsk_tpu/ops/pairs_packed_pallas.py``:
+
+- ``packed_band``     (kernel D, ``packed_band_pallas``): every
+  upper-triangle row-pair tile at once, landed straight into the full
+  symmetric count matrix;
+- ``packed_pairlist`` (kernel E, ``packed_pairlist_pallas``): part blocks
+  of a list of strip pairs, for ``ops/pairs_packed.py:land_parts``;
+- ``packed_grouped``  (kernel G, ``packed_part_pallas``): part blocks of
+  strip a against one group of b strips.
+
+Each takes a ``PackedRows`` (the packed window codes and their layout).
+On a CPU tensor it runs the plain version (``ops/pairs_packed.py``); on a
+CUDA tensor it launches its kernel or raises. Outputs are int64 counts.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import torch
+
+from .. import _build
+from .pairs_packed import onehot_rows, packed_counts_plain, packed_pair_parts_plain
+
+ROW_TILE = 128  # rows a side of the kernels' tile pair (= threads a block)
+_MAX_BLOCKS = 2**31 - 1  # a 1-D grid
+
+
+class TileMeta(NamedTuple):
+    tile_first: torch.Tensor  # [R / tr] int32: first sequence of each tile
+    cb: int  # largest sequence span of a tile (bins a side)
+
+
+@dataclass(eq=False)
+class PackedRows:
+    """The packed window table as the kernels and their plain versions
+    take it. ``codes [R, g]`` int32 window codes (``code - code_min``, -1
+    on padding rows), ``seq_of [R]`` int32 (-1 padding), ``first_seq
+    [n_strips]`` int32, all on one device; ``R`` is a multiple of
+    ``tile``."""
+
+    codes: torch.Tensor
+    seq_of: torch.Tensor
+    first_seq: torch.Tensor
+    tile: int
+    c_pad: int
+    alpha: int
+    _meta: dict = field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        r, g = self.codes.shape
+        if self.codes.dtype != torch.int32 or self.seq_of.dtype != torch.int32:
+            raise ValueError("codes and seq_of must be int32")
+        if self.seq_of.shape != (r,) or r % self.tile:
+            raise ValueError(f"{r} rows must match seq_of and be a multiple of tile={self.tile}")
+        if not 1 <= g <= 20:
+            raise ValueError(f"need 1 <= g <= 20; got g={g}")
+        if self.alpha > 256:
+            raise ValueError(
+                f"alphabet {self.alpha} exceeds the kernels' one-byte codes (<= 256)"
+            )
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    @property
+    def g(self) -> int:
+        return self.codes.shape[1]
+
+    @property
+    def n_strips(self) -> int:
+        return self.codes.shape[0] // self.tile
+
+    @functools.cached_property
+    def onehot(self) -> torch.Tensor:
+        """``[R, g * alpha]`` int8: the plain versions' operand."""
+        return onehot_rows(self.codes, self.alpha)
+
+    @functools.cached_property
+    def words(self) -> torch.Tensor:
+        """``[R', ceil(g / 4)]`` int32: each window's codes one byte each
+        (zero bytes past g), rows padded with zero words up to a multiple
+        of ``ROW_TILE``."""
+        r, g = self.codes.shape
+        w = -(-g // 4)
+        r_pad = -(-r // ROW_TILE) * ROW_TILE
+        b = self.codes.clamp_min(0).to(torch.uint8)
+        b = torch.nn.functional.pad(b, (0, 4 * w - g, 0, r_pad - r))
+        return b.contiguous().view(torch.int32)
+
+    @functools.cached_property
+    def seq_padded(self) -> torch.Tensor:
+        """``seq_of`` padded with -1 to the rows of ``words``."""
+        r_pad = self.words.shape[0]
+        return torch.nn.functional.pad(
+            self.seq_of, (0, r_pad - self.seq_of.shape[0]), value=-1
+        ).contiguous()
+
+    def meta(self, tr: int) -> TileMeta:
+        """Per ``tr``-row tile: its first sequence (0 where the tile has no
+        valid row) and the largest span of sequences in any tile."""
+        if tr in self._meta:
+            return self._meta[tr]
+        s = self.seq_padded.view(-1, tr)
+        valid = s >= 0
+        any_valid = valid.any(1)
+        first = torch.where(valid, s, torch.iinfo(torch.int32).max).amin(1)
+        last = torch.where(valid, s, -1).amax(1)
+        span = torch.where(any_valid, last - first + 1, 0)
+        cb = max(int(span.max()), 1)
+        # every sequence owns at least 8 rows (length >= g), so a tile spans
+        # at most tr / 8 + 1 of them: the kernels' cb^2 shared bins stay small
+        assert cb <= tr // 8 + 1, f"a {tr}-row tile spans {cb} sequences"
+        tile_first = torch.where(any_valid, first, 0).to(torch.int32).contiguous()
+        self._meta[tr] = TileMeta(tile_first, cb)
+        return self._meta[tr]
+
+    def sub_tile(self) -> int:
+        """Rows a side of E's and G's tile pairs: 128, or the strip when
+        strips are narrower."""
+        tr = min(self.tile, ROW_TILE)
+        if self.tile % tr:
+            raise ValueError(f"strip tile {self.tile} is not a multiple of {tr}")
+        return tr
+
+
+def _check_k(rows: PackedRows, k: int) -> None:
+    if not 1 <= k <= rows.g:
+        raise ValueError(f"need 1 <= k <= g; got g={rows.g}, k={k}")
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"kernels D, E, G run on CUDA or CPU tensors, not {rows.device}")
+
+
+def band_fits(total_rows: int) -> bool:
+    """Kernel D's own limit on the card: one block per upper-triangle pair
+    of 128-row tiles, in a 1-D grid of at most 2^31 - 1 blocks (about 8.4M
+    window rows)."""
+    nt = -(-total_rows // ROW_TILE)
+    return nt * (nt + 1) // 2 <= _MAX_BLOCKS
+
+
+def _launch(fn, name: str, rows: PackedRows, *args) -> None:
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(*args, stream)
+    _build.check_launch(status, name)
+
+
+def packed_band(rows: PackedRows, *, k: int, n_out: int) -> torch.Tensor:
+    """Kernel D: the full symmetric count matrix ``[n_out, n_out]`` int64
+    in packed (length-sorted) sequence order; ``n_out`` is at least the
+    number of sequences."""
+    _check_k(rows, k)
+    if rows.device.type == "cpu":
+        return packed_counts_plain(
+            rows.onehot, rows.seq_of, rows.first_seq,
+            k=k, tile=rows.tile, c_pad=rows.c_pad, n_out=n_out,
+        )
+    words = rows.words
+    if not band_fits(words.shape[0]):
+        raise ValueError(f"{words.shape[0]} rows exceed kernel D's 1-D grid")
+    meta = rows.meta(ROW_TILE)
+    out = torch.zeros((n_out, n_out), dtype=torch.int64, device=rows.device)
+    lib = _build.kernels()
+    _launch(
+        lib.packed_band_launch, "packed_band", rows,
+        words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+        out.data_ptr(), words.shape[0] // ROW_TILE, n_out, words.shape[1],
+        meta.cb, k, 4 * words.shape[1] - rows.g,
+    )
+    packed_band.launches += 1
+    return out
+
+
+def packed_pairlist(
+    rows: PackedRows, pa: torch.Tensor, pb: torch.Tensor, *, k: int
+) -> torch.Tensor:
+    """Kernel E: part blocks ``[S, c_pad, c_pad]`` int64 of the ordered
+    strip pairs ``(pa[s], pb[s])`` (int32 tensors on the rows' device)."""
+    _check_k(rows, k)
+    if pa.shape != pb.shape or pa.dim() != 1:
+        raise ValueError("pa and pb must be 1-D and of one length")
+    if rows.device.type == "cpu":
+        return packed_pair_parts_plain(
+            rows.onehot, rows.seq_of, rows.first_seq, pa.tolist(), pb.tolist(),
+            k=k, tile=rows.tile, c_pad=rows.c_pad,
+        )
+    pa = pa.to(device=rows.device, dtype=torch.int32).contiguous()
+    pb = pb.to(device=rows.device, dtype=torch.int32).contiguous()
+    tr = rows.sub_tile()
+    meta = rows.meta(tr)
+    tps = rows.tile // tr
+    if pa.numel() * tps * tps > _MAX_BLOCKS:
+        raise ValueError(f"{pa.numel()} strip pairs exceed kernel E's 1-D grid")
+    c = rows.c_pad
+    out = torch.zeros((pa.numel(), c, c), dtype=torch.int64, device=rows.device)
+    words = rows.words
+    lib = _build.kernels()
+    _launch(
+        lib.packed_pairlist_launch, "packed_pairlist", rows,
+        words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+        rows.first_seq.data_ptr(), pa.data_ptr(), pb.data_ptr(), out.data_ptr(),
+        pa.numel(), words.shape[1], tr, tps, meta.cb, k,
+        4 * words.shape[1] - rows.g, c,
+    )
+    packed_pairlist.launches += 1
+    return out
+
+
+def packed_grouped(
+    rows: PackedRows, a: int, gidx: int, *, k: int, group: int
+) -> torch.Tensor:
+    """Kernel G: part blocks ``[group, c_pad, c_pad]`` int64 of strip ``a``
+    against strips ``gidx * group + u``, u < group."""
+    _check_k(rows, k)
+    if not (0 <= a < rows.n_strips and 0 <= gidx and (gidx + 1) * group <= rows.n_strips):
+        raise ValueError(
+            f"strip {a} or group {gidx} x {group} outside {rows.n_strips} strips"
+        )
+    if rows.device.type == "cpu":
+        return packed_pair_parts_plain(
+            rows.onehot, rows.seq_of, rows.first_seq,
+            [a] * group, range(gidx * group, (gidx + 1) * group),
+            k=k, tile=rows.tile, c_pad=rows.c_pad,
+        )
+    tr = rows.sub_tile()
+    meta = rows.meta(tr)
+    tps = rows.tile // tr
+    c = rows.c_pad
+    out = torch.zeros((group, c, c), dtype=torch.int64, device=rows.device)
+    words = rows.words
+    lib = _build.kernels()
+    _launch(
+        lib.packed_grouped_launch, "packed_grouped", rows,
+        words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+        rows.first_seq.data_ptr(), a, gidx, group, out.data_ptr(),
+        words.shape[1], tr, tps, meta.cb, k, 4 * words.shape[1] - rows.g, c,
+    )
+    packed_grouped.launches += 1
+    return out
+
+
+# kernel launches; the CPU path does not count
+packed_band.launches = 0
+packed_pairlist.launches = 0
+packed_grouped.launches = 0

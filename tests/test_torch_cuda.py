@@ -1,4 +1,4 @@
-"""Kernels A and B against their plain PyTorch versions, on the card.
+"""Kernels A, B, D, E and G against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
@@ -7,13 +7,15 @@ Tolerances: counts are integers (equal); kernel B must take the twin's
 exact f32 trajectory (equal iterations, alpha and grad).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from fastsk_tpu_torch.kernel.pairs_engine import PairsGkmEngine
+from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
 from fastsk_tpu_torch.kernel.config import KernelConfig
-from fastsk_tpu_torch.ops import pairs, pairs_cuda
+from fastsk_tpu_torch.ops import pairs, pairs_cuda, pairs_packed, pairs_packed_cuda
 from fastsk_tpu_torch.ops.encode import encode_sequences
 from fastsk_tpu_torch.svm import smo_cuda
 
@@ -25,7 +27,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernels A and B run only on the card")
+        pytest.skip("needs a CUDA device: the port's kernels run only on the card")
     return torch.device("cuda")
 
 
@@ -71,3 +73,74 @@ def test_kernel_b_matches_twin(cuda, n):
         assert it_k == it_p
         torch.testing.assert_close(a_k, a_p, rtol=0, atol=0)
         torch.testing.assert_close(g_k, g_p, rtol=0, atol=0)
+
+
+def _ragged(seed, n, lmin, lmax, alpha):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, alpha + 1, size=int(rng.integers(lmin, lmax + 1))).tolist() for _ in range(n)]
+
+
+# (sequences, g, m, strip tile): 256-row strips split the longer sequences
+# across strips and 128-row tiles; g=7 leaves a padding byte in the last
+# word, g=12 uses three words, g=16 four, g=20 five; the last case
+# exceeds int32 (its counts are known in closed form)
+@pytest.mark.parametrize(
+    "X,g,m,tile",
+    [
+        (_ragged(1, 9, 20, 400, 4), 6, 3, 256),
+        (_ragged(2, 13, 10, 300, 24), 7, 3, 256),
+        (_ragged(3, 40, 9, 60, 20), 8, 4, 2048),
+        (_ragged(4, 6, 30, 200, 4), 12, 6, 256),
+        (_ragged(5, 7, 30, 200, 4), 16, 14, 256),
+        ([[3] * 130, [3] * 130, [3] * 40], 20, 10, 256),
+    ],
+)
+def test_kernels_d_e_g_match_plain_and_oracle(cuda, monkeypatch, X, g, m, tile):
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    eng = PackedPairsEngine(encode_sequences(X), g, m, KernelConfig(device=cuda, pairs_backend="pallas_grouped"))
+    rows = eng.rows()
+    k = g - m
+    want = pairs_packed.packed_counts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, k=k, tile=tile, c_pad=eng.c_pad, n_out=eng.n
+    )
+    order = eng.order
+    if g == 20:  # constant sequences: every window pair matches in all 20 places
+        p = np.array([len(s) - g + 1 for s in X], dtype=np.int64)
+        oracle_counts = np.outer(p, p) * math.comb(20, 10)
+        assert oracle_counts.max() >= 2**31
+    else:
+        oracle_counts = oracle.exact_counts(X, g, m)
+    np.testing.assert_array_equal(want.cpu().numpy(), oracle_counts[np.ix_(order, order)])
+
+    before = pairs_packed_cuda.packed_band.launches
+    band = pairs_packed_cuda.packed_band(rows, k=k, n_out=eng.n)
+    torch.cuda.synchronize()
+    assert pairs_packed_cuda.packed_band.launches == before + 1
+    torch.testing.assert_close(band, want, rtol=0, atol=0)
+
+    ns = eng.n_strips
+    pa = torch.repeat_interleave(torch.arange(ns), torch.arange(ns, 0, -1)).to(cuda, torch.int32)
+    pb = torch.cat([torch.arange(a, ns) for a in range(ns)]).to(cuda, torch.int32)
+    before = pairs_packed_cuda.packed_pairlist.launches
+    parts = pairs_packed_cuda.packed_pairlist(rows, pa, pb, k=k)
+    torch.cuda.synchronize()
+    assert pairs_packed_cuda.packed_pairlist.launches == before + 1
+    parts_plain = pairs_packed.packed_pair_parts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, pa.tolist(), pb.tolist(), k=k, tile=tile, c_pad=eng.c_pad
+    )
+    torch.testing.assert_close(parts, parts_plain, rtol=0, atol=0)
+
+    before = pairs_packed_cuda.packed_grouped.launches
+    grp = pairs_packed_cuda.packed_grouped(rows, 0, 0, k=k, group=eng.group)
+    torch.cuda.synchronize()
+    assert pairs_packed_cuda.packed_grouped.launches == before + 1
+    grp_plain = pairs_packed.packed_pair_parts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, [0] * eng.group, range(eng.group),
+        k=k, tile=tile, c_pad=eng.c_pad,
+    )
+    torch.testing.assert_close(grp, grp_plain, rtol=0, atol=0)
+
+    # every route through the engine, in the input order
+    for route in ("band", "pairlist", "grouped"):
+        eng.route = route
+        np.testing.assert_array_equal(eng.exact(), oracle_counts)

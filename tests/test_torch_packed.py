@@ -1,0 +1,365 @@
+"""The port's packed (ragged) exact engine against the JAX package, on the CPU.
+
+Same numpy-seeded inputs through ``fastsk_tpu``'s ``PackedPairsEngine``
+(the XLA backend, and kernels D, E and G in Pallas interpret mode) and
+``fastsk_tpu_torch``'s, where the wrappers of kernels D, E and G run their
+plain versions. Counts are integers: the tolerance is equality. The
+whole-slice test holds AUC within 1e-6 and accuracy equal, as
+``tests/test_torch_slice.py`` does.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import fastsk_tpu as J
+import fastsk_tpu_torch as T
+from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine as JPacked
+from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
+from fastsk_tpu_torch.ops import pairs_packed, pairs_packed_cuda
+from fastsk_tpu_torch.ops.encode import encode_sequences
+
+import oracle
+from conftest import random_ragged_seqs
+
+CPU = dict(device="cpu")
+
+
+@pytest.fixture
+def small_tile(monkeypatch):
+    """64-row strips in both packages, as tests/test_packed_engine.py does."""
+    monkeypatch.setattr(JPacked, "TILE", 64)
+    monkeypatch.setattr(PackedPairsEngine, "TILE", 64)
+
+
+def _port(X, g, m, **cfg):
+    return PackedPairsEngine(encode_sequences(X), g, m, T.KernelConfig(**CPU, **cfg))
+
+
+# the shapes of tests/test_packed_engine.py::test_packed_matches_oracle
+@pytest.mark.parametrize(
+    "g,m,n,lmin,lmax,alpha",
+    [
+        (6, 3, 9, 8, 30, 4),
+        (5, 2, 12, 6, 60, 3),
+        (8, 4, 10, 10, 40, 20),  # protein-sized alphabet
+        (6, 5, 14, 7, 25, 30),  # text-sized alphabet
+    ],
+)
+def test_packed_matches_jax_and_oracle(rng, small_tile, g, m, n, lmin, lmax, alpha):
+    X = random_ragged_seqs(rng, n, lmin, lmax, alphabet=alpha)
+    eng = _port(X, g, m)
+    assert eng.route == "band"
+    got = eng.exact()
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, oracle.exact_counts(X, g, m))
+    np.testing.assert_array_equal(got, JPacked(encode_sequences(X), g, m).exact())
+
+
+@pytest.mark.parametrize(
+    "route,jax_backend,pairlist",
+    [
+        ("band", "pallas_interpret", False),  # kernel D
+        ("pairlist", "pallas_interpret", True),  # kernel E
+        ("grouped", "pallas_grouped_interpret", False),  # kernel G
+    ],
+)
+def test_routes_match_jax_pallas_interpret(
+    rng, small_tile, monkeypatch, route, jax_backend, pairlist
+):
+    """Each route of the port against the JAX Pallas kernel it replaces,
+    on sequences that straddle strips."""
+    if pairlist:
+        monkeypatch.setenv("FASTSK_PACKED_PAIRLIST", "1")
+    X = random_ragged_seqs(rng, 8, 60, 150, alphabet=4)
+    enc = encode_sequences(X)
+    jeng = JPacked(enc, 6, 3, J.KernelConfig(pairs_backend=jax_backend))
+    eng = PackedPairsEngine(
+        enc, 6, 3,
+        T.KernelConfig(
+            pairs_backend="pallas_grouped" if route == "grouped" else "pallas", **CPU
+        ),
+    )
+    assert eng.route == route and eng.n_strips > 5
+    np.testing.assert_array_equal(eng.exact(), jeng.exact())
+
+
+@pytest.mark.parametrize("route", ["band", "pairlist", "grouped"])
+def test_routes_straddling_match_oracle(rng, small_tile, monkeypatch, route):
+    if route == "pairlist":
+        monkeypatch.setenv("FASTSK_PACKED_PAIRLIST", "1")
+        monkeypatch.setattr(PackedPairsEngine, "SLAB_BYTES", 3 * 16 * 16 * 8)
+    backend = "pallas_grouped" if route == "grouped" else "auto"
+    X = random_ragged_seqs(rng, 6, 100, 200, alphabet=4)
+    eng = _port(X, 6, 3, pairs_backend=backend)
+    assert eng.route == route and eng.n_strips > 5
+    np.testing.assert_array_equal(eng.exact(), oracle.exact_counts(X, 6, 3))
+
+
+def test_two_digit_weights(rng, small_tile):
+    """C(12, 6) = 924: two digit planes in the JAX package, plain int64
+    here."""
+    X = random_ragged_seqs(rng, 8, 18, 40, alphabet=4)
+    want = oracle.exact_counts(X, 12, 6)
+    np.testing.assert_array_equal(_port(X, 12, 6).exact(), want)
+    np.testing.assert_array_equal(JPacked(encode_sequences(X), 12, 6).exact(), want)
+
+
+def test_repetitive_and_mixed(rng, small_tile):
+    X = [[1] * 150, [1] * 150, [1, 2, 3, 4] * 40]
+    X += random_ragged_seqs(rng, 8, 8, 160, alphabet=4)
+    want = oracle.exact_counts(X, 5, 2)
+    np.testing.assert_array_equal(_port(X, 5, 2).exact(), want)
+    np.testing.assert_array_equal(JPacked(encode_sequences(X), 5, 2).exact(), want)
+
+
+def test_int64_fallback(small_tile):
+    """Two sequences of 130 equal codes at g=20, m=10: every entry is
+    111^2 * C(20, 10) > 2^31, so both packages return host int64."""
+    X = [[3] * 130, [3] * 130]
+    enc = encode_sequences(X)
+    want = np.full((2, 2), 111**2 * math.comb(20, 10), dtype=np.int64)
+    assert want[0, 0] >= 2**31
+    got = PackedPairsEngine(enc, 20, 10, T.KernelConfig(**CPU)).exact_device()
+    ref = JPacked(enc, 20, 10).exact_device()
+    for counts in (got, ref):
+        assert isinstance(counts, np.ndarray) and counts.dtype == np.int64
+        np.testing.assert_array_equal(counts, want)
+    fsk = T.FastSK(20, 10, config=T.KernelConfig(device_resident=True, **CPU))
+    fsk.compute_train(X)
+    np.testing.assert_array_equal(fsk.kernel_counts, want)
+
+
+def test_api_routes_ragged_to_packed(rng):
+    X = random_ragged_seqs(rng, 10, 8, 80, alphabet=4)
+    fsk = T.FastSK(6, 2, config=T.KernelConfig(**CPU))
+    assert isinstance(fsk._make_exact_engine(encode_sequences(X)), PackedPairsEngine)
+    fsk.compute_train(X)
+    ref = J.FastSK(6, 2)
+    ref.compute_train(X)
+    np.testing.assert_array_equal(fsk.kernel_counts, ref.kernel_counts)
+
+
+def test_api_guard_rejected_falls_to_packed(rng):
+    """Over the sequence-aligned int32 bound (g=16, m=10 at length 800)."""
+    X = [rng.integers(1, 5, size=800).tolist() for _ in range(3)]
+    enc = encode_sequences(X)
+    fsk = T.FastSK(16, 10, config=T.KernelConfig(**CPU))
+    assert isinstance(fsk._make_exact_engine(enc), PackedPairsEngine)
+    assert type(J.FastSK(16, 10)._make_exact_engine(enc)).__name__ == "PackedPairsEngine"
+
+
+def test_kernel_a_width_limit_routes_to_packed():
+    """Uniform-length text at g=11 over 56 codes: a 616-byte one-hot row,
+    past kernel A's 512. The constructor refuses it on every device, the
+    API takes the packed engine, and the counts equal the JAX package's
+    (its sequence-aligned engine)."""
+    rng = np.random.default_rng(5)
+    X = rng.integers(1, 57, size=(6, 24))
+    X[:, 0], X[:, 1] = 1, 56  # the full code range, so hash_base = 56
+    X = X.tolist()
+    enc = encode_sequences(X)
+    assert enc.hash_base == 56
+    fsk = T.FastSK(11, 4, config=T.KernelConfig(**CPU))
+    assert isinstance(fsk._make_exact_engine(enc), PackedPairsEngine)
+    fsk.compute_train(X)
+    ref = J.FastSK(11, 4)
+    assert type(ref._make_exact_engine(enc)).__name__ == "PairsGkmEngine"
+    ref.compute_train(X)
+    np.testing.assert_array_equal(fsk.kernel_counts, ref.kernel_counts)
+    with pytest.raises(ValueError, match="512 bytes"):
+        T.FastSK(11, 4, config=T.KernelConfig(exact_engine="pairs", **CPU))._make_exact_engine(enc)
+
+
+def test_kernel_a_shared_memory_limit():
+    """Uniform proteins of length 1000 at g=10 over 24 codes: 992 x 256 B
+    of windows per sequence exceed shared memory."""
+    X = np.random.default_rng(6).integers(1, 25, size=(3, 1000)).tolist()
+    enc = encode_sequences(X)
+    with pytest.raises(ValueError, match="shared memory"):
+        PairsGkmEngine(enc, 10, 4, T.KernelConfig(**CPU))
+    fsk = T.FastSK(10, 4, config=T.KernelConfig(**CPU))
+    assert isinstance(fsk._make_exact_engine(enc), PackedPairsEngine)
+
+
+def _ragged_labelled(seed: int, n: int):
+    """Ragged sequences over 20 codes; positives carry a planted motif."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 2, size=n)
+    X = []
+    for label in y:
+        s = rng.integers(1, 21, size=int(rng.integers(12, 60)))
+        if label:
+            at = int(rng.integers(0, len(s) - 8 + 1))
+            s[at : at + 8] = [3, 7, 1, 9, 4, 4, 12, 5]
+        X.append(s.tolist())
+    return X[: 3 * n // 4], X[3 * n // 4 :], y[: 3 * n // 4], y[3 * n // 4 :]
+
+
+@pytest.mark.parametrize("device_resident", [False, True])
+def test_ragged_slice_matches_jax(device_resident):
+    Xtr, Xte, ytr, yte = _ragged_labelled(21, 64)
+    j = J.FastSK(6, 2, config=J.KernelConfig(device_resident=device_resident))
+    t = T.FastSK(6, 2, config=T.KernelConfig(device_resident=device_resident, **CPU))
+    for f in (j, t):
+        f.compute_kernel(Xtr, Xte, ytr, yte)
+    assert isinstance(t._make_exact_engine(encode_sequences(Xtr, Xte)), PackedPairsEngine)
+    np.testing.assert_array_equal(t.kernel_counts, j.kernel_counts)
+    for f in (j, t):
+        f.fit(C=1.0)
+    assert abs(t.score("auc") - j.score("auc")) <= 1e-6
+    assert t.score("accuracy") == j.score("accuracy")
+
+
+def test_config_routes():
+    assert T.KernelConfig(pairs_backend="pallas_grouped").pairs_backend == "pallas_grouped"
+    T.KernelConfig(pairs_backend="pallas", exact_engine="packed")
+    for refused in ("xla", "pallas_interpret", "pallas_grouped_interpret"):
+        with pytest.raises(ValueError, match="plain versions run only"):
+            T.KernelConfig(pairs_backend=refused)
+
+
+def test_wrappers_check_inputs_and_count_no_cpu_launch(rng, small_tile):
+    eng = _port(random_ragged_seqs(rng, 5, 20, 90, alphabet=4), 6, 3)
+    rows = eng.rows()
+    before = (
+        pairs_packed_cuda.packed_band.launches,
+        pairs_packed_cuda.packed_pairlist.launches,
+        pairs_packed_cuda.packed_grouped.launches,
+    )
+    pairs_packed_cuda.packed_band(rows, k=3, n_out=eng.n)
+    pairs_packed_cuda.packed_pairlist(rows, torch.tensor([0]), torch.tensor([1]), k=3)
+    pairs_packed_cuda.packed_grouped(rows, 0, 0, k=3, group=2)
+    after = (
+        pairs_packed_cuda.packed_band.launches,
+        pairs_packed_cuda.packed_pairlist.launches,
+        pairs_packed_cuda.packed_grouped.launches,
+    )
+    assert after == before  # CPU path: no launch
+    with pytest.raises(ValueError, match="k <= g"):
+        pairs_packed_cuda.packed_band(rows, k=0, n_out=eng.n)
+    with pytest.raises(ValueError, match="outside"):
+        pairs_packed_cuda.packed_grouped(rows, 0, eng.n_strips, k=3, group=1)
+    with pytest.raises(ValueError, match="one-byte"):
+        pairs_packed_cuda.PackedRows(
+            rows.codes, rows.seq_of, rows.first_seq, rows.tile, rows.c_pad, 300
+        )
+
+
+def _emulate_kernels(rows: pairs_packed_cuda.PackedRows, k: int, n: int):
+    """numpy model of what kernels D and E compute from the operands their
+    wrappers build (byte words, padded seq_of, tile metadata): byte
+    compares including the padding bytes, the C(t - pad, k) table, bins
+    relative to tile_first, and each kernel's landing rule."""
+    words = rows.words.numpy()
+    by = words.view(np.uint8).reshape(words.shape[0], -1)
+    pad = by.shape[1] - rows.g
+    seq = rows.seq_padded.numpy()
+    tbl = np.array([math.comb(t - pad, k) if t - pad >= k else 0 for t in range(by.shape[1] + 1)])
+
+    def tile_pair(ti, tj, tr, meta):
+        ri, rj = slice(ti * tr, (ti + 1) * tr), slice(tj * tr, (tj + 1) * tr)
+        w = tbl[(by[ri][:, None, :] == by[rj][None, :, :]).sum(-1)]
+        si, sj = seq[ri], seq[rj]
+        w = w * ((si >= 0)[:, None] & (sj >= 0)[None, :])
+        fi, fj = int(meta.tile_first[ti]), int(meta.tile_first[tj])
+        bins = np.zeros((meta.cb, meta.cb), np.int64)
+        np.add.at(bins, (np.clip(si - fi, 0, None)[:, None], np.clip(sj - fj, 0, None)[None, :]), w)
+        assert bins.max() < 2**32  # the shared-memory bins are 32-bit unsigned
+        return bins, fi, fj
+
+    meta = rows.meta(pairs_packed_cuda.ROW_TILE)
+    nt = words.shape[0] // pairs_packed_cuda.ROW_TILE
+    band = np.zeros((n, n), np.int64)
+    for tj in range(nt):
+        for ti in range(tj + 1):
+            bins, fi, fj = tile_pair(ti, tj, pairs_packed_cuda.ROW_TILE, meta)
+            for (a, b), v in np.ndenumerate(bins):
+                if v:
+                    band[fi + a, fj + b] += v
+                    if ti != tj:
+                        band[fj + b, fi + a] += v
+
+    tr = rows.sub_tile()
+    tps = rows.tile // tr
+    meta = rows.meta(tr)
+    fs = rows.first_seq.numpy()
+    ns = rows.n_strips
+    pa = np.repeat(np.arange(ns), np.arange(ns, 0, -1))
+    pb = np.concatenate([np.arange(a, ns) for a in range(ns)])
+    parts = np.zeros((len(pa), rows.c_pad, rows.c_pad), np.int64)
+    for s, (a, b) in enumerate(zip(pa, pb)):
+        for sub in range(tps * tps):
+            bins, fi, fj = tile_pair(a * tps + sub // tps, b * tps + sub % tps, tr, meta)
+            for (i, j), v in np.ndenumerate(bins):
+                if v:
+                    parts[s, fi + i - fs[a], fj + j - fs[b]] += v
+    return band, parts, pa, pb
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+def test_kernel_model_matches_plain(rng, monkeypatch, tile):
+    """The kernels' operands and landing rules, modelled in numpy: D's
+    upper-tile sweep with mirrored off-diagonal bins, and E's part blocks
+    landed by ``land_parts``, both equal the plain version and the oracle
+    on straddling sequences (g=7: one padding byte a word)."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = random_ragged_seqs(rng, 7, 20, 200, alphabet=5)
+    eng = _port(X, 7, 3)
+    rows = eng.rows()
+    band, parts, pa, pb = _emulate_kernels(rows, eng.k, eng.n)
+    plain = pairs_packed_cuda.packed_band(rows, k=eng.k, n_out=eng.n).numpy()
+    np.testing.assert_array_equal(band, plain)
+    order = eng.order
+    want = oracle.exact_counts(X, 7, 3)[np.ix_(order, order)]
+    np.testing.assert_array_equal(band, want)
+    np.testing.assert_array_equal(
+        parts,
+        pairs_packed.packed_pair_parts_plain(
+            rows.onehot, rows.seq_of, rows.first_seq, pa, pb,
+            k=eng.k, tile=rows.tile, c_pad=rows.c_pad,
+        ).numpy(),
+    )
+    mat = torch.zeros((eng.n + eng.c_pad,) * 2, dtype=torch.int64)
+    pa_t, pb_t = torch.from_numpy(pa), torch.from_numpy(pb)
+    pairs_packed.land_parts(
+        mat, torch.from_numpy(parts), rows.first_seq[pa_t], rows.first_seq[pb_t], pb_t > pa_t
+    )
+    np.testing.assert_array_equal(mat[: eng.n, : eng.n].numpy(), want)
+
+
+def test_pack_windows_matches_jax(rng):
+    from fastsk_tpu.ops.pairs_packed import pack_windows as j_pack
+
+    lengths = np.sort(rng.integers(8, 300, size=40))[::-1]
+    for tile, group in ((64, 1), (2048, 8)):
+        got, ref = pairs_packed.pack_windows(lengths, 6, tile, group), j_pack(lengths, 6, tile, group)
+        assert got.keys() == ref.keys()
+        for key in ref:
+            np.testing.assert_array_equal(got[key], ref[key])
+
+
+def test_packed_onehot_matches_jax_build_packed_x(rng, small_tile):
+    """``onehot_rows(window_codes(...))`` is the JAX ``build_packed_x``."""
+    import jax.numpy as jnp
+
+    from fastsk_tpu.ops.pairs_packed import build_packed_x as j_build
+
+    X = random_ragged_seqs(rng, 6, 9, 40, alphabet=7)
+    eng = _port(X, 5, 2)
+    p = eng.pack
+    got = pairs_packed.onehot_rows(
+        pairs_packed.window_codes(
+            torch.from_numpy(eng._ids_sorted), torch.from_numpy(p["seq_of"]),
+            torch.from_numpy(p["win_of"]), g=5, code_min=eng.code_min,
+        ),
+        eng.alpha,
+    )
+    assert torch.equal(got, eng.rows().onehot)
+    ref = j_build(
+        jnp.asarray(eng._ids_sorted), jnp.asarray(p["seq_of"]), jnp.asarray(p["win_of"]),
+        g=5, alpha=eng.alpha, code_min=eng.code_min, dtype=jnp.int8,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

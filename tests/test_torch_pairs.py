@@ -92,15 +92,18 @@ def test_duplicate_and_uniform_seqs(rng):
 
 
 def test_int32_bound_guard():
-    """The same refusal as the JAX engine; the port's FastSK raises instead
-    of routing to the packed engine, which is not ported."""
+    """The same refusal as the JAX engine; the port's FastSK then routes
+    to the packed engine, as the JAX package does, and an explicit
+    ``exact_engine="pairs"`` still raises."""
+    from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
+
     X = [[1, 2, 3, 4] * 200 for _ in range(3)]  # len 800 -> huge p_pad
     enc = encode_sequences(X)
     with pytest.raises(ValueError):
         PairsGkmEngine(enc, 16, 10, CPU)
-    with pytest.raises(NotImplementedError, match="slices 2 and 3"):
-        T.FastSK(g=16, m=10, config=CPU)._make_exact_engine(enc)
-    with pytest.raises(ValueError):
+    engine = T.FastSK(g=16, m=10, config=CPU)._make_exact_engine(enc)
+    assert isinstance(engine, PackedPairsEngine)
+    with pytest.raises(ValueError, match="int32"):
         T.FastSK(
             g=16, m=10, config=T.KernelConfig(device="cpu", exact_engine="pairs")
         )._make_exact_engine(enc)

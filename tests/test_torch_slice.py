@@ -119,21 +119,32 @@ def test_compute_train_matches_jax():
 
 
 def test_unported_routes_raise():
+    """The routes of later slices raise; the packed routes that this test
+    once refused now run (packed, ragged auto, pallas_grouped)."""
+    from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
     Xtr, Xte, ytr, yte = _seeded_dna()
     cpu = dict(device="cpu")
     with pytest.raises(NotImplementedError, match="slice 3"):
         T.FastSK(6, 2, approx=True)
-    for engine in ("packed", "theta"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            T.FastSK(6, 2, config=T.KernelConfig(exact_engine=engine, **cpu)).compute_kernel(Xtr, Xte)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        T.KernelConfig(pairs_backend="pallas_grouped")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        T.FastSK(6, 2, config=T.KernelConfig(exact_engine="theta", **cpu)).compute_kernel(Xtr, Xte)
+    want = oracle.exact_counts(Xtr + Xte, 6, 2)
+    for backend in ("auto", "pallas_grouped"):
+        packed = T.FastSK(
+            6, 2, config=T.KernelConfig(exact_engine="packed", pairs_backend=backend, **cpu)
+        )
+        packed.compute_kernel(Xtr, Xte)
+        np.testing.assert_array_equal(packed.kernel_counts, want)
     ragged = [[1, 2, 3, 4] * 10] + [[1, 3, 2, 4] * 2] * 3
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        T.FastSK(4, 2, config=T.KernelConfig(**cpu)).compute_train(ragged)
+    auto = T.FastSK(4, 2, config=T.KernelConfig(**cpu))
+    assert isinstance(auto._make_exact_engine(encode_sequences(ragged)), PackedPairsEngine)
+    auto.compute_train(ragged)
     forced = T.FastSK(4, 2, config=T.KernelConfig(exact_engine="pairs", **cpu))
     forced.compute_train(ragged)
-    np.testing.assert_array_equal(forced.kernel_counts, oracle.exact_counts(ragged, 4, 2))
+    for f in (auto, forced):
+        np.testing.assert_array_equal(f.kernel_counts, oracle.exact_counts(ragged, 4, 2))
     fsk = T.FastSK(6, 2, config=T.KernelConfig(**cpu))
     fsk.compute_kernel(Xtr, Xte, ytr, yte)
     with pytest.raises(NotImplementedError, match="slice 4"):
