@@ -41,6 +41,37 @@ raises and the exit code is non-zero:
           (device_resident=False) must give an AUC within 0.005. Kernel B
           is then held to its twin, as in phase 4, on that fit's training
           Gram: the main solve (C=0.01) and the first Platt fold.
+10. smo-nu  kernel C (Solver_NU, csrc/smo.cu) against its plain twin on
+          the nu-SVC solve (nu=0.5) of the KAT2B linear Gram (n=6318), both
+          capped at 20,000 iterations, and of the ragged slice's training
+          Gram (n=2051) to the eps stop: equal iterations, bit-identical
+          alpha and grad, each class's sum of alpha at nu*n/2.
+11. svm-family  KAT2B g=8 m=4, one compute_kernel (device_resident=True),
+          then fit + score of nu_svc (AUC), one_class, epsilon_svr and
+          nu_svr (r2 on the 0/1 test labels), the counters zeroed before
+          each fit: nu_svc launches kernel C 6 times and B never, AUC >=
+          0.85 and within 0.005 of the host path's; one_class and
+          epsilon_svr launch B once, nu_svr C once; the solvers' sums of
+          alpha hold; one_class leaves at most nu + 0.02 of the training
+          rows outside; r2 > 0; every decision finite. Then kernels B and
+          C against their twins on the epsilon-SVR and nu-SVR duals of that
+          Gram (2n = 12,636 rows, the global-memory path), with the fits'
+          p vectors and starts, both capped at 3,000 iterations: equal
+          iterations, bit-identical alpha and grad.
+12. multiclass  a seeded 4-class ragged set (one motif per class, planted
+          once per 100 letters, 1,000 sequences, lengths 16-905, alphabet
+          24, 80/20 split) through
+          kernel D, then one-vs-one c_svc (36 launches of B: 6 pairs x
+          (1 solve + 5 Platt folds)) and nu_svc (36 launches of C). Each
+          model is refitted on the CPU from the same f32 Gram (the twins):
+          equal predictions, pair decisions within 1e-4 where the CPU's
+          |decision| > 1e-3, probabilities within 1e-4; accuracy >= 90%
+          as a sanity bound.
+13. cli     `python -m fastsk_tpu_torch.cli -g 10 -m 4 --json --device cuda`
+          on EP300 (2000 + 2000 sequences): AUC within 0.005 of 0.990146;
+          then -s nu_svc -r fastsk with a LIBSVM model and the kernel saved,
+          and `python -m fastsk_tpu_torch.predict_cli` on them: its accuracy
+          within 0.05 points (one row of 2000) of the CLI's.
 
 The last three lines are the card's name and power limit (nvidia-smi),
 the per-kernel JSON record, and the result line.
@@ -48,10 +79,12 @@ the per-kernel JSON record, and the result line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -60,8 +93,10 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KAT2B = os.path.join(HERE, "experiments", "results_baselines", "tmp", "KAT2B")
+EP300 = os.path.join(HERE, "experiments", "results_baselines", "tmp", "EP300")
 GOLDEN = os.path.join(HERE, "tests", "golden")
 AUC_ANCHOR = 0.903321  # experiments/results_baselines/oracle_comparison.csv, KAT2B g8 m4
+EP300_ANCHOR = 0.990146  # the same file, EP300 g10 m4
 MOTIF = [5, 17, 2, 11, 20, 8, 14, 3]  # planted in the ragged positives
 
 
@@ -109,17 +144,21 @@ def numpy_counts(X, g: int, k: int) -> np.ndarray:
     return out
 
 
-def ragged_set(seed: int, n: int, lmin: int, lmax: int, alpha: int = 24):
+def ragged_set(seed: int, n: int, lmin: int, lmax: int, alpha: int = 24, motifs=None):
     """Seeded ragged sequences over codes 1..alpha, lengths uniform in
     [lmin, lmax], with 0/1 labels; a positive carries one copy of MOTIF
-    with 0-3 random substitutions at a random place."""
+    with 0-3 random substitutions at a random place. With ``motifs`` (one
+    8-letter motif per class) the labels are 0..len(motifs)-1 and every
+    sequence carries its class's motif the same way, once per 100 letters
+    (at least once), so that one copy does not drown in a long sequence."""
     rng = np.random.default_rng(seed)
-    y = rng.integers(0, 2, size=n)
+    y = rng.integers(0, 2 if motifs is None else len(motifs), size=n)
     X = []
     for label in y:
         s = rng.integers(1, alpha + 1, size=int(rng.integers(lmin, lmax + 1)))
-        if label:
-            motif = np.array(MOTIF)
+        copies = (1 if label else 0) if motifs is None else max(1, len(s) // 100)
+        for _ in range(copies):
+            motif = np.array(MOTIF if motifs is None else motifs[label])
             subs = rng.choice(8, size=int(rng.integers(0, 4)), replace=False)
             motif[subs] = rng.integers(1, alpha + 1, size=len(subs))
             at = int(rng.integers(0, len(s) - 8 + 1))
@@ -414,7 +453,305 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
             ("G", pairs_packed_cuda.packed_grouped, 257),
         )
     ]
-    return packed_rec, smo_219
+    return packed_rec, smo_219, rfsk
+
+
+def smo_nu_twin(shape: str, gram, labels, nu: float, max_iter: int) -> dict:
+    """Kernel C against its plain twin on the nu-SVC solve of ``gram`` that
+    NuSVC.fit makes (LIBSVM's start, eps=1e-3), both capped at
+    ``max_iter``: the same iteration count, bit-identical alpha and grad,
+    and each class's sum of alpha still nu*n/2. Emits an "smo-nu" line
+    and returns its fields."""
+    from fastsk_tpu_torch.svm import smo_cuda
+    from fastsk_tpu_torch.svm.kernel_svm import nu_svc_start
+
+    dev, n = gram.device, gram.shape[0]
+    classes = np.unique(labels)
+    ys = np.where(np.asarray(labels) == classes[1], 1.0, -1.0).astype(np.float32)
+    y = torch.as_tensor(ys, device=dev)
+    Q = gram * torch.outer(y, y)
+    C = torch.ones(n, device=dev)
+    p = torch.zeros(n, device=dev)
+    a0 = torch.as_tensor(nu_svc_start(ys, nu), device=dev)
+    (a_k, g_k, it_k), ms = cuda_ms(smo_cuda.smo_nu_solve, Q, y, C, p, a0, 1e-3, max_iter)
+    grad0, qd = smo_cuda.initial_state(Q, p, a0)
+    (a_p, g_p, it_p), plain_ms = cuda_ms(
+        smo_cuda.smo_nu_loop_plain, Q, y, C, qd, a0, grad0, 1e-3, max_iter
+    )
+    dalpha = float((a_k - a_p).abs().max())
+    dgrad = float((g_k - g_p).abs().max())
+    target = nu * n / 2.0
+    sums = [float(a_k[y == c].double().sum()) for c in (1.0, -1.0)]
+    fields = dict(
+        shape=shape, n=n, nu=nu, max_iter=max_iter, kernel_ms=ms,
+        plain_ms=plain_ms, iters_kernel=it_k, iters_plain=it_p,
+        reached_eps=it_k < max_iter, max_abs_dalpha=dalpha,
+        max_abs_dgrad=dgrad, class_sums=sums, class_sum_target=target,
+    )
+    emit("smo-nu", **fields)
+    require(it_k == it_p, f"kernel C stopped at {it_k} iterations, its twin at {it_p} ({shape})")
+    require(dalpha == 0.0 and dgrad == 0.0, f"kernel C left its twin's trajectory ({shape})")
+    require(
+        all(abs(v - target) <= 1e-3 * target for v in sums),
+        f"kernel C did not conserve the class sums {sums} (target {target}, {shape})",
+    )
+    return fields
+
+
+def svr_twins(gram, targets, max_iter: int) -> dict:
+    """Kernels B and C against their twins on the 2n-row SVR duals of
+    ``gram`` as EpsilonSVR.fit (C=1, epsilon=0.1, zero start) and
+    NuSVR.fit (C=1, nu=0.5, LIBSVM's start) assemble them, p vectors
+    included, both capped at ``max_iter``. Past 10,240 rows this is the
+    kernels' global-memory path. Equal iterations and bit-identical alpha
+    and grad. Emits an "svr-twin" line per solver and returns
+    {svm_type: fields}."""
+    from fastsk_tpu_torch.svm import smo_cuda
+    from fastsk_tpu_torch.svm.kernel_svm import EpsilonSVR, nu_svr_start, svr_dual
+
+    dev, n = gram.device, gram.shape[0]
+    y = np.asarray(targets, dtype=np.float32)
+    eps = EpsilonSVR().epsilon
+    Q2, y2 = svr_dual(gram)
+    C2 = torch.full((2 * n,), 1.0, device=dev)
+    out = {}
+    for svm_type, solve, plain, p, a0 in (
+        ("epsilon_svr", smo_cuda.smo_solve, smo_cuda.smo_loop_plain,
+         np.concatenate([eps - y, eps + y]), np.zeros(2 * n, np.float32)),
+        ("nu_svr", smo_cuda.smo_nu_solve, smo_cuda.smo_nu_loop_plain,
+         np.concatenate([-y, y]), nu_svr_start(n, 1.0, 0.5)),
+    ):
+        p = torch.as_tensor(p.astype(np.float32), device=dev)
+        a0 = torch.as_tensor(a0, device=dev)
+        (a_k, g_k, it_k), ms = cuda_ms(solve, Q2, y2, C2, p, a0, 1e-3, max_iter)
+        grad0, qd = smo_cuda.initial_state(Q2, p, a0)
+        (a_p, g_p, it_p), plain_ms = cuda_ms(plain, Q2, y2, C2, qd, a0, grad0, 1e-3, max_iter)
+        fields = dict(
+            svm_type=svm_type, rows=2 * n, max_iter=max_iter, kernel_ms=ms,
+            plain_ms=plain_ms, iters_kernel=it_k, iters_plain=it_p,
+            max_abs_dalpha=float((a_k - a_p).abs().max()),
+            max_abs_dgrad=float((g_k - g_p).abs().max()),
+        )
+        emit("svr-twin", **fields)
+        require(it_k == it_p, f"{svm_type}: the kernel stopped at {it_k} iterations, its twin at {it_p}")
+        require(fields["max_abs_dalpha"] == 0.0 and fields["max_abs_dgrad"] == 0.0,
+                f"{svm_type}: the kernel left its twin's trajectory on the 2n dual")
+        out[svm_type] = fields
+    del Q2
+    torch.cuda.empty_cache()
+    return out
+
+
+def svr_record(fields: dict) -> dict:
+    """A kernel record's fields from one of svr_twins' results."""
+    return {
+        "max_abs_err_svr": fields["max_abs_dalpha"], "ms_svr": fields["kernel_ms"],
+        "plain_ms_svr": fields["plain_ms"], "iters_svr": fields["iters_kernel"],
+    }
+
+
+def svm_family_phase(dev, Xtr, Xte, Ytr, Yte, svr_twin_iters: int = 3000):
+    """Phase 11: nu_svc, one_class, epsilon_svr and nu_svr on the KAT2B
+    kernel through FastSK, the counters zeroed before each fit and read
+    after its score; then kernels B and C against their twins on the SVR
+    duals of the same Gram for ``svr_twin_iters`` iterations. Returns
+    ({svm_type: fields}, svr_twins' result)."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.svm import smo_cuda
+
+    counters = (smo_cuda.smo_solve, smo_cuda.smo_nu_solve)
+    fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
+    _, kernel_s = wall(fsk.compute_kernel, Xtr, Xte, Ytr, Yte)
+    rows_tr = fsk._rows()[0]
+    gram_tr = fsk._build_gram(rows_tr, rows_tr, "linear")
+    n, nu = len(Xtr), 0.5
+    out = {}
+    for svm_type, kw, metric in (
+        ("nu_svc", dict(nu=nu), "auc"),
+        ("one_class", dict(nu=nu), "accuracy"),
+        ("epsilon_svr", dict(C=1.0), "r2"),
+        ("nu_svr", dict(C=1.0, nu=nu), "r2"),
+    ):
+        for c in counters:
+            c.launches = 0
+        _, fit_s = wall(fsk.fit, svm_type=svm_type, **kw)
+        score, score_s = wall(fsk.score, metric)
+        launches = {c.__name__: c.launches for c in counters}
+        model = fsk._model
+        decide = getattr(model, "decision_function", model.predict)
+        dec_test, dec_train = decide(fsk._test_gram()), decide(gram_tr)
+        fields = dict(
+            svm_type=svm_type, kernel_s=kernel_s, fit_s=fit_s, score_s=score_s,
+            metric=metric, score=score, svm_iters=getattr(model, "iters_", None),
+            launches=launches,
+            decisions_finite=bool(np.isfinite(dec_test).all() and np.isfinite(dec_train).all()),
+        )
+        if svm_type == "nu_svc":
+            hfsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=False))
+            hfsk.compute_kernel(Xtr, Xte, Ytr, Yte)
+            hfsk.fit(svm_type="nu_svc", nu=nu)
+            fields["auc_host_path"] = hfsk.score("auc")
+            del hfsk
+        if svm_type in ("nu_svc", "nu_svr"):
+            dual = model.dual_
+            half = len(dual) // 2
+            if svm_type == "nu_svc":
+                ys = np.where(np.asarray(Ytr) == model.classes_[1], 1.0, -1.0)
+                sums = [float(dual[ys > 0].sum()), float(dual[ys < 0].sum())]
+            else:
+                sums = [float(dual[:half].sum()), float(dual[half:].sum())]
+            fields.update(class_sums=sums, class_sum_target=nu * n / 2.0)
+        if svm_type == "one_class":
+            fields.update(
+                alpha_sum=float(model.coef_.sum()), alpha_sum_target=nu * n,
+                outside_fraction=float((dec_train < -1e-3).mean()),
+            )
+        emit("svm-family", **fields)
+        require(fields["decisions_finite"], f"{svm_type}: a decision value is not finite")
+        want_b, want_c = {"nu_svc": (0, 6), "one_class": (1, 0), "epsilon_svr": (1, 0),
+                          "nu_svr": (0, 1)}[svm_type]
+        require(
+            launches == {"smo_solve": want_b, "smo_nu_solve": want_c},
+            f"{svm_type}: launches {launches}, expected B {want_b} and C {want_c}",
+        )
+        if "class_sums" in fields:
+            t = fields["class_sum_target"]
+            require(all(abs(v - t) <= 1e-3 * t for v in fields["class_sums"]),
+                    f"{svm_type}: class sums {fields['class_sums']} off {t}")
+        if svm_type == "nu_svc":
+            require(score >= 0.85, f"nu_svc AUC {score} < 0.85")
+            require(abs(score - fields["auc_host_path"]) <= 0.005,
+                    f"nu_svc device AUC {score} vs host AUC {fields['auc_host_path']}")
+        if svm_type == "one_class":
+            require(abs(fields["alpha_sum"] - nu * n) <= 1e-3 * nu * n,
+                    f"one_class alpha sums to {fields['alpha_sum']}, not {nu * n}")
+            require(fields["outside_fraction"] <= nu + 0.02,
+                    f"one_class leaves {fields['outside_fraction']} of the rows outside")
+        if metric == "r2":
+            require(score > 0, f"{svm_type} r2 {score} <= 0")
+        out[svm_type] = fields
+    twins = svr_twins(gram_tr, fsk.train_labels, svr_twin_iters)
+    del fsk, rows_tr, gram_tr
+    torch.cuda.empty_cache()
+    return out, twins
+
+
+def multiclass_phase(dev, size=(1000, 16, 905)) -> dict:
+    """Phase 12: a seeded 4-class ragged set of ``size`` (sequences,
+    shortest, longest) through kernel D and one-vs-one c_svc / nu_svc,
+    each with the counters zeroed before it and held to the same model
+    refitted on the CPU."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed_cuda
+    from fastsk_tpu_torch.svm import smo_cuda
+
+    motifs = np.random.default_rng(12).integers(1, 25, size=(4, 8))
+    X, y = ragged_set(412, *size, motifs=motifs)
+    perm = np.random.default_rng(4120).permutation(len(X))
+    n_tr = int(0.8 * len(X))
+    tr, te = perm[:n_tr], perm[n_tr:]
+    counters = (
+        pairs_cuda.pairs_counts, pairs_packed_cuda.packed_band,
+        smo_cuda.smo_solve, smo_cuda.smo_nu_solve,
+    )
+    for c in counters:
+        c.launches = 0
+    fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
+    _, kernel_s = wall(fsk.compute_kernel, [X[i] for i in tr], [X[i] for i in te], y[tr], y[te])
+    kernel_launches = {c.__name__: c.launches for c in counters}
+    require(kernel_launches["packed_band"] > 0 and kernel_launches["pairs_counts"] == 0,
+            f"the 4-class ragged set did not take kernel D: {kernel_launches}")
+    out = {"kernel_s": kernel_s, "kernel_launches": kernel_launches}
+    rows_tr, rows_te = fsk._rows()
+    gram_tr = fsk._build_gram(rows_tr, rows_tr, "linear")
+    gram_te = fsk._build_gram(rows_te, rows_tr, "linear")
+    for svm_type, kw, want in (
+        ("c_svc", dict(C=1.0), "smo_solve"), ("nu_svc", dict(nu=0.5), "smo_nu_solve"),
+    ):
+        for c in counters:
+            c.launches = 0
+        _, fit_s = wall(fsk.fit, svm_type=svm_type, **kw)
+        acc, score_s = wall(fsk.score, "accuracy")
+        launches = {c.__name__: c.launches for c in counters}
+        model = fsk._model
+        dec = model.decision_function(gram_te)
+        # the same model refitted on the CPU from the same f32 Gram: the
+        # twins on host tensors and host gathers, against the card's
+        # gathers, pair order, solves, Platt folds and vote
+        host = dataclasses.replace(model).fit(gram_tr.cpu(), np.asarray(fsk.train_labels))
+        dec_host = host.decision_function(gram_te.cpu())
+        sure = np.abs(dec_host) > 1e-3
+        fields = dict(
+            svm_type=svm_type, classes=4, n_train=len(tr), n_test=len(te),
+            kernel_s=kernel_s, fit_s=fit_s, score_s=score_s, accuracy=acc,
+            launches=launches, decisions_shape=list(dec.shape),
+            decisions_finite=bool(np.isfinite(dec).all()),
+            predictions_equal_host=bool(np.array_equal(
+                model.predict(gram_te), host.predict(gram_te.cpu())
+            )),
+            max_abs_ddecision_host=float(np.abs(dec - dec_host)[sure].max()),
+            max_abs_dproba_host=float(np.abs(
+                model.predict_proba(gram_te) - host.predict_proba(gram_te.cpu())
+            ).max()),
+        )
+        emit("multiclass", **fields)
+        other = "smo_nu_solve" if want == "smo_solve" else "smo_solve"
+        require(launches[want] == 36 and launches[other] == 0,
+                f"{svm_type}: launches {launches}, expected 36 of {want}")
+        require(dec.shape == (len(te), 6) and bool(np.isfinite(dec).all()),
+                f"{svm_type}: malformed pair decisions")
+        require(fields["predictions_equal_host"],
+                f"{svm_type}: the card's one-vs-one predictions differ from the CPU refit's")
+        require(fields["max_abs_ddecision_host"] <= 1e-4,
+                f"{svm_type}: pair decisions off the CPU refit's by {fields['max_abs_ddecision_host']}")
+        require(fields["max_abs_dproba_host"] <= 1e-4,
+                f"{svm_type}: probabilities off the CPU refit's by {fields['max_abs_dproba_host']}")
+        require(acc >= 90.0, f"{svm_type}: 4-class accuracy {acc}% < 90%")
+        out[svm_type] = dict(fit_s=fit_s, accuracy=acc, launches=launches)
+    del fsk, rows_tr, rows_te, gram_tr, gram_te
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_phase(tmpdir: str, device: str = "cuda", prefix: str = EP300) -> dict:
+    """Phase 13: the fastsk-torch CLI on the EP300 splits (``prefix``),
+    then its LIBSVM model and kernel through the predict tool, each in a
+    process of its own."""
+
+    def run(module, *args):
+        proc = subprocess.run(
+            [sys.executable, "-m", module, *args], cwd=HERE, capture_output=True,
+            text=True,
+        )
+        require(proc.returncode == 0, f"{module} {args} failed:\n{proc.stderr[-3000:]}")
+        return proc
+
+    tr = read_split_fasta(prefix, "train", tmpdir)
+    te = read_split_fasta(prefix, "test", tmpdir)
+    base = ["-g", "10", "-m", "4", "--json", "-q", "--device", device]
+    t0 = time.perf_counter()
+    c_svc = json.loads(run("fastsk_tpu_torch.cli", *base, tr, te).stdout.splitlines()[-1])
+    c_svc_s = time.perf_counter() - t0
+    model = os.path.join(tmpdir, "ep300_nu.model")
+    kernel = os.path.join(tmpdir, "ep300_kernel.npz")
+    nu = json.loads(run(
+        "fastsk_tpu_torch.cli", *base, "-s", "nu_svc", "-r", "fastsk", "--save-model", model,
+        "--model-format", "libsvm", "--save-kernel", kernel, tr, te,
+    ).stdout.splitlines()[-1])
+    pred = run("fastsk_tpu_torch.predict_cli", model, kernel, os.path.join(tmpdir, "p.txt"),
+               "--test-file", te)
+    line = [ln for ln in pred.stderr.splitlines() if ln.startswith("Accuracy = ")][-1]
+    pred_acc = float(line.split()[2].rstrip("%"))
+    fields = dict(
+        dataset="EP300", g=10, m=4, c_svc=c_svc, c_svc_wall_s=c_svc_s,
+        auc_anchor=EP300_ANCHOR, nu_svc=nu, predict_cli_accuracy=pred_acc,
+    )
+    emit("cli", **fields)
+    require(abs(c_svc["auc"] - EP300_ANCHOR) <= 0.005,
+            f"CLI AUC {c_svc['auc']} is off the anchor {EP300_ANCHOR}")
+    require(abs(pred_acc - nu["accuracy"]) <= 0.05,
+            f"predict_cli accuracy {pred_acc} vs the CLI's {nu['accuracy']}")
+    return fields
 
 
 def main() -> None:
@@ -510,7 +847,7 @@ def main() -> None:
     with pairs.full_f32_matmul():
         gram = rows @ rows.T
     smo_kat2b = smo_twin("KAT2B", gram, Ytr, np.ones(ntr))
-    del gram, rows, K, kat2b_counts
+    del rows, K, kat2b_counts  # the Gram stays for kernel C (phase 10)
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------- main path
@@ -554,7 +891,26 @@ def main() -> None:
     emit("golden", n=golden.shape[0], bit_identical=golden_ok)
     require(golden_ok, "the ep_sl kernel differs from the reference golden")
 
-    packed_rec, smo_219 = packed_phases(dev)
+    packed_rec, smo_219, rfsk = packed_phases(dev)
+
+    # ------------------------------------------------ kernel C vs its twin
+    nu_kat2b = smo_nu_twin("KAT2B nu-SVC main solve", gram, Ytr, 0.5, 20_000)
+    del gram
+    rows_219 = rfsk._rows()[0]
+    gram_219 = rfsk._build_gram(rows_219, rows_219, "linear")
+    nu_219 = smo_nu_twin(
+        "2.19 nu-SVC main solve", gram_219, rfsk.train_labels, 0.5,
+        max(10_000_000, 100 * gram_219.shape[0]),
+    )
+    require(nu_219["reached_eps"], "kernel C hit max_iter before the eps stop at the 2.19 shape")
+    del rfsk, rows_219, gram_219
+    torch.cuda.empty_cache()
+
+    # ----------------------------- the SVM family, multiclass and the CLI
+    family, svr = svm_family_phase(dev, Xtr, Xte, Ytr, Yte)
+    multiclass_phase(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmpdir:
+        cli_phase(tmpdir)
 
     record = {
         "kernels": [
@@ -575,8 +931,22 @@ def main() -> None:
                 "ms": smo_kat2b["kernel_ms"], "plain_ms": smo_kat2b["plain_ms"],
                 "max_abs_err_2_19": smo_219["max_abs_dalpha"],
                 "ms_2_19": smo_219["kernel_ms"], "plain_ms_2_19": smo_219["plain_ms"],
+                **svr_record(svr["epsilon_svr"]),
             },
             *packed_rec,
+            {
+                "name": "smo_nu_solve", "route": "cuda",
+                "source": "fastsk_tpu_torch/csrc/smo.cu",
+                "replaces": "fastsk_tpu/svm/smo_pallas.py:254",
+                "launches": family["nu_svc"]["launches"]["smo_nu_solve"],
+                "max_abs_err": nu_kat2b["max_abs_dalpha"],
+                "ms": nu_kat2b["kernel_ms"], "plain_ms": nu_kat2b["plain_ms"],
+                "iters": nu_kat2b["iters_kernel"],
+                "max_abs_err_2_19": nu_219["max_abs_dalpha"],
+                "ms_2_19": nu_219["kernel_ms"], "plain_ms_2_19": nu_219["plain_ms"],
+                "iters_2_19": nu_219["iters_kernel"],
+                **svr_record(svr["nu_svr"]),
+            },
         ]
     }
     print(smi)

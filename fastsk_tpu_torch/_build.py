@@ -24,8 +24,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fastsk_tpu_torch")
 CSRC = os.path.join(_PKG, "csrc")
 KERNEL_SOURCES = ("pairs.cu", "smo.cu", "pairs_packed.cu")
 
-# --fmad=false: kernel B must follow its plain twin's f32 trajectory op for
-# op, and a contracted multiply-add rounds once where the twin rounds twice.
+# --fmad=false: kernels B and C must follow their plain twins' f32
+# trajectories op for op, and a contracted multiply-add rounds once where
+# the twin rounds twice.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -117,10 +118,9 @@ def kernels() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pairs_counts_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
         lib.pairs_counts_launch.restype = ci
-        lib.smo_solve_launch.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, cf, ci, vp
-        ]
-        lib.smo_solve_launch.restype = ci
+        for fn in (lib.smo_solve_launch, lib.smo_nu_solve_launch):
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, cf, ci, vp]
+            fn.restype = ci
         ll = ctypes.c_longlong
         lib.packed_band_launch.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ci, ci, vp]
         lib.packed_pairlist_launch.argtypes = [

@@ -2,15 +2,17 @@
 
 Counterpart of ``fastsk_tpu/api.py:FastSK``, with the same signature and
 methods for exact mode: ``compute_kernel / compute_train / kernel /
-kernel_counts / get_train_kernel / get_test_kernel / save_kernel / fit /
-score / score_report / save_predictions``. The kernel comes from the
-sequence-aligned or the packed (ragged) all-pairs engine, chosen as the
-JAX package chooses, and the SVM is the binary C-SVC, both on
-``KernelConfig.device``.
+kernel_counts / get_train_kernel / get_test_kernel / get_stdevs /
+iterations / save_kernel / fit / score / score_report /
+save_predictions``. The kernel comes from the sequence-aligned or the
+packed (ragged) all-pairs engine, chosen as the JAX package chooses, and
+the SVM is any of the LIBSVM family (``svm_type`` c_svc, nu_svc,
+one_class, epsilon_svr, nu_svr; multiclass labels train one-vs-one), all
+on ``KernelConfig.device``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
-another way: approx mode (ROADMAP.md slice 3), the theta exact engine
-(slice 3), and every ``svm_type`` other than ``c_svc`` (slice 4).
+another way: approx mode (ROADMAP.md slice 3) and the theta exact engine
+(slice 3).
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ class FastSK:
         self._K: Optional[np.ndarray] = None  # float64 normalized [N, N]
         self._counts_dev = None  # DeviceCounts (device-resident mode)
         self._K_dev: Optional[torch.Tensor] = None  # f32 normalized, on device
+        self._stdevs: List[float] = []  # approx mode's trace; empty in exact mode
+        self._iters: int = 0  # approx mode's iterations; 0 in exact mode
         self.n_str_train = 0
         self.n_str_test = 0
         self.train_labels: Optional[np.ndarray] = None
@@ -187,6 +191,17 @@ class FastSK:
         ntr = self.n_str_train
         return k[ntr:, :ntr].tolist()
 
+    def get_stdevs(self) -> List[float]:
+        """Per-iteration convergence sd trace (approx mode; empty in exact
+        mode)."""
+        return list(self._stdevs)
+
+    @property
+    def iterations(self) -> int:
+        """Number of Monte-Carlo iterations consumed (approx mode; 0 in
+        exact mode)."""
+        return self._iters
+
     def save_kernel(self, kernel_file: str) -> None:
         """Write the kernel: the reference text format (fastsk.cpp:223-237,
         one row of 1-indexed ``col:value`` pairs per sequence) by default,
@@ -221,8 +236,8 @@ class FastSK:
         kernel_type: str = "linear",
         svm_type: str = "c_svc",
     ) -> None:
-        """Train a C-SVC with Platt probabilities on the computed kernel
-        (defaults match bindings.cpp:36-41). ``kernel_type``:
+        """Train an SVM on the computed kernel (defaults match
+        bindings.cpp:36-41). ``kernel_type``:
 
         - "fastsk": SVM directly on the precomputed gkm kernel
         - "linear": SVM with a linear kernel over kernel rows (the
@@ -230,32 +245,44 @@ class FastSK:
         - "rbf":    SVM with an RBF kernel over kernel rows,
           gamma = 1/nfeat (fastsk.cpp:273)
 
-        ``nu`` is accepted for signature parity; C-SVC ignores it.
+        ``svm_type`` selects the solver, like LIBSVM's -s: "c_svc"
+        (default), "nu_svc", "one_class", "epsilon_svr", "nu_svr". ``nu``
+        parameterizes the nu_* and one_class solvers; C-SVC ignores it.
+        Multiclass labels train one-vs-one (svm.cpp:2163+).
         """
-        from .svm.kernel_svm import KernelSVC
+        from .svm.kernel_svm import (
+            EpsilonSVR,
+            KernelSVC,
+            NuSVC,
+            NuSVR,
+            OneClassSVM,
+        )
 
         if svm_type not in ("c_svc", "nu_svc", "one_class", "epsilon_svr", "nu_svr"):
             raise ValueError(
                 "svm_type must be one of c_svc, nu_svc, one_class, "
                 f"epsilon_svr, nu_svr; got {svm_type!r}"
             )
-        if svm_type != "c_svc":
-            raise NotImplementedError(
-                f"svm_type={svm_type!r} is not ported yet: ROADMAP.md slice 4 "
-                "(the rest of the SVM family)"
-            )
-        if self.train_labels is None:
+        if svm_type != "one_class" and self.train_labels is None:
             raise RuntimeError(
                 "labels are required: pass Ytrain to compute_kernel or call set_labels"
             )
         if kernel_type not in ("fastsk", "linear", "rbf"):
             raise ValueError("kernel must be 'linear', 'fastsk', or 'rbf'")
         rows_train = self._rows()[0]
-        gram = self._build_gram(rows_train, rows_train, kernel_type)
+        gram = self._on_device(self._build_gram(rows_train, rows_train, kernel_type))
         self._fit_kernel_type = kernel_type
-        self._model = KernelSVC(C=C, eps=eps, probability=True).fit(
-            self._on_device(gram), np.asarray(self.train_labels)
-        )
+        self._fit_svm_type = svm_type
+        if svm_type == "one_class":
+            self._model = OneClassSVM(nu=nu, eps=eps).fit(gram)
+            return
+        model = {
+            "c_svc": lambda: KernelSVC(C=C, eps=eps, probability=True),
+            "nu_svc": lambda: NuSVC(nu=nu, eps=eps, probability=True),
+            "epsilon_svr": lambda: EpsilonSVR(C=C, eps=eps),
+            "nu_svr": lambda: NuSVR(C=C, nu=nu, eps=eps),
+        }[svm_type]()
+        self._model = model.fit(gram, np.asarray(self.train_labels))
 
     def _rows(self):
         """(train rows, test rows) of the normalized kernel against the
@@ -317,37 +344,57 @@ class FastSK:
         if self.test_labels is None:
             raise RuntimeError("test labels are required")
 
+    def _is_binary_classifier(self) -> bool:
+        """A two-class c_svc / nu_svc model (fit gives it Platt
+        probabilities); one-class and SVR models carry no classes."""
+        return len(getattr(self._model, "classes_", [])) == 2
+
     def score(self, metric: str = "auc") -> float:
-        """Predict on the test block and report accuracy or AUROC
-        (fastsk.cpp:418-530, minus the unconditional auc_file.txt side
-        effect)."""
-        from .metrics import accuracy_score, auc_pairwise
+        """Predict on the test block and report accuracy, AUROC (binary
+        classifiers) or r2 (the SVR types) (fastsk.cpp:418-530, minus the
+        unconditional auc_file.txt side effect)."""
+        from .metrics import accuracy_score, auc_pairwise, r2_score
 
         if metric not in ("accuracy", "auc", "r2"):
             raise ValueError("metric argument must be 'accuracy', 'auc', or 'r2'")
         self._check_scorable()
-        if metric == "r2":
-            raise ValueError("metric='r2' is for the SVR types")
         gram_test = self._test_gram()
         y_test = np.asarray(self.test_labels)
+        if self._fit_svm_type in ("epsilon_svr", "nu_svr"):
+            if metric != "r2":
+                raise ValueError("regression models score with metric='r2'")
+            return r2_score(y_test.astype(np.float64), self._model.predict(gram_test))
+        if metric == "r2":
+            raise ValueError("metric='r2' is for the SVR types")
         if metric == "auc":
+            if not self._is_binary_classifier():
+                raise ValueError(
+                    "metric='auc' requires a binary classifier; use 'accuracy'"
+                )
             probs = self._model.predict_proba(gram_test)[:, 1]
             return auc_pairwise(y_test, probs)
         return accuracy_score(y_test, self._model.predict(gram_test)) * 100.0
 
     def save_predictions(self, path: str) -> None:
-        """Write per-test-point ``label value`` lines, ``value`` being the
-        positive-class probability — the reference's auc_file.txt side
-        effect (fastsk.cpp:447-476, 502), opt-in here."""
+        """Write per-test-point ``label value`` lines — the reference's
+        auc_file.txt side effect (fastsk.cpp:447-476, 502), opt-in here.
+        ``value`` is the positive-class probability for binary
+        classifiers, the predicted value for the SVR types, and the
+        predicted class otherwise."""
         self._check_scorable()
-        vals = self._model.predict_proba(self._test_gram())[:, 1]
+        gram_test = self._test_gram()
+        if self._is_binary_classifier():
+            vals = self._model.predict_proba(gram_test)[:, 1]
+        else:
+            vals = self._model.predict(gram_test)
         with open(path, "w") as f:
             for label, v in zip(np.asarray(self.test_labels), vals):
                 f.write(f"{label} {v}\n")
 
     def score_report(self) -> dict:
-        """Full scoring report: acc, AUROC, TPR/TNR/FNR/FPR — everything
-        the reference's score() prints (fastsk.cpp:508-529), as a dict."""
+        """Full scoring report: acc, and for binary classifiers AUROC and
+        TPR/TNR/FNR/FPR — everything the reference's score() prints
+        (fastsk.cpp:508-529), as a dict."""
         from .metrics import accuracy_score, auc_pairwise, confusion_rates
 
         self._check_scorable()
@@ -355,7 +402,8 @@ class FastSK:
         y = np.asarray(self.test_labels)
         preds = self._model.predict(gram_test)
         out = {"accuracy": accuracy_score(y, preds)}
-        probs = self._model.predict_proba(gram_test)[:, 1]
-        out["auc"] = auc_pairwise(y, probs)
-        out.update(confusion_rates(y, preds))
+        if self._is_binary_classifier():
+            probs = self._model.predict_proba(gram_test)[:, 1]
+            out["auc"] = auc_pairwise(y, probs)
+            out.update(confusion_rates(y, preds))
         return out

@@ -1,10 +1,10 @@
-"""Kernels A, B, D, E and G against their plain PyTorch versions, on the card.
+"""Kernels A, B, C, D, E and G against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
 with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
-Tolerances: counts are integers (equal); kernel B must take the twin's
-exact f32 trajectory (equal iterations, alpha and grad).
+Tolerances: counts are integers (equal); kernels B and C must take their
+twins' exact f32 trajectories (equal iterations, alpha and grad).
 """
 
 import math
@@ -18,6 +18,7 @@ from fastsk_tpu_torch.kernel.config import KernelConfig
 from fastsk_tpu_torch.ops import pairs, pairs_cuda, pairs_packed, pairs_packed_cuda
 from fastsk_tpu_torch.ops.encode import encode_sequences
 from fastsk_tpu_torch.svm import smo_cuda
+from fastsk_tpu_torch.svm.kernel_svm import nu_svc_start, nu_svr_start
 
 import oracle
 
@@ -73,6 +74,56 @@ def test_kernel_b_matches_twin(cuda, n):
         assert it_k == it_p
         torch.testing.assert_close(a_k, a_p, rtol=0, atol=0)
         torch.testing.assert_close(g_k, g_p, rtol=0, atol=0)
+
+
+def _nu_problem(kind, n, rng):
+    """(Q, y, C, p, alpha0) of a Solver_NU problem with n rows: a nu-SVC
+    (nu=0.5), the 2n dual of a nu-SVR (C=1, nu=0.5), or a nu-SVC whose
+    negative class is held at a zero sum, so upN is empty for the whole
+    solve and every iteration fetches row 0 for it."""
+    if kind == "nu_svr":
+        m = n // 2
+        X = rng.normal(size=(m, 8)).astype(np.float32)
+        t = (X[:, 0] + 0.3 * rng.normal(size=m)).astype(np.float32)
+        K = X @ X.T
+        K = np.block([[K, K], [K, K]])
+        y = np.concatenate([np.ones(m), -np.ones(m)]).astype(np.float32)
+        p = np.concatenate([-t, t]).astype(np.float32)
+        a0 = nu_svr_start(m, 1.0, 0.5)
+    else:
+        X = rng.normal(size=(n, 8)).astype(np.float32)
+        y = np.where(X[:, 0] + 0.5 * rng.normal(size=n) > 0, 1.0, -1.0).astype(np.float32)
+        K = X @ X.T
+        p = np.zeros(n, np.float32)
+        a0 = nu_svc_start(y, 0.5)
+        if kind == "upN_empty":
+            a0[y < 0] = 0.0
+            y[0] = 1.0  # row 0, the empty set's argmax, is a positive row
+            a0[0] = 0.0
+    return K * np.outer(y, y), y, np.ones(len(y), np.float32), p, a0
+
+
+# n=700 keeps the solver state in shared memory; n=10500 runs it in global
+# memory. The large shape is held to the twin on a capped prefix: the
+# twin runs one host-synced step per iteration.
+@pytest.mark.parametrize("kind", ["nu_svc", "nu_svr", "upN_empty"])
+@pytest.mark.parametrize("n,max_iter", [(700, 100_000), (10500, 1500)])
+def test_kernel_c_matches_twin(cuda, kind, n, max_iter):
+    rng = np.random.default_rng(5)
+    Q, y, C, p, a0 = (torch.from_numpy(v).to(cuda) for v in _nu_problem(kind, n, rng))
+    before = smo_cuda.smo_nu_solve.launches
+    a_k, g_k, it_k = smo_cuda.smo_nu_solve(Q, y, C, p, a0, 1e-3, max_iter)
+    assert smo_cuda.smo_nu_solve.launches == before + 1
+    grad0, qd = smo_cuda.initial_state(Q, p, a0)
+    a_p, g_p, it_p = smo_cuda.smo_nu_loop_plain(Q, y, C, qd, a0, grad0, 1e-3, max_iter)
+    assert it_k == it_p
+    torch.testing.assert_close(a_k, a_p, rtol=0, atol=0)
+    torch.testing.assert_close(g_k, g_p, rtol=0, atol=0)
+    for cls in (1.0, -1.0):  # Solver_NU conserves each class's sum
+        s0, s1 = float(a0[y == cls].sum()), float(a_k[y == cls].sum())
+        assert abs(s1 - s0) <= 1e-3 * max(s0, 1.0)
+    if kind == "upN_empty":
+        assert float(a_k[y < 0].abs().max()) == 0.0
 
 
 def _ragged(seed, n, lmin, lmax, alpha):

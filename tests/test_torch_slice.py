@@ -119,8 +119,9 @@ def test_compute_train_matches_jax():
 
 
 def test_unported_routes_raise():
-    """The routes of later slices raise; the packed routes that this test
-    once refused now run (packed, ragged auto, pallas_grouped)."""
+    """The routes of later slices raise; the packed routes and the nu-SVC
+    fit that this test once refused now run (packed, ragged auto,
+    pallas_grouped; svm_type="nu_svc")."""
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
     from fastsk_tpu_torch.ops.encode import encode_sequences
 
@@ -147,12 +148,16 @@ def test_unported_routes_raise():
         np.testing.assert_array_equal(f.kernel_counts, oracle.exact_counts(ragged, 4, 2))
     fsk = T.FastSK(6, 2, config=T.KernelConfig(**cpu))
     fsk.compute_kernel(Xtr, Xte, ytr, yte)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        fsk.fit(svm_type="nu_svc")
+    fsk.fit(svm_type="nu_svc")  # the rest of the SVM family is ported
+    assert 0.0 <= fsk.score("auc") <= 1.0
 
 
 def test_import_leaves_jax_out():
-    code = "import sys, fastsk_tpu_torch; print('jax' in sys.modules)"
+    """The package and its two command-line modules load no jax."""
+    code = (
+        "import sys, fastsk_tpu_torch, fastsk_tpu_torch.cli, "
+        "fastsk_tpu_torch.predict_cli; print('jax' in sys.modules)"
+    )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         check=True,

@@ -184,7 +184,16 @@ def test_port_fit_matches_jax_fit(rng):
     np.testing.assert_allclose(pm.platt_, jm.platt_, atol=1e-3)
 
 
-def test_multiclass_refused():
-    K = np.eye(6)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        KernelSVC().fit(K, [0, 1, 2, 0, 1, 2])
+def test_multiclass_refused(rng):
+    """Multiclass labels, which the port once refused, now train
+    one-vs-one as the JAX package does: the same per-pair decision values
+    (within 1e-4) and the same votes."""
+    centers = rng.normal(size=(3, 5)) * 2.5
+    X = np.concatenate([rng.normal(size=(12, 5)) + c for c in centers])
+    y = np.repeat([0, 1, 2], 12)
+    d2 = ((X[:, None, :] - X[None, :, :]) ** 2).sum(-1)
+    K = np.exp(-0.1 * d2)  # full rank: a unique optimum (see test_torch_svm.py)
+    jm = JKernelSVC(C=1.0, eps=1e-5).fit(K, y)
+    pm = KernelSVC(C=1.0, eps=1e-5).fit(K, y)
+    np.testing.assert_allclose(pm.decision_function(K), jm.decision_function(K), atol=1e-4)
+    np.testing.assert_array_equal(pm.predict(K), jm.predict(K))
