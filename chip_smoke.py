@@ -72,9 +72,34 @@ raises and the exit code is non-zero:
           then -s nu_svc -r fastsk with a LIBSVM model and the kernel saved,
           and `python -m fastsk_tpu_torch.predict_cli` on them: its accuracy
           within 0.05 points (one row of 2000) of the CLI's.
+14. packed-s1  kernel F (csrc/pairs_packed.cu, the mesh paths' stage 1)
+          against its plain version at phase 7's medium set (g=8, m=4) and
+          at a seeded ragged DNA set at g=12, m=6 (two digit planes in the
+          JAX package): strip 0 against every strip, and a middle strip
+          against every later one (a == b, a < b, sequences straddling the
+          strips). Integers must be equal.
+15. mesh    the 2.19 shape's ragged slice through FastSK.compute_kernel
+          under make_mesh(1, 1) and make_mesh(2, 2) over the card named
+          four times, each with mesh_state "sharded" (the ring) and
+          "replicated" (round-robin strips), the counters zeroed before
+          each: counts integer-equal to kernel D's single-device counts,
+          kernel F launched, its plain version never called, no other
+          count kernel launched. The 2x2 ring run then fits (C=0.01) and
+          scores: AUC equal to the single-device host path's within 1e-9
+          and >= 0.9. With two or more cards a mesh over distinct cards
+          runs too; on one card a line says it was skipped.
+16. probe   kernel H (csrc/pairs.cu, the variants of kernel A's body) at
+          KAT2B and at the 7230 x 200 g=16 m=10 shape of phase 3, best of
+          3 each, the counters zeroed before: every variant equal to its
+          plain version (current and int32 to phase 3's plain counts) and
+          the same checksum in every repetition; the chain cost of current
+          and int32 against skeleton.
 
 The last three lines are the card's name and power limit (nvidia-smi),
-the per-kernel JSON record, and the result line.
+the per-kernel JSON record (every kernel's launches on its path, error
+against its plain version, times, and the bound: the larger of its
+operations over the card's peak rate and its bytes over the memory rate),
+and the result line.
 """
 
 from __future__ import annotations
@@ -98,6 +123,11 @@ GOLDEN = os.path.join(HERE, "tests", "golden")
 AUC_ANCHOR = 0.903321  # experiments/results_baselines/oracle_comparison.csv, KAT2B g8 m4
 EP300_ANCHOR = 0.990146  # the same file, EP300 g10 m4
 MOTIF = [5, 17, 2, 11, 20, 8, 14, 3]  # planted in the ragged positives
+
+# published dense peaks of one H100 SXM (NVIDIA's data sheet), for bounds
+PEAK_INT8_OPS = 1979e12  # int8 tensor-core operations a second
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+HBM_BYTES_S = 3.35e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -128,6 +158,35 @@ def wall(fn, *args, **kwargs):
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def bound(ops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take for work of ``ops`` operations
+    (at ``peak`` a second) that must move ``nbytes`` (each input read once,
+    each output written once): the larger of the two times, and which."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return {
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+def count_bound(windows: int, width: int, nbytes: float) -> dict:
+    """Bound of an exact count matrix over ``windows`` valid windows: every
+    unordered window pair once, as an int8 product of ``width``-byte
+    one-hot rows (2 * width operations a pair)."""
+    return bound(2.0 * width * windows * (windows + 1) / 2, nbytes, PEAK_INT8_OPS)
+
+
+def smo_bound(n: int, iters: int) -> dict:
+    """Bound of an SMO solve of ``iters`` iterations at ``n`` rows: the
+    gradient update's two f32 multiply-adds per row an iteration, and Q
+    read once."""
+    return bound(4.0 * n * iters, 4.0 * n * n + 20.0 * n, PEAK_F32_FLOPS)
+
+
+def windows_of(X, g: int) -> int:
+    return sum(max(len(s) - g + 1, 0) for s in X)
 
 
 def numpy_counts(X, g: int, k: int) -> np.ndarray:
@@ -251,6 +310,18 @@ def smo_twin(shape: str, gram, labels, c_box) -> dict:
     return fields
 
 
+def slice_219(full=(2564, 16, 905)):
+    """The seeded set of the 2.19 shape, ``full`` (sequences, shortest,
+    longest), and its 80/20 split: (X, y, train, test, y_train, y_test)."""
+    X, y = ragged_set(219, *full)
+    n_tr = int(0.8 * len(X))
+    perm = np.random.default_rng(2190).permutation(len(X))
+    tr_idx, te_idx = perm[:n_tr], perm[n_tr:]
+    return (
+        X, y, [X[i] for i in tr_idx], [X[i] for i in te_idx], y[tr_idx], y[te_idx],
+    )
+
+
 def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
                   full=(2564, 16, 905)):
     """Phases 7-9 (the packed engine and kernels D, E, G); each size is
@@ -317,11 +388,16 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         require(all(e == 0 for e in errs.values()), f"D/E/G differ from the plain version on {shape}: {errs}")
         require(numpy_ok is not False, "the plain packed counts differ from numpy on the small shape")
         packed_times[shape] = {name: (ms, plain_ms, errs[name]) for name, (_, ms) in res.items()}
+        if shape == "medium":  # one count matrix, whichever route: one bound
+            # (inputs: 8 code bytes and a 4-byte seq_of a row; int64 output)
+            medium_bound = count_bound(
+                int(band.pack["p"].sum()), 8 * band.alpha, band.total_rows * 12 + band.n**2 * 8
+            )
         del band, grouped, rows, plain_sorted, plain, res
     torch.cuda.empty_cache()
 
     # ------------------------------- the 2.19 shape: D = E = G = kernel A
-    X219, y219 = ragged_set(219, *full)
+    X219, _, r_tr, r_te, ry_tr, ry_te = slice_219(full)
     band, grouped = packed_engines(X219, 8, 4)
     res = route_counts(band, grouped)
     d_counts = res["D"][0]
@@ -341,6 +417,7 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
     errs["plain"] = int((plain_sorted[pos][:, pos] - d_counts).abs().max())
     del rows, plain_sorted
     windows = int(band.pack["p"].sum())
+    full_bound = count_bound(windows, 8 * band.alpha, band.total_rows * 12 + band.n**2 * 8)
     emit(
         "packed-full", n=band.n, rows=band.total_rows, strips=band.n_strips,
         c_max=band.c_max, windows=windows,
@@ -355,12 +432,6 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
     torch.cuda.empty_cache()
 
     # ------------------------------- the ragged slice through the public API
-    n_tr = int(0.8 * len(X219))
-    perm = np.random.default_rng(2190).permutation(len(X219))
-    tr_idx, te_idx = perm[:n_tr], perm[n_tr:]
-    r_tr = [X219[i] for i in tr_idx]
-    r_te = [X219[i] for i in te_idx]
-    ry_tr, ry_te = y219[tr_idx], y219[te_idx]
     counters = (
         pairs_cuda.pairs_counts, smo_cuda.smo_solve, pairs_packed_cuda.packed_band,
         pairs_packed_cuda.packed_pairlist, pairs_packed_cuda.packed_grouped,
@@ -446,6 +517,7 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
             "ms": packed_times["medium"][key][0],
             "plain_ms": packed_times["medium"][key][1],
             "ms_2_19": full_times[key], "plain_ms_2_19": full_plain_ms,
+            **medium_bound, "library_ms": None, "bound_ms_2_19": full_bound["bound_ms"],
         }
         for key, fn, line in (
             ("D", pairs_packed_cuda.packed_band, 605),
@@ -754,6 +826,202 @@ def cli_phase(tmpdir: str, device: str = "cuda", prefix: str = EP300) -> dict:
     return fields
 
 
+def s1_phase(dev, medium=(400, 16, 905), dna=(300, 16, 905)) -> dict:
+    """Phase 14: kernel F against its plain version at ``medium`` (phase
+    7's set, g=8 m=4) and at a seeded ragged DNA set of ``dna`` at g=12
+    m=6. Returns {shape: fields} of the timed launch (strip 0 against
+    every strip)."""
+    from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_tpu_torch.ops import pairs_packed, pairs_packed_cuda
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    out = {}
+    for shape, X, g, m in (
+        ("medium", ragged_set(4, *medium)[0], 8, 4),
+        ("dna-g12m6", ragged_set(5, *dna, alpha=4)[0], 12, 6),
+    ):
+        eng = PackedPairsEngine(encode_sequences(X), g, m, KernelConfig(device=dev))
+        rows = eng.rows()
+        tile, ns, k = eng.tile, eng.n_strips, g - m
+        mid = ns // 2
+        valid = (rows.seq_of >= 0).view(ns, tile).sum(1).tolist()
+        errs, fields = [], None
+        for a, b0, n_b in ((0, 0, ns), (mid, mid, ns - mid)):
+            args = (rows, a, rows, b0, n_b)
+            pairs_packed_cuda.packed_s1(*args, k=k)  # warm-up launch
+            got, ms = cuda_ms(pairs_packed_cuda.packed_s1, *args, k=k)
+            plain_args = (
+                rows.onehot[a * tile : (a + 1) * tile], rows.seq_of[a * tile : (a + 1) * tile],
+                rows.first_seq[a], rows.onehot[b0 * tile : (b0 + n_b) * tile],
+            )
+            want, plain_ms = cuda_ms(
+                pairs_packed.packed_s1_plain, *plain_args, k=k, tile=tile, c_pad=eng.c_pad
+            )
+            errs.append(int((got.long() - want.long()).abs().max()))
+            if fields is None:
+                pairs = valid[a] * sum(valid[b0 : b0 + n_b])
+                words = rows.words.shape[1]
+                fields = dict(
+                    ms=ms, plain_ms=plain_ms, launch=dict(a=a, b0=b0, n_b=n_b),
+                    **bound(
+                        2.0 * g * eng.alpha * pairs,
+                        (1 + n_b) * tile * (4 * words + 4) + got.numel() * 4,
+                        PEAK_INT8_OPS,
+                    ),
+                )
+            del got, want
+        fields["max_abs_err"] = max(errs)
+        emit(
+            "packed-s1", shape=shape, g=g, m=m, n=eng.n, strips=ns, tile=tile,
+            c_max=eng.c_max, c_pad=eng.c_pad, straddling=straddling(eng),
+            max_abs_err_per_launch=errs, **fields,
+        )
+        require(straddling(eng) > 0, f"no sequence straddles a strip on {shape}")
+        require(fields["max_abs_err"] == 0, f"kernel F differs from its plain version on {shape}: {errs}")
+        out[shape] = fields
+        del eng, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
+    """Phase 15: the ragged slice of ``full`` through FastSK under four
+    meshes over this card (and one over distinct cards where there are
+    several), each held to kernel D's single-device counts; the 2x2 ring
+    run fits and scores. Returns the main run's fields."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed_cuda
+    from fastsk_tpu_torch.parallel import make_mesh
+    from fastsk_tpu_torch.parallel import sharding as shd
+    from fastsk_tpu_torch.svm import smo_cuda
+
+    _, _, r_tr, r_te, ry_tr, ry_te = slice_219(full)
+    hfsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=False))
+    _, d_kernel_s = wall(hfsk.compute_kernel, r_tr, r_te, ry_tr, ry_te)
+    hfsk.fit(C=0.01)
+    h_auc = hfsk.score("auc")
+    d_counts = hfsk.kernel_counts
+    del hfsk
+    torch.cuda.empty_cache()
+
+    counters = (
+        pairs_cuda.pairs_counts, pairs_packed_cuda.packed_band,
+        pairs_packed_cuda.packed_pairlist, pairs_packed_cuda.packed_grouped,
+        pairs_packed_cuda.packed_s1, smo_cuda.smo_solve,
+    )
+    seen = {}
+    spied = (shd.packed_ring_rowsharded, shd.packed_round_sharded)
+
+    def spy(fn):
+        def call(state, *args, **kwargs):
+            seen["state"] = sorted({tuple(t.shape) for t in state})
+            return fn(state, *args, **kwargs)
+        return call
+
+    plain_calls = [0]
+    plain = pairs_packed_cuda.packed_s1_plain
+
+    def counted_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return plain(*args, **kwargs)
+
+    n_cards = torch.cuda.device_count()
+    runs = [((1, 1), state, [dev]) for state in ("sharded", "replicated")]
+    runs += [((2, 2), state, [dev] * 4) for state in ("sharded", "replicated")]
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(min(n_cards, 4))]
+        runs += [((1, len(cards)), state, cards) for state in ("sharded", "replicated")]
+        # untimed: each card's context and kernels load at first use
+        for state in ("sharded", "replicated"):
+            FastSK(g=8, m=4, config=KernelConfig(
+                device=dev, mesh=make_mesh(1, len(cards), devices=cards), mesh_state=state,
+            )).compute_kernel(r_tr[:200], r_te[:50])
+    main = None
+    shd.packed_ring_rowsharded, shd.packed_round_sharded = map(spy, spied)
+    pairs_packed_cuda.packed_s1_plain = counted_plain
+    try:
+        for shape, state, devices in runs:
+            mesh = make_mesh(*shape, devices=devices)
+            for c in counters:
+                c.launches = 0
+            plain_calls[0] = 0
+            base = {}
+            for d in set(mesh.devices):
+                torch.cuda.reset_peak_memory_stats(d)
+                base[d] = torch.cuda.memory_allocated(d)
+            fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, mesh=mesh, mesh_state=state))
+            _, kernel_s = wall(fsk.compute_kernel, r_tr, r_te, ry_tr, ry_te)
+            fields = dict(
+                mesh=list(shape), devices=[str(d) for d in mesh.devices],
+                mesh_state=state, kernel_s=kernel_s, kernel_s_d=d_kernel_s,
+                state_shape_per_device=seen.pop("state"),
+                # above what the card held before the run, all entries of it
+                peak_mem_added_bytes={
+                    str(d): torch.cuda.max_memory_allocated(d) - b for d, b in base.items()
+                },
+                counts_equal_d=bool(np.array_equal(fsk.kernel_counts, d_counts)),
+            )
+            if shape == (2, 2) and state == "sharded":  # the path's main run
+                _, fit_s = wall(fsk.fit, C=0.01)
+                auc, score_s = wall(fsk.score, "auc")
+                fields.update(fit_s=fit_s, score_s=score_s, auc=auc, auc_host_path=h_auc)
+                main = fields
+            fields.update(
+                launches={c.__name__: c.launches for c in counters},
+                plain_s1_calls=plain_calls[0],
+            )
+            emit("mesh", **fields)
+            launches = fields["launches"]
+            require(fields["counts_equal_d"], f"mesh {shape} {state}: counts differ from kernel D's")
+            require(launches["packed_s1"] > 0, f"mesh {shape} {state}: kernel F did not launch")
+            require(plain_calls[0] == 0, f"mesh {shape} {state}: kernel F's plain version ran")
+            require(
+                all(launches[c.__name__] == 0 for c in counters[:4]),
+                f"mesh {shape} {state}: another count kernel launched: {launches}",
+            )
+            if "auc" in fields:
+                require(launches["smo_solve"] > 0, f"kernel B did not launch under the mesh: {launches}")
+                require(abs(fields["auc"] - h_auc) <= 1e-9, f"mesh AUC {fields['auc']} vs host path {h_auc}")
+                require(fields["auc"] >= 0.9, f"mesh AUC {fields['auc']} < 0.9")
+            del fsk
+            torch.cuda.empty_cache()
+    finally:
+        shd.packed_ring_rowsharded, shd.packed_round_sharded = spied
+        pairs_packed_cuda.packed_s1_plain = plain
+    if n_cards < 2:
+        emit("mesh", distinct_cards="skipped", reason=f"{n_cards} CUDA device visible")
+    return main
+
+
+def probe_phase(cases: dict, reps: int = 3) -> dict:
+    """Phase 16: kernel H's five variants at each of ``cases`` ({shape:
+    (x, g, k, p_pad, plain counts, windows, width)}), the counter zeroed
+    before. Returns {"launches": n, "shapes": {shape: run_probe's
+    result}}, each variant with its bound."""
+    from fastsk_tpu_torch.experiments.probe_pairs import run_probe
+    from fastsk_tpu_torch.ops import pairs_cuda
+
+    pairs_cuda.pairs_probe.launches = 0
+    out = {}
+    for shape, (x, g, k, p_pad, plain, windows, width) in cases.items():
+        res = run_probe(x, g=g, k=k, p_pad=p_pad, reps=reps, counts_plain=plain)
+        out_bytes = (x.shape[0] // p_pad) ** 2 * 4
+        for variant, fields in res.items():
+            fields.update(
+                bound(0.0, out_bytes, PEAK_INT8_OPS) if variant == "noop"
+                else count_bound(windows, width, x.numel() + out_bytes)
+            )
+        emit("probe", shape=shape, g=g, m=g - k, reps=reps, variants=res)
+        for variant, fields in res.items():
+            require(fields["max_abs_err"] == 0, f"kernel H {variant} differs from its plain version on {shape}")
+            require(fields["checksums_equal"], f"kernel H {variant} gave different checksums on {shape}")
+        out[shape] = res
+    launches = pairs_cuda.pairs_probe.launches
+    require(launches == reps * 5 * len(cases), f"kernel H launched {launches} times")
+    return {"launches": launches, "shapes": out}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; there is no CPU run")
@@ -815,6 +1083,7 @@ def main() -> None:
         Xte, Yte = reader.read_data(read_split_fasta(KAT2B, "test", tmpdir))
     dna = np.random.default_rng(1).integers(1, 5, size=(7230, 200)).tolist()
     pairs_times = {}
+    probe_cases = {}  # kernel A's operands and plain counts, for phase 16
     kat2b_counts = None
     for name, seqs, g, m in (
         ("KAT2B", (Xtr, Xte), 8, 4),
@@ -834,7 +1103,13 @@ def main() -> None:
             checksum=int(got.long().sum()),
         )
         require(err == 0, f"kernel A differs from its plain version on {name}")
-        pairs_times[name] = (ms, plain_ms, err)
+        windows = windows_of([s for part in seqs if part for s in part], g)
+        width = g * eng.alpha
+        pairs_times[name] = (
+            ms, plain_ms, err,
+            count_bound(windows, width, x.numel() + eng.n_pad**2 * 4),
+        )
+        probe_cases[name] = (x, g, g - m, eng.p_pad, want, windows, width)
         if name == "KAT2B":
             kat2b_counts = got[: eng.n, : eng.n].clone()
         del x, got, want
@@ -912,6 +1187,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmpdir:
         cli_phase(tmpdir)
 
+    # ------------------------------- kernel F, the mesh path and kernel H
+    s1 = s1_phase(dev)
+    mesh = mesh_phase(dev)
+    probe = probe_phase(probe_cases)
+    del probe_cases
+
     record = {
         "kernels": [
             {
@@ -921,6 +1202,10 @@ def main() -> None:
                 "launches": launches["pairs_counts"],
                 "max_abs_err": pairs_times["KAT2B"][2],
                 "ms": pairs_times["KAT2B"][0], "plain_ms": pairs_times["KAT2B"][1],
+                **pairs_times["KAT2B"][3], "library_ms": None,
+                "ms_g16": pairs_times["dna7230x200"][0],
+                "plain_ms_g16": pairs_times["dna7230x200"][1],
+                "bound_ms_g16": pairs_times["dna7230x200"][3]["bound_ms"],
             },
             {
                 "name": "smo_solve", "route": "cuda",
@@ -932,6 +1217,7 @@ def main() -> None:
                 "max_abs_err_2_19": smo_219["max_abs_dalpha"],
                 "ms_2_19": smo_219["kernel_ms"], "plain_ms_2_19": smo_219["plain_ms"],
                 **svr_record(svr["epsilon_svr"]),
+                **smo_bound(smo_kat2b["n"], smo_kat2b["iters_kernel"]), "library_ms": None,
             },
             *packed_rec,
             {
@@ -946,6 +1232,44 @@ def main() -> None:
                 "ms_2_19": nu_219["kernel_ms"], "plain_ms_2_19": nu_219["plain_ms"],
                 "iters_2_19": nu_219["iters_kernel"],
                 **svr_record(svr["nu_svr"]),
+                **smo_bound(nu_kat2b["n"], nu_kat2b["iters_kernel"]), "library_ms": None,
+            },
+            {
+                "name": "packed_s1", "route": "cuda",
+                "source": "fastsk_tpu_torch/csrc/pairs_packed.cu",
+                "replaces": "fastsk_tpu/ops/pairs_packed_pallas.py:130",
+                "launches": mesh["launches"]["packed_s1"],
+                **s1["medium"], "library_ms": None,
+                "ms_dna_g12m6": s1["dna-g12m6"]["ms"],
+                "plain_ms_dna_g12m6": s1["dna-g12m6"]["plain_ms"],
+                "max_abs_err_dna_g12m6": s1["dna-g12m6"]["max_abs_err"],
+                "bound_ms_dna_g12m6": s1["dna-g12m6"]["bound_ms"],
+                "mesh_kernel_s": mesh["kernel_s"],
+            },
+            {
+                # the top-level numbers are the `current` variant's at KAT2B;
+                # `variants` has each variant at both shapes
+                "name": "pairs_probe", "route": "cuda",
+                "source": "fastsk_tpu_torch/csrc/pairs.cu",
+                "replaces": "experiments/probe_pairs.py:39",
+                "launches": probe["launches"],
+                "max_abs_err": max(
+                    v["max_abs_err"] for res in probe["shapes"].values() for v in res.values()
+                ),
+                "ms": probe["shapes"]["KAT2B"]["current"]["best_ms"],
+                "plain_ms": pairs_times["KAT2B"][1],
+                "bound_ms": probe["shapes"]["KAT2B"]["current"]["bound_ms"],
+                "bound_by": probe["shapes"]["KAT2B"]["current"]["bound_by"],
+                "library_ms": None,
+                "variants": {
+                    shape: {
+                        v: {key: f[key] for key in ("best_ms", "max_abs_err", "bound_ms", "bound_by")}
+                        | ({"chain_ms_vs_skeleton": f["chain_ms_vs_skeleton"]}
+                           if "chain_ms_vs_skeleton" in f else {})
+                        for v, f in res.items()
+                    }
+                    for shape, res in probe["shapes"].items()
+                },
             },
         ]
     }

@@ -4,7 +4,8 @@ A port of ``fastsk_tpu`` (JAX) that mirrors its layout and names. It
 covers the exact workflow: read FASTA, compute the exact gapped k-mer
 kernel with the sequence-aligned all-pairs engine (kernel A,
 ``csrc/pairs.cu``) or, on ragged sets, the packed engine (kernels D, E,
-G, ``csrc/pairs_packed.cu``), cosine-normalize it, and fit any SVM of the
+G, ``csrc/pairs_packed.cu``; over a device mesh, ``parallel/``, kernel F
+in the same file), cosine-normalize it, and fit any SVM of the
 LIBSVM family on it: C-SVC with Platt probabilities, epsilon-SVR and
 one-class on Solver::Solve (kernel B, ``csrc/smo.cu``), nu-SVC and nu-SVR
 on Solver_NU (kernel C, same file), and one-vs-one for multiclass

@@ -118,6 +118,8 @@ def kernels() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pairs_counts_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
         lib.pairs_counts_launch.restype = ci
+        lib.pairs_probe_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.pairs_probe_launch.restype = ci
         for fn in (lib.smo_solve_launch, lib.smo_nu_solve_launch):
             fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, cf, ci, vp]
             fn.restype = ci
@@ -129,8 +131,11 @@ def kernels() -> ctypes.CDLL:
         lib.packed_grouped_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, ci, ci, ci, ci, vp
         ]
+        lib.packed_s1_launch.argtypes = [
+            vp, vp, vp, ci, ci, vp, vp, ll, ci, ci, ci, ci, vp, vp
+        ]
         for fn in (lib.packed_band_launch, lib.packed_pairlist_launch,
-                   lib.packed_grouped_launch):
+                   lib.packed_grouped_launch, lib.packed_s1_launch):
             fn.restype = ci
         _KERNELS = lib
         return lib

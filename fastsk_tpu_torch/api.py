@@ -8,7 +8,9 @@ save_predictions``. The kernel comes from the sequence-aligned or the
 packed (ragged) all-pairs engine, chosen as the JAX package chooses, and
 the SVM is any of the LIBSVM family (``svm_type`` c_svc, nu_svc,
 one_class, epsilon_svr, nu_svr; multiclass labels train one-vs-one), all
-on ``KernelConfig.device``.
+on ``KernelConfig.device``. Under ``KernelConfig.mesh`` the packed engine
+computes the kernel over the mesh's devices, and the fit runs on
+``KernelConfig.device``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
 another way: approx mode (ROADMAP.md slice 3) and the theta exact engine
@@ -109,9 +111,10 @@ class FastSK:
         engine = self._make_exact_engine(enc)
         self._counts_dev = None
         self._K_dev = None
-        counts = (
-            engine.exact_device() if self.config.device_resident else engine.exact()
-        )
+        # under a mesh the packed engine accumulates to the host, as in the
+        # JAX package: device_resident is ignored there
+        use_dev = self.config.device_resident and self.config.mesh is None
+        counts = engine.exact_device() if use_dev else engine.exact()
         if isinstance(counts, np.ndarray):
             # host path, or counts past int32 from the packed engine
             self._counts = counts

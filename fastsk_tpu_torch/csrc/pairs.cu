@@ -28,6 +28,20 @@
 //   - sums are int32: every per-pair total is < p_pad^2 * C(g, k) < 2^31,
 //     which the engine guards.
 // int8 tensor-core products (mma / wgmma) are later work.
+//
+// Kernel H: variants of kernel A's body that attribute its cost (replace
+// experiments/probe_pairs.py:make_kernel, keeping its variant names). Each
+// runs A's grid, tiles and writes and differs only in the per-pair work:
+//   noop      tile set-up and the output writes only (zeros);
+//   matmul    the __dp4a match counts only, summed into one per-thread
+//             value so they stay live, landed once per thread at the
+//             tile's corner entry (no per-item sums);
+//   skeleton  w = d with A's sums: K = S S^T, S_i = sum_p x_ip;
+//   current   kernel A itself (the C(d, k) table);
+//   int32     C(d, k) as the falling-factorial chain in int32, divided
+//             exactly by k! once per RI pairs, in place of the table.
+// A's own entry point instantiates `current` only, so its code is the
+// same; the probe's entry point instantiates the widths of its shapes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,7 +50,20 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int W, int RI>
+enum Variant : int { kNoop = 0, kMatmul = 1, kSkeleton = 2, kCurrent = 3, kInt32 = 4 };
+
+// d (d - 1) ... (d - k + 1) in int32 with balanced factor pairing, as
+// fastsk_tpu/ops/pairs_pallas.py:ffact_pairing_i32: 0 for 0 <= d < k.
+__device__ __forceinline__ int ffact_i32(int d, int k) {
+  if (k == 1) return d;
+  const int t = d * (d - (k - 1));
+  int prod = t;
+  for (int i = 1; i < k / 2; ++i) prod *= t + i * (k - 1 - i);
+  if (k & 1) prod *= d - (k - 1) / 2;
+  return prod;
+}
+
+template <int W, int RI, int V = kCurrent>
 __global__ void __launch_bounds__(kThreads)
 pairs_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
              int n_pad, int p_pad, int s, int k) {
@@ -64,8 +91,12 @@ pairs_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
 
   const int groups_per_seq = p_pad / RI;  // p_pad % 8 == 0, RI | 8
   const int n_groups = s * groups_per_seq;
-  const int n_items = n_groups * s;
+  const int n_items = V == kNoop ? 0 : n_groups * s;
   const uint32_t* xi_g = x + static_cast<size_t>(bi) * tile_rows * W;
+  int kfact = 1;
+  if constexpr (V == kInt32)
+    for (int j = 2; j <= k; ++j) kfact *= j;
+  uint32_t fold = 0;
   for (int item = tid; item < n_items; item += kThreads) {
     const int grp = item % n_groups;  // RI consecutive i windows
     const int sj = item / n_groups;   // one j sequence of the tile
@@ -89,11 +120,25 @@ pairs_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
 #pragma unroll
         for (int r = 0; r < RI; ++r) d[r] = __dp4a(a[r][w], b, d[r]);
       }
+      if constexpr (V == kCurrent) {
 #pragma unroll
-      for (int r = 0; r < RI; ++r) sum += tbl[d[r]];
+        for (int r = 0; r < RI; ++r) sum += tbl[d[r]];
+      } else if constexpr (V == kInt32) {
+        int f = 0;  // RI falling factorials < 2^31 (the wrapper's guard)
+#pragma unroll
+        for (int r = 0; r < RI; ++r) f += ffact_i32(static_cast<int>(d[r]), k);
+        sum += f / kfact;
+      } else {  // matmul, skeleton: w = d
+#pragma unroll
+        for (int r = 0; r < RI; ++r) sum += static_cast<int32_t>(d[r]);
+      }
     }
-    atomicAdd(&acc[si * s + sj], sum);
+    if constexpr (V == kMatmul)
+      fold += static_cast<uint32_t>(sum);
+    else
+      atomicAdd(&acc[si * s + sj], sum);
   }
+  if constexpr (V == kMatmul) atomicAdd(reinterpret_cast<unsigned*>(acc), fold);
   __syncthreads();
 
   for (int t = tid; t < s * s; t += kThreads) {
@@ -104,7 +149,7 @@ pairs_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
   }
 }
 
-template <int W>
+template <int W, int V = kCurrent>
 cudaError_t launch(const uint32_t* x, int32_t* out, int n_pad, int p_pad,
                    int s, int k, cudaStream_t stream) {
   // RI i-windows per thread: about 64 registers of operands
@@ -112,14 +157,28 @@ cudaError_t launch(const uint32_t* x, int32_t* out, int n_pad, int p_pad,
   const size_t smem =
       (static_cast<size_t>(s) * p_pad * W + s * s + 32) * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      pairs_kernel<W, RI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pairs_kernel<W, RI, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int tiles = n_pad / s;
   dim3 grid(tiles, tiles);
-  pairs_kernel<W, RI><<<grid, kThreads, smem, stream>>>(x, out, n_pad, p_pad,
-                                                        s, k);
+  pairs_kernel<W, RI, V><<<grid, kThreads, smem, stream>>>(x, out, n_pad,
+                                                           p_pad, s, k);
   return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_probe(const uint32_t* x, int32_t* out, int n_pad,
+                         int p_pad, int s, int k, int variant,
+                         cudaStream_t stream) {
+  switch (variant) {
+    case kNoop: return launch<W, kNoop>(x, out, n_pad, p_pad, s, k, stream);
+    case kMatmul: return launch<W, kMatmul>(x, out, n_pad, p_pad, s, k, stream);
+    case kSkeleton: return launch<W, kSkeleton>(x, out, n_pad, p_pad, s, k, stream);
+    case kCurrent: return launch<W, kCurrent>(x, out, n_pad, p_pad, s, k, stream);
+    case kInt32: return launch<W, kInt32>(x, out, n_pad, p_pad, s, k, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -145,5 +204,21 @@ extern "C" int pairs_counts_launch(const void* x, void* out, int n_pad,
 #undef FASTSK_W
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Kernel H: kernel A's arguments plus the variant (0 noop, 1 matmul,
+// 2 skeleton, 3 current, 4 int32), for the widths of the probe's shapes:
+// w = 10 (KAT2B, g = 8 over 5 codes) and 16 (g = 16 over DNA).
+extern "C" int pairs_probe_launch(const void* x, void* out, int n_pad,
+                                  int p_pad, int w, int k, int s, int variant,
+                                  void* stream) {
+  const uint32_t* xw = static_cast<const uint32_t*>(x);
+  int32_t* o = static_cast<int32_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (w) {
+    case 10: return launch_probe<10>(xw, o, n_pad, p_pad, s, k, variant, st);
+    case 16: return launch_probe<16>(xw, o, n_pad, p_pad, s, k, variant, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

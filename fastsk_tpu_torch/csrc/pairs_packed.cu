@@ -1,9 +1,11 @@
-// Kernels D, E and G: the packed (ragged) exact gapped k-mer counts.
+// Kernels D, E, G and F: the packed (ragged) exact gapped k-mer counts.
 //
 // Replace, in fastsk_tpu/ops/pairs_packed_pallas.py:
 //   D  packed_band_kernel     <- _packed_band_kernel (packed_band_pallas)
 //   E  packed_pairlist_kernel <- _packed_pairlist_kernel (packed_pairlist_pallas)
 //   G  packed_grouped_kernel  <- _packed_part_kernel (packed_part_pallas)
+//   F  packed_s1_kernel       <- _packed_s1_kernel (packed_s1_pallas); the
+//      mesh paths' stage 1, described at the kernel below
 //
 // All three compute, for row pairs (r, c) of the packed window table,
 //
@@ -228,6 +230,89 @@ packed_grouped_kernel(const uint32_t* __restrict__ x,
 
 #undef FASTSK_TILE_SMEM
 
+// F: stage 1 of strip a against a run of column rows (n_b strips of `tile`
+// rows, flattened to n_cols):
+//
+//     s1[b, li, c] = sum_{r in strip a, seq_a[r] = fa + li} C(matches(r, c), k)
+//
+// into out [n_b, c_pad, tile] int32, zeroed by the caller; stage 2 (the
+// j-side cumsum and boundary gather) stays in torch ops, as it stays in
+// XLA beside the TPU kernel. One value in place of the TPU's digit planes
+// sum_d base^d * s1_d: s1 <= tile * C(g, k) < 2^31, which the wrapper
+// guards.
+//
+// What bounds it: the integer work per row pair (D's per-pair body: W
+// vcmpeq4 + popc, one shared table load), then the s1 writes. The design:
+//   - a block of 128 threads owns 128 consecutive column rows; thread t
+//     keeps its column row's words in registers;
+//   - the block streams strip a's rows through shared memory in 128-row
+//     chunks (every lane reads the same word: broadcast);
+//   - rows are sorted by sequence, so the i sequence changes uniformly
+//     across the block: each thread flushes its running sum to s1[b, li,
+//     c] with a plain store when it does. A local sequence is one run of
+//     rows, so each (li, c) has exactly one writer and no atomics;
+//   - padding rows (seq_of = -1) are skipped on the i side and write
+//     nothing on the j side: their code bytes may still compare equal.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+packed_s1_kernel(const uint32_t* __restrict__ xa, const int* __restrict__ seq_a,
+                 const int* __restrict__ first_seq_a, int a, int tile,
+                 const uint32_t* __restrict__ xb, const int* __restrict__ seq_b,
+                 int64_t n_cols, int c_pad, int k, int pad,
+                 int* __restrict__ out) {
+  __shared__ uint32_t sx[kThreads * W];
+  __shared__ int sseq[kThreads];
+  __shared__ int stbl[32];
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    const int d = tid - pad;
+    int64_t c = d >= k ? 1 : 0;
+    for (int j = 0; j < k && c; ++j) c = c * (d - j) / (j + 1);
+    stbl[tid] = static_cast<int>(c);
+  }
+  const int fa = first_seq_a[a];
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + tid;
+  bool live = false;
+  int* dst = out;  // &s1[b, 0, c]; row li is li * tile further
+  uint32_t bw[W];
+  if (col < n_cols) {
+    live = seq_b[col] >= 0;
+    dst = out + (col / tile) * c_pad * tile + col % tile;
+#pragma unroll
+    for (int w = 0; w < W; ++w) bw[w] = __ldg(xb + col * W + w);
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w) bw[w] = 0;
+  }
+
+  const uint32_t* xs = xa + static_cast<int64_t>(a) * tile * W;
+  const int* ss = seq_a + static_cast<int64_t>(a) * tile;
+  int cur = -1;
+  int acc = 0;
+  for (int r0 = 0; r0 < tile; r0 += kThreads) {
+    const int nr = min(kThreads, tile - r0);
+    __syncthreads();  // the previous chunk is consumed (and stbl is set)
+    for (int q = tid; q < nr * W; q += kThreads) sx[q] = xs[r0 * W + q];
+    if (tid < nr) sseq[tid] = ss[r0 + tid];
+    __syncthreads();
+    for (int j = 0; j < nr; ++j) {
+      const int si = sseq[j];
+      if (si < 0) continue;  // block-uniform
+      if (si != cur) {
+        if (cur >= 0 && live) dst[static_cast<int64_t>(cur - fa) * tile] = acc;
+        cur = si;
+        acc = 0;
+      }
+      const uint32_t* r = sx + j * W;
+      int pc = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) pc += __popc(__vcmpeq4(r[w], bw[w]));
+      acc += stbl[pc >> 3];
+    }
+  }
+  if (cur >= 0 && live) dst[static_cast<int64_t>(cur - fa) * tile] = acc;
+}
+
 size_t bins_bytes(int cb) { return static_cast<size_t>(cb) * cb * sizeof(unsigned); }
 
 cudaError_t set_smem(const void* fn, int cb) {
@@ -335,6 +420,38 @@ extern "C" int packed_grouped_launch(const void* x, const void* seq_of,
     packed_grouped_kernel<N><<<static_cast<unsigned>(blocks), kThreads,      \
                                bins_bytes(cb), st>>>(                        \
         xw, sq, tf, fs, a, gidx, group, o, tr, tps, cb, k, pad, c_pad);      \
+    break;
+    FASTSK_W(1) FASTSK_W(2) FASTSK_W(3) FASTSK_W(4) FASTSK_W(5)
+#undef FASTSK_W
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F: xa / seq_a the whole table holding strip a (first_seq_a[a] its first
+// sequence); xb / seq_b the first of n_cols = n_b * tile column rows;
+// out [n_b, c_pad, tile] int32.
+extern "C" int packed_s1_launch(const void* xa, const void* seq_a,
+                                const void* first_seq_a, int a, int tile,
+                                const void* xb, const void* seq_b,
+                                long long n_cols, int c_pad, int w, int k,
+                                int pad, void* out, void* stream) {
+  const int64_t blocks = (n_cols + kThreads - 1) / kThreads;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* x_a = static_cast<const uint32_t*>(xa);
+  const uint32_t* x_b = static_cast<const uint32_t*>(xb);
+  const int* sa = static_cast<const int*>(seq_a);
+  const int* sb = static_cast<const int*>(seq_b);
+  const int* fs = static_cast<const int*>(first_seq_a);
+  int* o = static_cast<int*>(out);
+  switch (w) {
+#define FASTSK_W(N)                                                        \
+  case N:                                                                  \
+    packed_s1_kernel<N><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>( \
+        x_a, sa, fs, a, tile, x_b, sb, n_cols, c_pad, k, pad, o);          \
     break;
     FASTSK_W(1) FASTSK_W(2) FASTSK_W(3) FASTSK_W(4) FASTSK_W(5)
 #undef FASTSK_W

@@ -1,16 +1,18 @@
 """Configuration for the gapped k-mer kernel engine.
 
 Counterpart of ``fastsk_tpu/kernel/config.py``, cut to the knobs the exact
-path of this port reads. The TPU budgets, the mesh, checkpointing and the
+path of this port reads. The TPU budgets, checkpointing and the
 approx-mode knobs belong to slices that are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Union
 
 import torch
+
+from ..parallel.sharding import Mesh
 
 
 @dataclass
@@ -41,6 +43,17 @@ class KernelConfig:
     # host, bit-identical to the reference.
     device_resident: bool = False
 
+    # Multi-device exact kernel (parallel/sharding.py:make_mesh): the packed
+    # engine runs over the mesh's devices, which must be of ``device``'s
+    # type (the fit runs on ``device``). None = one device.
+    mesh: Optional[Mesh] = None
+
+    # Mesh memory layout of the packed engine: "sharded" keeps a kernel row
+    # block and a strip shard of the window table per device (the ring,
+    # O(N^2 / n_dev) a device); "replicated" keeps a full private replica
+    # per device and the whole table (round-robin strips).
+    mesh_state: str = "sharded"
+
     quiet: bool = True
 
     def __post_init__(self):
@@ -52,4 +65,16 @@ class KernelConfig:
                 f"pairs_backend={self.pairs_backend!r}: the port takes 'auto', "
                 "'pallas' (kernel D) or 'pallas_grouped' (kernel G); the "
                 "plain versions run only for CPU tensors"
+            )
+        if self.mesh_state not in ("sharded", "replicated"):
+            raise ValueError(
+                "mesh_state must be 'sharded' or 'replicated'; got "
+                f"{self.mesh_state!r}"
+            )
+        if self.mesh is not None and any(
+            d.type != self.device.type for d in self.mesh.devices
+        ):
+            raise ValueError(
+                f"the mesh's devices {list(self.mesh.devices)} are not of the "
+                f"fit device's type {self.device.type!r}"
             )

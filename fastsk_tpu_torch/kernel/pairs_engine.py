@@ -16,6 +16,11 @@ routes them to the packed engine, which sums int64 and has no such bound.
 On a local card there is no transfer to hide, so ``exact()`` is the device
 path followed by ``.cpu()``: the TPU tile sizing and the byte-plane
 streaming of the JAX engine are not needed.
+
+Under ``KernelConfig.mesh`` only the packed engine runs, over the mesh's
+devices (``parallel/sharding.py``, kernel F), and its counts come back to
+the host: the ring (``mesh_state="sharded"``) or round-robin strips
+(``"replicated"``), as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ..ops.pairs_cuda import padded_width, pairs_counts, tile_sequences
 from ..ops.pairs_packed_cuda import (
     PackedRows, band_fits, packed_band, packed_grouped, packed_pairlist,
 )
+from ..parallel import sharding as shd
 from .config import KernelConfig
 from .device_counts import DeviceCounts
 
@@ -60,6 +66,15 @@ class PairsGkmEngine:
         self.alpha = enc.hash_base
         self.code_min = enc.code_min
         self.n = enc.n
+        if self.config.mesh is not None:
+            # as in the JAX engine: mesh exact kernels are the packed
+            # engine's job (its ring shards the window table and the
+            # kernel rows); the API's auto route falls back to it on this
+            raise ValueError(
+                "the seq-aligned pairs engine is single-device; mesh "
+                "exact kernels run on the packed engine -- use "
+                "exact_engine='packed' or 'auto'"
+            )
 
         self.p = enc.max_len - g + 1
         self.p_pad = _next_multiple(self.p, 8)
@@ -126,11 +141,13 @@ class PackedPairsEngine:
     by default; kernel E (``packed_pairlist``, slabs of strip pairs) with
     ``FASTSK_PACKED_PAIRLIST=1`` or where D's grid does not fit;
     kernel G (``packed_grouped``) with ``pairs_backend="pallas_grouped"``.
+    Under a mesh, kernel F (``packed_s1``) in the ring ("ring") or in
+    round-robin strips ("round-robin"), by ``mesh_state``.
     """
 
     TILE = 2048
     GROUP = 8  # b strips per kernel G launch
-    SLAB_BYTES = 128 << 20  # kernel E's part blocks per launch
+    SLAB_BYTES = 128 << 20  # kernel E's part blocks / F's s1 per launch
 
     def __init__(
         self,
@@ -166,7 +183,10 @@ class PackedPairsEngine:
         lengths_sorted = np.asarray(enc.lengths)[self.order]
         self.tile = self.TILE
         backend = self.config.pairs_backend
+        self.mesh = self.config.mesh
         self.route = "grouped" if backend == "pallas_grouped" else "band"
+        if self.mesh is not None:
+            self.route = "ring" if self.config.mesh_state == "sharded" else "round-robin"
         self.group = self.GROUP if self.route == "grouped" else 1
         self.pack = pairs_packed.pack_windows(
             lengths_sorted, g, self.tile, self.group
@@ -182,9 +202,10 @@ class PackedPairsEngine:
             self.route = "pairlist"
         self._ids_sorted = np.asarray(enc.ids)[self.order]
 
-    def rows(self) -> PackedRows:
-        """The packed window table on the configured device."""
-        dev = self.config.device
+    def rows(self, device=None) -> PackedRows:
+        """The packed window table on ``device`` (the configured one by
+        default)."""
+        dev = self.config.device if device is None else device
         seq_of = torch.from_numpy(self.pack["seq_of"]).to(dev)
         codes = pairs_packed.window_codes(
             torch.from_numpy(self._ids_sorted).to(dev),
@@ -258,7 +279,9 @@ class PackedPairsEngine:
     def exact_device(self):
         """Exact unnormalized kernel: ``DeviceCounts`` (int32, on the
         device) when every count is < 2^31, and host int64 numpy otherwise,
-        as the JAX engine returns; callers take both."""
+        as the JAX engine returns; callers take both. Single-device."""
+        if self.mesh is not None:
+            raise ValueError("device-resident exact is single-device")
         full = self._counts()
         if int(full.max()) < 2**31:
             return DeviceCounts(full.to(torch.int32))
@@ -266,4 +289,115 @@ class PackedPairsEngine:
 
     def exact(self) -> np.ndarray:
         """Exact unnormalized kernel, int64 [N, N] on the host."""
-        return self._counts().cpu().numpy()
+        if self.mesh is None:
+            return self._counts().cpu().numpy()
+        t0 = time.perf_counter()
+        if self.config.mesh_state == "sharded":
+            k_sorted = self._exact_sharded_planes_rows()
+        else:
+            k_sorted = self._exact_sharded_planes()
+        if not self.config.quiet:
+            print(
+                f"packed pairs exact ({self.route}, {self.mesh.size} devices): "
+                f"{self.n} sequences, {self.total_rows} window rows, "
+                f"strips={self.n_strips}, c_max={self.c_max}, "
+                f"{time.perf_counter() - t0:.3f} s"
+            )
+        pos = np.empty(self.n, dtype=np.int64)
+        pos[self.order] = np.arange(self.n)
+        return k_sorted[np.ix_(pos, pos)]
+
+    def _mesh_slab(self) -> int:
+        """b strips per kernel-F launch: its [slab, c_pad, tile] int32
+        output within ``SLAB_BYTES``."""
+        return max(1, self.SLAB_BYTES // (self.c_pad * self.tile * 4))
+
+    def _per_device(self, make) -> list:
+        """``make(device)`` for each mesh device, made once per distinct
+        device (a repeated device shares its tensors, as JAX's replicated
+        operands are one buffer per device)."""
+        made = {}
+        for dev in self.mesh.devices:
+            if dev not in made:
+                made[dev] = make(dev)
+        return [made[dev] for dev in self.mesh.devices]
+
+    def _exact_sharded_planes_rows(self) -> np.ndarray:
+        """Ring-sharded mesh run (``mesh_state="sharded"``, the default):
+        the window table is strip-sharded to match each device's kernel
+        row block and travels the ring once while every device sweeps its
+        own strips against each visiting shard
+        (``parallel/sharding.py:packed_ring_rowsharded``). Per-device
+        memory is the [blk, Np] block plus two shards; overlapping row
+        blocks (sequences straddling them) add on the host. The block
+        sizes are the JAX engine's."""
+        mesh = self.mesh
+        n_dev = mesh.size
+        n_pad = self.n + self.c_pad
+        spd = -(-self.n_strips // n_dev)  # own strips per device
+        fs = np.asarray(self.pack["first_seq"])
+        row0 = np.zeros(n_dev, np.int64)
+        blk = self.c_max
+        for d in range(n_dev):
+            s0 = d * spd
+            s1 = min(s0 + spd, self.n_strips)
+            if s0 < self.n_strips:
+                row0[d] = fs[s0]
+                blk = max(blk, int(fs[s1 - 1]) + self.c_max - int(fs[s0]))
+
+        # the table padded to n_dev * spd strips: dead strips hold padding
+        # rows only (seq_of = -1) and are skipped
+        full = self.rows(torch.device("cpu"))
+        rows_pad = n_dev * spd * self.tile
+        extra = rows_pad - self.total_rows
+        codes = torch.nn.functional.pad(full.codes, (0, 0, 0, extra), value=-1)
+        seq_of = torch.nn.functional.pad(full.seq_of, (0, extra), value=-1)
+        first = torch.nn.functional.pad(
+            full.first_seq, (0, n_dev * spd - self.n_strips), value=self.n
+        )
+        rows_d = spd * self.tile
+        shards = [
+            PackedRows(
+                codes=codes[d * rows_d : (d + 1) * rows_d].to(dev),
+                seq_of=seq_of[d * rows_d : (d + 1) * rows_d].to(dev),
+                first_seq=first[d * spd : (d + 1) * spd].to(dev),
+                tile=self.tile, c_pad=self.c_pad, alpha=self.alpha,
+            )
+            for d, dev in enumerate(mesh.devices)
+        ]
+        bounds = self._per_device(
+            lambda dev: torch.from_numpy(self.pack["bounds"]).to(dev)
+        )
+        blocks = [torch.zeros((blk, n_pad), dtype=torch.int64, device=dev)
+                  for dev in mesh.devices]
+        blocks = shd.packed_ring_rowsharded(
+            blocks, shards, bounds, [int(r) for r in row0], mesh=mesh,
+            spd=spd, k=self.k, c_max=self.c_max, n_strips=self.n_strips,
+            slab=self._mesh_slab(),
+        )
+        blocks_host = shd.host_gather(blocks)
+        rows_total = max(int(row0.max()) + blk, n_pad)
+        k_full = np.zeros((rows_total, n_pad), np.int64)
+        for d in range(n_dev):
+            k_full[row0[d] : row0[d] + blk] += blocks_host[d]
+        return k_full[: self.n, : self.n]
+
+    def _exact_sharded_planes(self) -> np.ndarray:
+        """Mesh-parallel strips, round-robin (``mesh_state="replicated"``):
+        each device adds its strips' part blocks into a private full-size
+        replica; the host sums the replicas (each (a, b) pair lands on
+        exactly one device)."""
+        mesh = self.mesh
+        n_pad = self.n + self.c_pad
+        rows = self._per_device(self.rows)
+        bounds = self._per_device(
+            lambda dev: torch.from_numpy(self.pack["bounds"]).to(dev)
+        )
+        mats = [torch.zeros((n_pad, n_pad), dtype=torch.int64, device=dev)
+                for dev in mesh.devices]
+        for ridx in range(-(-self.n_strips // mesh.size)):
+            mats = shd.packed_round_sharded(
+                mats, rows, bounds, ridx, mesh=mesh, k=self.k,
+                c_max=self.c_max, n_strips=self.n_strips, slab=self._mesh_slab(),
+            )
+        return shd.host_gather(mats).sum(axis=0)[: self.n, : self.n]

@@ -14,14 +14,18 @@ integer weight and a window-to-sequence sum (rows are sequence-aligned,
 
 ``pairs_counts_plain`` is the plain version of kernel A
 (``ops/pairs_cuda.py``): the CPU path, and what the kernel is held to on
-the card.
+the card. ``pairs_probe_plain`` is that of kernel H's variants.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
+
+# kernel H's variants, in the order of its C entry point
+PROBE_VARIANTS = ("noop", "matmul", "skeleton", "current", "int32")
 
 
 def binom_exact(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -87,14 +91,16 @@ def pairs_counts_plain(
     k: int,
     p_pad: int,
     strip_rows: int = 16384,
+    weight=None,
 ) -> torch.Tensor:
     """Full symmetric count matrix ``[n_pad, n_pad]`` int32.
 
     Strips of ``c`` sequences (about ``strip_rows`` window rows) are
     computed for the upper block triangle only and mirrored. Per strip
     pair: ``D = X_i X_j^T`` in f32 (0/1 operands, exact counts <= g),
-    ``C(D, k)`` exact in f32, then the window -> sequence reshape-sum in
-    integers. Every per-pair total is < 2^31 by the engine's guard.
+    ``C(D, k)`` exact in f32 (or ``weight(D)``, int32), then the window ->
+    sequence reshape-sum in integers. Every per-pair total is < 2^31 by
+    the engine's guard.
     """
     n_pad = x.shape[0] // p_pad
     c = max(1, strip_rows // p_pad)
@@ -107,8 +113,62 @@ def pairs_counts_plain(
             for j0 in range(i0, n_pad, c):
                 j1 = min(j0 + c, n_pad)
                 d = xi @ xf[j0 * p_pad : j1 * p_pad].T
-                w = binom_exact(d, k).to(torch.int32)
+                w = (binom_exact(d, k) if weight is None else weight(d)).to(torch.int32)
                 part = w.reshape(i1 - i0, p_pad, j1 - j0, p_pad).sum(dim=(1, 3))
                 out[i0:i1, j0:j1] = part
                 out[j0:j1, i0:i1] = part.T
     return out
+
+
+def binom_ffact_i32(d: torch.Tensor, k: int) -> torch.Tensor:
+    """C(d, k) for int32 d in [0, g] as kernel H's ``int32`` variant
+    computes it: the falling factorial d (d - 1) ... (d - k + 1) in int32
+    with balanced factor pairing (``fastsk_tpu/ops/pairs_pallas.py:
+    ffact_pairing_i32``), divided exactly by k!. Exact while g! / (g - k)!
+    < 2^31."""
+    d = d.to(torch.int32)
+    if k == 1:
+        return d
+    t = d * (d - (k - 1))
+    prod = t
+    for i in range(1, k // 2):
+        prod = prod * (t + i * (k - 1 - i))
+    if k % 2:
+        prod = prod * (d - (k - 1) // 2)
+    return torch.div(prod, math.factorial(k), rounding_mode="floor")
+
+
+def pairs_probe_plain(
+    x: torch.Tensor,  # [n_pad * p_pad, F] int8, sequence-aligned rows
+    *,
+    k: int,
+    p_pad: int,
+    variant: str,
+    tile: int,
+) -> torch.Tensor:
+    """What each of kernel H's variants writes, ``[n_pad, n_pad]`` int32,
+    for kernel A's grid of ``tile``-sequence blocks: zeros (noop); each
+    block's sum of match counts over all its window pairs at the block's
+    corner entry (matmul); ``S S^T`` with ``S_i = sum_p x_ip`` (skeleton,
+    the match counts summed with weight d); kernel A's counts (current,
+    and int32 through ``binom_ffact_i32``)."""
+    n_pad = x.shape[0] // p_pad
+    if variant == "noop":
+        return torch.zeros((n_pad, n_pad), dtype=torch.int32, device=x.device)
+    if variant in ("matmul", "skeleton"):
+        s_rows = x.reshape(n_pad, p_pad, -1).sum(1, dtype=torch.float64)
+        skel = s_rows @ s_rows.T  # sums < 2^53: exact
+        if variant == "skeleton":
+            return skel.round().to(torch.int32)
+        nt = n_pad // tile
+        corner = skel.reshape(nt, tile, nt, tile).sum((1, 3))
+        out = torch.zeros((n_pad, n_pad), dtype=torch.int32, device=x.device)
+        out[::tile, ::tile] = corner.round().to(torch.int32)
+        return out
+    if variant == "current":
+        return pairs_counts_plain(x, k=k, p_pad=p_pad)
+    if variant == "int32":
+        return pairs_counts_plain(
+            x, k=k, p_pad=p_pad, weight=lambda d: binom_ffact_i32(d.round().to(torch.int32), k)
+        )
+    raise ValueError(f"unknown probe variant {variant!r}; one of {PROBE_VARIANTS}")

@@ -19,10 +19,16 @@ counted exactly once, sequences straddling strips included, and the
 result is the full symmetric matrix.
 
 The plain versions here (``packed_pair_parts_plain``,
-``packed_counts_plain``) are what kernels D, E and G
-(``ops/pairs_packed_cuda.py``) compute. They sum exact int64 integers: the
+``packed_counts_plain``, ``packed_s1_plain``) are what kernels D, E, G and
+F (``ops/pairs_packed_cuda.py``) compute. They sum exact integers: the
 JAX package's base-128/256 digit planes only kept bf16/int8 MXU operands
 exact and are not part of the function.
+
+The mesh paths (``parallel/sharding.py``) split a part block in two
+stages, as the JAX package's ``_pair_parts`` does: kernel F's stage 1
+(rows -> i sequences, ``s1 [n_b, c_pad, tile]``), then ``parts_from_s1``
+(columns -> j sequences: a cumsum gathered at the strip's sequence
+boundaries), in torch ops on every device.
 """
 
 from __future__ import annotations
@@ -176,13 +182,24 @@ def land_parts(
     """Add part blocks into ``mat`` in place: ``P`` at (fa, fb), and
     ``P^T`` at (fb, fa) where ``mirror``. Overlapping blocks (adjacent
     strips sharing a sequence) compose, since every landing is an add."""
+    add_blocks(mat, parts, fa, fb)
+    if bool(mirror.any()):
+        add_blocks(mat, parts[mirror].transpose(1, 2), fb[mirror], fa[mirror])
+
+
+def add_blocks(
+    mat: torch.Tensor,  # [M, M'] int64
+    parts: torch.Tensor,  # [S, c, c] int64
+    row0: torch.Tensor,  # [S] first row of each block in mat
+    col0: torch.Tensor,  # [S] first column
+) -> None:
+    """``mat[row0[s] + i, col0[s] + j] += parts[s, i, j]`` in place, with
+    overlapping blocks composing."""
     c = parts.shape[1]
     iota = torch.arange(c, device=mat.device)
-    rows = (fa.long()[:, None, None] + iota[None, :, None]).expand_as(parts)
-    cols = (fb.long()[:, None, None] + iota[None, None, :]).expand_as(parts)
+    rows = (row0.long()[:, None, None] + iota[None, :, None]).expand_as(parts)
+    cols = (col0.long()[:, None, None] + iota[None, None, :]).expand_as(parts)
     mat.index_put_((rows, cols), parts, accumulate=True)
-    if bool(mirror.any()):
-        mat.index_put_((cols[mirror], rows[mirror]), parts[mirror], accumulate=True)
 
 
 def packed_counts_plain(
@@ -211,3 +228,129 @@ def packed_counts_plain(
         )
         land_parts(mat, parts, fs[pa], fs[pb], pb > pa)
     return mat[:n_out, :n_out]
+
+
+def packed_s1_plain(
+    xa: torch.Tensor,  # [tile, F] int8 one-hot rows of strip a
+    seq_a: torch.Tensor,  # [tile] int32 (-1 padding)
+    fa,  # first sequence of strip a (int or 0-d tensor)
+    xb: torch.Tensor,  # [n_b * tile, F] int8 one-hot rows of the b strips
+    *,
+    k: int,
+    tile: int,
+    c_pad: int,
+) -> torch.Tensor:
+    """Stage 1 of strip a against ``n_b`` strips: ``[n_b, c_pad, tile]``
+    int32 with ``s1[b, li, c] = sum_{r in a, seq_a[r] = fa + li}
+    C(matches(r, c), k)``.
+
+    Per b: ``D = X_a X_b^T`` in f32 (exact counts <= g), ``C(D, k)`` exact
+    in f32, then the i-side landing as an f64 product with the one-hot
+    row -> local-sequence map (sums <= tile * C(20, 10) < 2^53: exact).
+    Padding rows are all-zero one-hots, so they weigh 0 on either side.
+    The JAX kernel's ``sum_d base^d * s1_d`` is this one value."""
+    dev = xa.device
+    n_b = xb.shape[0] // tile
+    local = seq_a.long() - fa
+    ga = (local[None, :] == torch.arange(c_pad, device=dev)[:, None]).to(torch.float64)
+    xaf = xa.to(torch.float32)
+    out = torch.empty((n_b, c_pad, tile), dtype=torch.int32, device=dev)
+    with full_f32_matmul():
+        for b in range(n_b):
+            d = xaf @ xb[b * tile : (b + 1) * tile].to(torch.float32).T
+            w = binom_exact(d, k).to(torch.float64)
+            out[b] = (ga @ w).round().to(torch.int32)
+    return out
+
+
+def parts_from_s1(
+    s1: torch.Tensor,  # [n_b, c_pad, tile] int32
+    bounds: torch.Tensor,  # [n_b, c_max] int32: the b strips' bounds rows
+    *,
+    c_max: int,
+) -> torch.Tensor:
+    """Stage 2: part blocks ``[n_b, c_max, c_max]`` int64 from stage 1.
+
+    An int64 cumsum over each strip's columns, gathered at ``bounds - 1``
+    (1 + the last row of each local j sequence; the strip's last boundary
+    carries forward past its last sequence), then differenced: each j
+    sequence's columns, padding rows between sequences included (their
+    s1 is 0). The JAX package's ``_pair_parts`` stage 2, in int64."""
+    n_b, _, tile = s1.shape
+    cum = torch.cumsum(s1[:, :c_max], dim=2, dtype=torch.int64)
+    bnd = bounds.long()
+    idx = (bnd - 1).clamp(0, tile - 1)[:, None, :].expand(n_b, c_max, c_max)
+    at = torch.gather(cum, 2, idx)
+    at = torch.where((bnd > 0)[:, None, :], at, torch.zeros_like(at))
+    return at - torch.nn.functional.pad(at[:, :, :-1], (1, 0))
+
+
+def pair_parts(rows_a, a: int, rows_b, b0: int, n_b: int, bounds, *, k: int, c_max: int):
+    """Part blocks ``[n_b, c_max, c_max]`` int64 of strip ``a`` of
+    ``rows_a`` against strips ``b0 .. b0 + n_b - 1`` of ``rows_b``
+    (``PackedRows`` on one device; ``bounds`` their ``[n_b, c_max]``
+    rows): kernel F, then stage 2."""
+    from .pairs_packed_cuda import packed_s1
+
+    s1 = packed_s1(rows_a, a, rows_b, b0, n_b, k=k)
+    return parts_from_s1(s1, bounds, c_max=c_max)
+
+
+def strip_planes_update(
+    mat: torch.Tensor,  # [Np, Np] int64, Np >= max(first_seq) + c_max
+    rows,  # PackedRows: the whole table, on mat's device
+    a: int,
+    bounds: torch.Tensor,  # [n_strips, c_max] int32 on mat's device
+    *,
+    k: int,
+    c_max: int,
+    n_strips: int,
+    slab: int,
+) -> None:
+    """Add strip a against every strip b >= a into ``mat``, ``slab`` b
+    strips per kernel-F launch: P at (fa, fb), and for b > a also P^T at
+    (fb, fa), so every ordered row pair counts exactly once (straddling
+    sequences included)."""
+    fs = rows.first_seq
+    for b0 in range(a, n_strips, slab):
+        n_b = min(slab, n_strips - b0)
+        parts = pair_parts(
+            rows, a, rows, b0, n_b, bounds[b0 : b0 + n_b], k=k, c_max=c_max
+        )
+        fa = fs[a].expand(n_b)
+        fb = fs[b0 : b0 + n_b]
+        add_blocks(mat, parts, fa, fb)
+        skip = 1 if b0 == a else 0  # the diagonal pair lands once
+        add_blocks(mat, parts[skip:].transpose(1, 2), fb[skip:], fa[skip:])
+
+
+def strip_block_shard_update(
+    block: torch.Tensor,  # [blk, Np] int64: this device's kernel rows
+    own,  # PackedRows: this device's strips (first_seq global ids)
+    visit,  # PackedRows: the visiting shard, on block's device
+    a_base: int,  # global id of own strip 0
+    b_base: int,  # global id of visiting strip 0
+    row0: int,  # global kernel row of block[0]
+    bounds: torch.Tensor,  # [n_strips, c_max] int32 on block's device
+    *,
+    k: int,
+    c_max: int,
+    n_strips: int,
+    slab: int,
+) -> None:
+    """Ring-step unit of the row-sharded sweep: every own strip a against
+    every strip b of the visiting shard (ordered pairs), landing only
+    rows ``fa - row0`` of the caller's block (P at (fa - row0, fb)).
+    Dead strips (global id >= n_strips) are skipped."""
+    n_b_live = min(visit.n_strips, n_strips - b_base)
+    for ai in range(min(own.n_strips, n_strips - a_base)):
+        fa = own.first_seq[ai]
+        for c0 in range(0, n_b_live, slab):
+            n_b = min(slab, n_b_live - c0)
+            b = b_base + c0
+            parts = pair_parts(
+                own, ai, visit, c0, n_b, bounds[b : b + n_b], k=k, c_max=c_max
+            )
+            add_blocks(
+                block, parts, (fa - row0).expand(n_b), visit.first_seq[c0 : c0 + n_b]
+            )

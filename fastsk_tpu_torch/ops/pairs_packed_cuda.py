@@ -1,4 +1,4 @@
-"""Wrappers of kernels D, E and G (``csrc/pairs_packed.cu``).
+"""Wrappers of kernels D, E, G and F (``csrc/pairs_packed.cu``).
 
 Counterparts of ``fastsk_tpu/ops/pairs_packed_pallas.py``:
 
@@ -8,23 +8,30 @@ Counterparts of ``fastsk_tpu/ops/pairs_packed_pallas.py``:
 - ``packed_pairlist`` (kernel E, ``packed_pairlist_pallas``): part blocks
   of a list of strip pairs, for ``ops/pairs_packed.py:land_parts``;
 - ``packed_grouped``  (kernel G, ``packed_part_pallas``): part blocks of
-  strip a against one group of b strips.
+  strip a against one group of b strips;
+- ``packed_s1``       (kernel F, ``packed_s1_pallas``): stage 1 of strip a
+  against a run of b strips, for the mesh paths
+  (``ops/pairs_packed.py:pair_parts``).
 
 Each takes a ``PackedRows`` (the packed window codes and their layout).
 On a CPU tensor it runs the plain version (``ops/pairs_packed.py``); on a
-CUDA tensor it launches its kernel or raises. Outputs are int64 counts.
+CUDA tensor it launches its kernel or raises. Outputs are int64 counts
+(F's stage-1 sums are int32).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
 
 from .. import _build
-from .pairs_packed import onehot_rows, packed_counts_plain, packed_pair_parts_plain
+from .pairs_packed import (
+    onehot_rows, packed_counts_plain, packed_pair_parts_plain, packed_s1_plain,
+)
 
 ROW_TILE = 128  # rows a side of the kernels' tile pair (= threads a block)
 _MAX_BLOCKS = 2**31 - 1  # a 1-D grid
@@ -101,6 +108,21 @@ class PackedRows:
             self.seq_of, (0, r_pad - self.seq_of.shape[0]), value=-1
         ).contiguous()
 
+    def to(self, device) -> "PackedRows":
+        """This table on ``device`` (itself when it is there already), its
+        kernel operands moved without waiting on the host."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        moved = PackedRows(
+            *(t.to(device, non_blocking=True) for t in (self.codes, self.seq_of, self.first_seq)),
+            tile=self.tile, c_pad=self.c_pad, alpha=self.alpha,
+        )
+        for name in ("words", "seq_padded"):
+            if name in self.__dict__:
+                moved.__dict__[name] = self.__dict__[name].to(device, non_blocking=True)
+        return moved
+
     def meta(self, tr: int) -> TileMeta:
         """Per ``tr``-row tile: its first sequence (0 where the tile has no
         valid row) and the largest span of sequences in any tile."""
@@ -133,7 +155,7 @@ def _check_k(rows: PackedRows, k: int) -> None:
     if not 1 <= k <= rows.g:
         raise ValueError(f"need 1 <= k <= g; got g={rows.g}, k={k}")
     if rows.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"kernels D, E, G run on CUDA or CPU tensors, not {rows.device}")
+        raise ValueError(f"kernels D to G run on CUDA or CPU tensors, not {rows.device}")
 
 
 def band_fits(total_rows: int) -> bool:
@@ -245,7 +267,55 @@ def packed_grouped(
     return out
 
 
+def packed_s1(
+    rows_a: PackedRows, a: int, rows_b: PackedRows, b0: int, n_b: int, *, k: int
+) -> torch.Tensor:
+    """Kernel F: stage 1 ``[n_b, c_pad, tile]`` int32 of strip ``a`` of
+    ``rows_a`` against strips ``b0 .. b0 + n_b - 1`` of ``rows_b`` (one
+    table, or two shards of one, on one device): ``s1[b, li, c] = sum_{r
+    in a, seq_of[r] = first_seq[a] + li} C(matches(r, c), k)``."""
+    _check_k(rows_a, k)
+    if rows_b.device != rows_a.device:
+        raise ValueError(f"strips on {rows_a.device} and {rows_b.device}")
+    if (rows_b.g, rows_b.tile, rows_b.c_pad, rows_b.alpha) != (
+        rows_a.g, rows_a.tile, rows_a.c_pad, rows_a.alpha
+    ):
+        raise ValueError("rows_a and rows_b must share g, tile, c_pad and alpha")
+    if not (0 <= a < rows_a.n_strips and n_b >= 1 and 0 <= b0 and b0 + n_b <= rows_b.n_strips):
+        raise ValueError(
+            f"strip {a} of {rows_a.n_strips} or strips {b0}..{b0 + n_b - 1} "
+            f"of {rows_b.n_strips} out of range"
+        )
+    tile, c = rows_a.tile, rows_a.c_pad
+    if tile * math.comb(rows_a.g, k) >= 2**31:
+        raise ValueError(
+            f"tile={tile} x C({rows_a.g}, {k}) exceeds kernel F's int32 sums"
+        )
+    if rows_a.device.type == "cpu":
+        return packed_s1_plain(
+            rows_a.onehot[a * tile : (a + 1) * tile],
+            rows_a.seq_of[a * tile : (a + 1) * tile],
+            rows_a.first_seq[a],
+            rows_b.onehot[b0 * tile : (b0 + n_b) * tile],
+            k=k, tile=tile, c_pad=c,
+        )
+    if rows_a.first_seq.dtype != torch.int32 or not rows_a.first_seq.is_contiguous():
+        raise ValueError("first_seq must be a contiguous int32 tensor")
+    out = torch.zeros((n_b, c, tile), dtype=torch.int32, device=rows_a.device)
+    wa, wb = rows_a.words, rows_b.words
+    lib = _build.kernels()
+    _launch(
+        lib.packed_s1_launch, "packed_s1", rows_a,
+        wa.data_ptr(), rows_a.seq_padded.data_ptr(), rows_a.first_seq.data_ptr(),
+        a, tile, wb[b0 * tile :].data_ptr(), rows_b.seq_padded[b0 * tile :].data_ptr(),
+        n_b * tile, c, wa.shape[1], k, 4 * wa.shape[1] - rows_a.g, out.data_ptr(),
+    )
+    packed_s1.launches += 1
+    return out
+
+
 # kernel launches; the CPU path does not count
 packed_band.launches = 0
 packed_pairlist.launches = 0
 packed_grouped.launches = 0
+packed_s1.launches = 0

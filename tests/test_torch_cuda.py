@@ -1,4 +1,4 @@
-"""Kernels A, B, C, D, E and G against their plain PyTorch versions, on the card.
+"""Kernels A to H against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
@@ -17,6 +17,7 @@ from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngi
 from fastsk_tpu_torch.kernel.config import KernelConfig
 from fastsk_tpu_torch.ops import pairs, pairs_cuda, pairs_packed, pairs_packed_cuda
 from fastsk_tpu_torch.ops.encode import encode_sequences
+from fastsk_tpu_torch.parallel import make_mesh
 from fastsk_tpu_torch.svm import smo_cuda
 from fastsk_tpu_torch.svm.kernel_svm import nu_svc_start, nu_svr_start
 
@@ -195,3 +196,79 @@ def test_kernels_d_e_g_match_plain_and_oracle(cuda, monkeypatch, X, g, m, tile):
     for route in ("band", "pairlist", "grouped"):
         eng.route = route
         np.testing.assert_array_equal(eng.exact(), oracle_counts)
+
+
+# kernel F at every word width (g=6 one word, 7 with a padding byte, 12
+# three, 16 four, 20 five), 256-row strips that split sequences, and the
+# 2048-row default
+@pytest.mark.parametrize(
+    "X,g,m,tile",
+    [
+        (_ragged(11, 9, 20, 400, 4), 6, 3, 256),
+        (_ragged(12, 13, 10, 300, 24), 7, 3, 256),
+        (_ragged(13, 40, 9, 300, 20), 8, 4, 2048),
+        (_ragged(14, 6, 30, 200, 4), 12, 6, 256),
+        (_ragged(15, 7, 30, 200, 4), 16, 14, 256),
+        ([[3] * 130, [3] * 130, [3] * 40], 20, 10, 256),
+    ],
+)
+def test_kernel_f_matches_plain(cuda, monkeypatch, X, g, m, tile):
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    eng = PackedPairsEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
+    rows = eng.rows()
+    ns, k = eng.n_strips, g - m
+    for a, b0, n_b in ((0, 0, ns), (ns // 2, ns // 2, ns - ns // 2), (ns - 1, 0, ns)):
+        before = pairs_packed_cuda.packed_s1.launches
+        got = pairs_packed_cuda.packed_s1(rows, a, rows, b0, n_b, k=k)
+        torch.cuda.synchronize()
+        assert pairs_packed_cuda.packed_s1.launches == before + 1
+        want = pairs_packed.packed_s1_plain(
+            rows.onehot[a * tile : (a + 1) * tile], rows.seq_of[a * tile : (a + 1) * tile],
+            rows.first_seq[a], rows.onehot[b0 * tile : (b0 + n_b) * tile],
+            k=k, tile=tile, c_pad=eng.c_pad,
+        )
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("state", ["sharded", "replicated"])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_mesh_routes_match_kernel_d(cuda, monkeypatch, shape, state):
+    """Both mesh routes, over the card named 1 or 4 times, equal kernel
+    D's single-device counts and launch kernel F."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", 256)
+    X = _ragged(16, 60, 10, 400, 20)
+    enc = encode_sequences(X)
+    want = PackedPairsEngine(enc, 8, 4, KernelConfig(device=cuda)).exact()
+    mesh = make_mesh(*shape, devices=[cuda] * (shape[0] * shape[1]))
+    before = pairs_packed_cuda.packed_s1.launches
+    got = PackedPairsEngine(enc, 8, 4, KernelConfig(device=cuda, mesh=mesh, mesh_state=state)).exact()
+    assert pairs_packed_cuda.packed_s1.launches > before
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, oracle.exact_counts(X, 8, 4))
+
+
+# kernel H's two widths: 10 words (g=8 over 5 codes, as KAT2B) and 16
+# (g=16 over DNA)
+@pytest.mark.parametrize("g,m,alpha,n,length", [(8, 4, 5, 40, 60), (16, 10, 4, 24, 60)])
+def test_kernel_h_variants_match_plain(cuda, g, m, alpha, n, length):
+    rng = np.random.default_rng(g)
+    X = rng.integers(1, alpha + 1, size=(n, length)).tolist()
+    X[0][:alpha] = list(range(1, alpha + 1))  # every code, so hash_base = alpha
+    eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
+    x = eng._build_x()
+    assert pairs_cuda.padded_width(x.shape[1]) // 4 in pairs_cuda.PROBE_WIDTHS
+    kw = dict(g=g, k=g - m, p_pad=eng.p_pad)
+    tile = pairs_cuda.tile_sequences(eng.n_pad, eng.p_pad, pairs_cuda.padded_width(x.shape[1]))
+    counts = pairs.pairs_counts_plain(x, k=g - m, p_pad=eng.p_pad)
+    for variant in pairs.PROBE_VARIANTS:
+        before = pairs_cuda.pairs_probe.launches
+        got = pairs_cuda.pairs_probe(x, variant=variant, **kw)
+        again = pairs_cuda.pairs_probe(x, variant=variant, **kw)
+        torch.cuda.synchronize()
+        assert pairs_cuda.pairs_probe.launches == before + 2
+        torch.testing.assert_close(got, again, rtol=0, atol=0)
+        want = (
+            counts if variant in ("current", "int32")
+            else pairs.pairs_probe_plain(x, k=g - m, p_pad=eng.p_pad, variant=variant, tile=tile)
+        )
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
