@@ -8,27 +8,37 @@ raises and the exit code is non-zero:
 
 1. env    torch / CUDA / card / nvcc / triton facts; refuses to run
           without a CUDA device.
-2. build  compiles kernels A, B (csrc/pairs.cu, csrc/smo.cu) and D, E, G
-          (csrc/pairs_packed.cu) from the checkout, one nvcc per source in
-          parallel; prints the seconds.
+2. build  compiles kernels A, H (csrc/pairs.cu), B, C (csrc/smo.cu) and
+          D, E, F, G (csrc/pairs_packed.cu) from the checkout, one nvcc per
+          source in parallel; prints the seconds.
 3. pairs  kernel A against its plain PyTorch version: a small seeded shape
           (also against inline numpy counts), the full KAT2B shape
           (g=8, m=4) and 7230 seeded length-200 DNA at g=16, m=10.
           Integers must be equal.
-4. smo    kernel B against its plain twin on the KAT2B linear Gram (the
-          main solve of phase 5): the same iteration count at the eps-KKT
-          stop, max|dalpha| <= 1e-4*C, equal decision signs.
+4. smo    kernel B (one thread-block cluster a problem) against its plain
+          twin on the KAT2B linear Gram (the main solve of phase 5): the
+          same iteration count at the eps-KKT stop, bit-identical alpha and
+          grad; timed at clusters of 8 and 16 CTAs, with the same bits.
+4b. platt-folds  the five KAT2B Platt folds (C=1, held-out rows boxed
+          at 0) in one batched launch of B against five lone launches:
+          equal iterations, bit-identical alpha and grad; fold 0 against
+          the twin on a 20,000-iteration prefix, bit for bit.
 5. slice  KAT2B g=8 m=4 C=1 through FastaUtility -> FastSK.compute_kernel
           (device_resident=True) -> fit -> score("auc"), with the launch
-          counters zeroed just before; both kernels must have launched,
-          and |AUC - 0.903321| <= 0.005.
+          counters zeroed just before: kernel A launched, kernel B twice
+          for 6 problems (the main solve, then the 5 Platt folds in one
+          batch), AUC 0.904993 to 6 decimals and |AUC - 0.903321| <= 0.005.
 6. golden tests/golden/ep_sl at g=6, m=2 with device_resident=False on the
           card: the f64 kernel equals ep_sl_g6m2.txt bit for bit.
-7. packed kernels D, E and G (the packed engine's band, pair-list and
+7. packed kernels D (its tensor-core body, and its byte-code body on the
+          same rows), E and G (the packed engine's band, pair-list and
           grouped routes) against the plain version: a small seeded
           ragged set whose sequences straddle 2048-row strips (also
           against inline numpy counts) and a medium one (400 sequences,
           lengths 16-905, alphabet 24, g=8, m=4). Integers must be equal.
+          Then D's two bodies timed on medium sets over 24 to 88 letters
+          (one-hot depths 192 to 704 bytes), and a set over 100 letters at
+          g=12 (1,216 bytes), which must take the byte-code body.
 8. packed-full  the shape of protein 2.19 (2564 sequences, lengths
           16-905, alphabet 24, g=8, m=4): D, E and G equal each other and
           the plain version, and D equals kernel A run on the same set in
@@ -36,11 +46,12 @@ raises and the exit code is non-zero:
 9. ragged-slice  that set, 80/20 split, positives carrying a seeded motif,
           through FastSK(8, 4).compute_kernel (device_resident=True) ->
           fit(C=0.01) -> score("auc") with the counters zeroed just
-          before: the auto route must take kernel D (and not kernel A),
-          kernel B must launch, AUC >= 0.9, and a host-path run
-          (device_resident=False) must give an AUC within 0.005. Kernel B
-          is then held to its twin, as in phase 4, on that fit's training
-          Gram: the main solve (C=0.01) and the first Platt fold.
+          before: the auto route must take kernel D's tensor-core body
+          once (and not kernel A), kernel B 2 launches for 6 problems, AUC
+          >= 0.9, and a host-path run (device_resident=False) must give an
+          AUC within 0.005. Kernel B is then held to its twin, as in phase
+          4, on that fit's training Gram: the main solve (C=0.01) and the
+          first Platt fold.
 10. smo-nu  kernel C (Solver_NU, csrc/smo.cu) against its plain twin on
           the nu-SVC solve (nu=0.5) of the KAT2B linear Gram (n=6318), both
           capped at 20,000 iterations, and of the ragged slice's training
@@ -55,14 +66,15 @@ raises and the exit code is non-zero:
           alpha hold; one_class leaves at most nu + 0.02 of the training
           rows outside; r2 > 0; every decision finite. Then kernels B and
           C against their twins on the epsilon-SVR and nu-SVR duals of that
-          Gram (2n = 12,636 rows, the global-memory path), with the fits'
-          p vectors and starts, both capped at 3,000 iterations: equal
-          iterations, bit-identical alpha and grad.
+          Gram (2n = 12,636 rows: B's shared-memory path, C's global one),
+          with the fits' p vectors and starts, both capped at 3,000
+          iterations: equal iterations, bit-identical alpha and grad.
 12. multiclass  a seeded 4-class ragged set (one motif per class, planted
           once per 100 letters, 1,000 sequences, lengths 16-905, alphabet
           24, 80/20 split) through
-          kernel D, then one-vs-one c_svc (36 launches of B: 6 pairs x
-          (1 solve + 5 Platt folds)) and nu_svc (36 launches of C). Each
+          kernel D, then one-vs-one c_svc (12 launches of B for 36
+          problems: 6 pairs x (1 solve + 5 Platt folds in one batch)) and
+          nu_svc (36 launches of C, its folds on sub-Grams). Each
           model is refitted on the CPU from the same f32 Gram (the twins):
           equal predictions, pair decisions within 1e-4 where the CPU's
           |decision| > 1e-3, probabilities within 1e-4; accuracy >= 90%
@@ -121,6 +133,8 @@ KAT2B = os.path.join(HERE, "experiments", "results_baselines", "tmp", "KAT2B")
 EP300 = os.path.join(HERE, "experiments", "results_baselines", "tmp", "EP300")
 GOLDEN = os.path.join(HERE, "tests", "golden")
 AUC_ANCHOR = 0.903321  # experiments/results_baselines/oracle_comparison.csv, KAT2B g8 m4
+AUC_KAT2B = 0.904993  # the port's KAT2B C-SVC AUC since the first card run: kernel B's
+# trajectory is the twin's, bit for bit, so it must not move
 EP300_ANCHOR = 0.990146  # the same file, EP300 g10 m4
 MOTIF = [5, 17, 2, 11, 20, 8, 14, 3]  # planted in the ragged positives
 
@@ -261,30 +275,45 @@ def load_tri(path: str) -> np.ndarray:
     return K
 
 
-def smo_twin(shape: str, gram, labels, c_box) -> dict:
-    """Kernel B against its plain twin on one C-SVC solve of ``gram`` with
-    KernelSVC's eps and max_iter; ``c_box`` is the per-row box (0 on the
-    held-out rows of a Platt fold). Both must stop at the same iteration
-    with max|dalpha| <= 1e-4 * C and equal decision signs. Emits an "smo"
-    line and returns its fields."""
-    from fastsk_tpu_torch.ops import pairs
-    from fastsk_tpu_torch.svm import smo_cuda
-    from fastsk_tpu_torch.svm.kernel_svm import _finalize_rho, _smo_solve_general
-
+def _c_svc_dual(gram, labels, c_box):
+    """(Q, y, C, p, alpha0, max_iter) of the C-SVC solve KernelSVC makes
+    of ``gram``; ``c_box`` [n] or [b, n] (0 on a Platt fold's held-out
+    rows)."""
     dev, n = gram.device, gram.shape[0]
     classes = np.unique(labels)
     y = torch.as_tensor(
         np.where(np.asarray(labels) == classes[1], 1.0, -1.0), dtype=torch.float32, device=dev
     )
-    Q = gram * torch.outer(y, y)
-    C = torch.as_tensor(c_box, dtype=torch.float32, device=dev)
-    p = -torch.ones(n, device=dev)
-    a0 = torch.zeros(n, device=dev)
-    max_iter = max(10_000_000, 100 * n)
+    C = torch.as_tensor(np.asarray(c_box, np.float32), device=dev)
+    return (gram * torch.outer(y, y), y, C, -torch.ones(n, device=dev),
+            torch.zeros(C.shape, device=dev), max(10_000_000, 100 * n))
+
+
+def smo_twin(shape: str, gram, labels, c_box, clusters=()) -> dict:
+    """Kernel B against its plain twin on one C-SVC solve of ``gram`` with
+    KernelSVC's eps and max_iter; ``c_box`` is the per-row box (0 on the
+    held-out rows of a Platt fold). Both must stop at the same iteration
+    with bit-identical alpha and grad (and so equal decision signs). Each
+    of ``clusters`` (CTAs a problem) is timed too and must give the same
+    bits. Emits an "smo" line and returns its fields."""
+    from fastsk_tpu_torch.ops import pairs
+    from fastsk_tpu_torch.svm import smo_cuda
+    from fastsk_tpu_torch.svm.kernel_svm import _finalize_rho
+
+    Q, y, C, p, a0, max_iter = _c_svc_dual(gram, labels, c_box)
+    n = Q.shape[0]
     (a_k, g_k, it_k), ms = cuda_ms(smo_cuda.smo_solve, Q, y, C, p, a0, 1e-3, max_iter)
+    grad0, qd = smo_cuda.initial_state(Q, p, a0)
+    (a_p, g_p, it_p), plain_ms = cuda_ms(smo_cuda.smo_loop_plain, Q, y, C, qd, a0, grad0, 1e-3, max_iter)
+    same = it_k == it_p and torch.equal(a_k, a_p) and torch.equal(g_k, g_p)
+    ms_by_cluster, same_by_cluster = {}, {}
+    for cs in clusters:
+        (a_c, g_c, it_c), ms_by_cluster[cs] = cuda_ms(
+            smo_cuda.smo_solve, Q, y, C, p, a0, 1e-3, max_iter, cluster=cs
+        )
+        same_by_cluster[cs] = it_c == it_k and torch.equal(a_c, a_k) and torch.equal(g_c, g_k)
     a_k, rho_k = _finalize_rho(a_k, g_k, y, C)
-    (a_p, rho_p, it_p), plain_ms = cuda_ms(_smo_solve_general, Q, y, C, p, a0, 1e-3, max_iter)
-    dalpha = float((a_k - a_p).abs().max())
+    a_p, rho_p = _finalize_rho(a_p, g_p, y, C)
     with pairs.full_f32_matmul():
         dec_k = gram @ (a_k * y) - rho_k
         dec_p = gram @ (a_p * y) - rho_p
@@ -294,19 +323,66 @@ def smo_twin(shape: str, gram, labels, c_box) -> dict:
     up = torch.where(y > 0, a_k < C, a_k > 0)
     low = torch.where(y > 0, a_k > 0, a_k < C)
     kkt = float((-y * grad)[up].max() + (y * grad)[low].max())
-    signs_equal = bool(torch.equal(torch.sign(dec_k), torch.sign(dec_p)))
-    c_max = float(np.max(c_box))
+    cluster = smo_cuda.smo_cluster_size()
     fields = dict(
-        shape=shape, n=n, C=c_max, held_out=int((C == 0).sum()), kernel_ms=ms,
-        plain_ms=plain_ms, iters_kernel=it_k, iters_plain=it_p,
-        max_abs_dalpha=dalpha, rho_kernel=float(rho_k), rho_plain=float(rho_p),
-        kkt_violation_f64=kkt, decision_signs_equal=signs_equal,
+        shape=shape, n=n, C=float(np.max(c_box)), held_out=int((C == 0).sum()),
+        kernel_ms=ms, plain_ms=plain_ms, iters_kernel=it_k, iters_plain=it_p,
+        us_per_iter=ms * 1e3 / max(it_k, 1), cluster_size=cluster,
+        smem_path=smo_cuda.smo_smem_path(n, cluster), bit_identical=same,
+        max_abs_dalpha=float((a_k - a_p).abs().max()), rho_kernel=float(rho_k),
+        rho_plain=float(rho_p), kkt_violation_f64=kkt,
+        decision_signs_equal=bool(torch.equal(torch.sign(dec_k), torch.sign(dec_p))),
+        ms_by_cluster=ms_by_cluster, bit_identical_by_cluster=same_by_cluster,
     )
     emit("smo", **fields)
     require(it_k == it_p, f"kernel B stopped at {it_k} iterations, its twin at {it_p} ({shape})")
-    require(dalpha <= 1e-4 * c_max, f"kernel B's alpha is off its twin's by more than 1e-4*C ({shape})")
-    require(signs_equal, f"kernel B's decision signs differ from its twin's ({shape})")
+    require(same, f"kernel B left its twin's trajectory ({shape})")
+    require(all(same_by_cluster.values()), f"a cluster size changed kernel B's result ({shape}): {same_by_cluster}")
     require(it_k < max_iter, f"the SMO run hit max_iter before the eps stop ({shape})")
+    return fields
+
+
+def platt_folds_phase(gram, labels, folds: int = 5, twin_iters: int = 20_000) -> dict:
+    """Phase 4b: the Platt folds of a C-SVC fit (C=1, each fold's
+    held-out rows boxed at 0) in one batched launch of kernel B against
+    one launch a fold: equal iterations, bit-identical alpha and grad.
+    Fold 0 is then held to the twin on a ``twin_iters`` prefix (a capped
+    lone launch against the capped twin, bit for bit)."""
+    from fastsk_tpu_torch.svm import smo_cuda
+    from fastsk_tpu_torch.svm.linear import stratified_kfold_indices
+
+    n = gram.shape[0]
+    masks = np.ones((folds, n), np.float32)
+    for r, f in enumerate(stratified_kfold_indices(np.asarray(labels), folds)):
+        masks[r, f] = 0.0
+    Q, y, C, p, a0, max_iter = _c_svc_dual(gram, labels, masks)
+    before = smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems
+    (a_b, g_b, it_b), batched_ms = cuda_ms(smo_cuda.smo_solve, Q, y, C, p, a0, 1e-3, max_iter)
+    launched = (smo_cuda.smo_solve.launches - before[0], smo_cuda.smo_solve.problems - before[1])
+    single_ms, same = [], []
+    for r in range(folds):
+        (a_s, g_s, it_s), ms = cuda_ms(
+            smo_cuda.smo_solve, Q, y, C[r].contiguous(), p, a0[r].contiguous(), 1e-3, max_iter
+        )
+        single_ms.append(ms)
+        same.append(it_s == it_b[r] and torch.equal(a_s, a_b[r]) and torch.equal(g_s, g_b[r]))
+    c0, z0 = C[0].contiguous(), a0[0].contiguous()
+    a_k, g_k, it_k = smo_cuda.smo_solve(Q, y, c0, p, z0, 1e-3, twin_iters)
+    grad0, qd = smo_cuda.initial_state(Q, p, z0)
+    (a_p, g_p, it_p), twin_ms = cuda_ms(smo_cuda.smo_loop_plain, Q, y, c0, qd, z0, grad0, 1e-3, twin_iters)
+    twin_same = it_k == it_p and torch.equal(a_k, a_p) and torch.equal(g_k, g_p)
+    fields = dict(
+        n=n, folds=folds, held_out=[int((c == 0).sum()) for c in masks], iters=it_b,
+        batched_ms=batched_ms, single_ms=single_ms, single_ms_sum=sum(single_ms),
+        slowest_single_ms=max(single_ms), launched=list(launched),
+        bit_identical_to_single=same, twin_prefix_iters=twin_iters,
+        fold0_twin_bit_identical=twin_same, fold0_twin_ms=twin_ms,
+    )
+    emit("platt-folds", **fields)
+    require(launched == (1, folds), f"the batched folds took {launched} launches / problems")
+    require(all(same), f"a batched fold differs from its lone launch: {same}")
+    require(all(i < max_iter for i in it_b), "a Platt fold hit max_iter before the eps stop")
+    require(twin_same, f"fold 0 left its twin's trajectory within {twin_iters} iterations")
     return fields
 
 
@@ -322,6 +398,60 @@ def slice_219(full=(2564, 16, 905)):
     )
 
 
+def band_body_sweep(dev, medium=(400, 16, 905), alphas=(24, 40, 56, 72, 88),
+                    wide=(24, 100, 905)):
+    """Part of phase 7: kernel D's two bodies on seeded ragged sets of the
+    ``medium`` shape at g=8, m=4 over each of ``alphas`` letters (one-hot
+    depths 192 to 704 bytes), each warmed up then timed, integer-equal;
+    then a set of ``wide`` over 100 letters at g=12, m=7 (1,216 bytes,
+    past the tensor-core body's depth), whose default body must be the
+    byte-code one, equal to the plain version and to numpy. Returns
+    ({alpha: fields}, the wide set's fields)."""
+    from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_tpu_torch.ops import pairs_packed, pairs_packed_cuda
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    sweep = {}
+    for alpha in alphas:
+        X = ragged_set(70 + alpha, *medium, alpha=alpha)[0]
+        eng = PackedPairsEngine(encode_sequences(X), 8, 4, KernelConfig(device=dev))
+        rows = eng.rows()
+        got, ms = {}, {}
+        for body in ("mma", "bytes"):
+            pairs_packed_cuda.packed_band(rows, k=4, n_out=eng.n, body=body)
+            got[body], ms[body] = cuda_ms(pairs_packed_cuda.packed_band, rows, k=4, n_out=eng.n, body=body)
+        sweep[alpha] = dict(
+            depth=pairs_packed_cuda.onehot_depth(8, eng.alpha), alpha=eng.alpha,
+            default=pairs_packed_cuda.band_body(8, eng.alpha), mma_ms=ms["mma"],
+            bytes_ms=ms["bytes"], equal=bool(torch.equal(got["mma"], got["bytes"])),
+        )
+        del eng, rows, got
+    emit("d-bodies", g=8, m=4, sweep=sweep)
+    require(all(s["equal"] for s in sweep.values()), f"kernel D's bodies disagree: {sweep}")
+
+    X = ragged_set(100, *wide, alpha=100)[0]
+    eng = PackedPairsEngine(encode_sequences(X), 12, 7, KernelConfig(device=dev))
+    rows = eng.rows()
+    before = dict(pairs_packed_cuda.packed_band.bodies)
+    got, ms = cuda_ms(pairs_packed_cuda.packed_band, rows, k=5, n_out=eng.n)
+    bodies = {b: pairs_packed_cuda.packed_band.bodies[b] - before[b] for b in before}
+    want = pairs_packed.packed_counts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, k=5, tile=eng.tile, c_pad=eng.c_pad, n_out=eng.n
+    )
+    pos = torch.from_numpy(np.argsort(eng.order)).to(dev)
+    numpy_ok = bool(np.array_equal(got[pos][:, pos].cpu().numpy(), numpy_counts(X, 12, 5)))
+    fields = dict(
+        n=eng.n, alpha=eng.alpha, g=12, m=7, depth=pairs_packed_cuda.onehot_depth(12, eng.alpha),
+        body=pairs_packed_cuda.band_body(12, eng.alpha), bodies=bodies, ms=ms,
+        max_abs_err=int((got - want).abs().max()), equal_numpy=numpy_ok,
+    )
+    emit("d-bytes-body", **fields)
+    require(bodies == {"mma": 0, "bytes": 1}, f"the wide set did not take D's byte-code body: {bodies}")
+    require(fields["max_abs_err"] == 0 and numpy_ok, "D's byte-code body differs on the wide set")
+    return sweep, fields
+
+
 def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
                   full=(2564, 16, 905)):
     """Phases 7-9 (the packed engine and kernels D, E, G); each size is
@@ -335,6 +465,15 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
     from fastsk_tpu_torch.svm.linear import stratified_kfold_indices
 
     # --------------------------------------------- kernels D, E, G vs plain
+
+    def bytes_body_counts(band, rows):
+        """(D's byte-code body's counts in the input order, ms): D's
+        earlier body on the same rows, warmed up, then timed."""
+        kw = dict(k=band.k, n_out=band.n, body="bytes")
+        pairs_packed_cuda.packed_band(rows, **kw)
+        got, ms = cuda_ms(pairs_packed_cuda.packed_band, rows, **kw)
+        pos = torch.from_numpy(np.argsort(band.order)).to(dev)
+        return got[pos][:, pos], ms
 
     def packed_engines(X, g, m):
         enc = encode_sequences(X)
@@ -372,6 +511,7 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         pos = torch.from_numpy(np.argsort(band.order)).to(dev)
         plain = plain_sorted[pos][:, pos]
         res = route_counts(band, grouped)
+        res["D-bytes"] = bytes_body_counts(band, rows)
         errs = {name: int((got - plain).abs().max()) for name, (got, _) in res.items()}
         numpy_ok = (
             bool(np.array_equal(plain.cpu().numpy(), numpy_counts(X, 8, 4)))
@@ -380,6 +520,7 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         emit(
             "packed", shape=shape, n=band.n, rows=band.total_rows,
             strips=band.n_strips, c_max=band.c_max,
+            d_body=pairs_packed_cuda.band_body(8, band.alpha),
             straddling=straddling(band),
             kernel_ms={name: ms for name, (_, ms) in res.items()},
             plain_ms=plain_ms, max_abs_err=errs, equal_numpy=numpy_ok,
@@ -395,11 +536,13 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
             )
         del band, grouped, rows, plain_sorted, plain, res
     torch.cuda.empty_cache()
+    sweep, wide = band_body_sweep(dev, medium)
 
     # ------------------------------- the 2.19 shape: D = E = G = kernel A
     X219, _, r_tr, r_te, ry_tr, ry_te = slice_219(full)
     band, grouped = packed_engines(X219, 8, 4)
     res = route_counts(band, grouped)
+    res["D-bytes"] = bytes_body_counts(band, band.rows())
     d_counts = res["D"][0]
     eng_a = PairsGkmEngine(encode_sequences(X219), 8, 4, KernelConfig(device=dev))
     x_a = eng_a._build_x()
@@ -420,7 +563,8 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
     full_bound = count_bound(windows, 8 * band.alpha, band.total_rows * 12 + band.n**2 * 8)
     emit(
         "packed-full", n=band.n, rows=band.total_rows, strips=band.n_strips,
-        c_max=band.c_max, windows=windows,
+        c_max=band.c_max, windows=windows, d_body=pairs_packed_cuda.band_body(8, band.alpha),
+        d_bound_ms=full_bound["bound_ms"],
         window_pairs_upper=windows * (windows + 1) // 2, p_pad_a=eng_a.p_pad,
         width_a=x_a.shape[1], kernel_ms={name: ms for name, (_, ms) in res.items()},
         kernel_a_ms=a_ms, plain_ms=full_plain_ms, max_abs_err_vs_d=errs,
@@ -438,11 +582,15 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
     )
     for fn in counters:
         fn.launches = 0
+    smo_cuda.smo_solve.problems = 0
+    pairs_packed_cuda.packed_band.bodies = {"mma": 0, "bytes": 0}
     rfsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
     _, r_kernel_s = wall(rfsk.compute_kernel, r_tr, r_te, ry_tr, ry_te)
     _, r_fit_s = wall(rfsk.fit, C=0.01)
     r_auc, r_score_s = wall(rfsk.score, "auc")
     r_launches = {fn.__name__: fn.launches for fn in counters}
+    r_bodies = dict(pairs_packed_cuda.packed_band.bodies)
+    r_problems = smo_cuda.smo_solve.problems
     rk = rfsk._K_dev
     r_dec = rfsk._model.decision_function(rfsk._test_gram())
     r_ok = (
@@ -459,12 +607,15 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         "ragged-slice", shape="2.19", g=8, m=4, C=0.01, n_train=len(r_tr),
         n_test=len(r_te), kernel_s=r_kernel_s, fit_s=r_fit_s,
         score_s=r_score_s, auc=r_auc, auc_host_path=h_auc,
-        svm_iters=rfsk._model.iters_, launches=r_launches, outputs_ok=r_ok,
+        svm_iters=rfsk._model.iters_, launches=r_launches, d_bodies=r_bodies,
+        smo_problems=r_problems, outputs_ok=r_ok,
     )
     require(r_ok, "the ragged slice's kernel or decision values are malformed")
-    require(r_launches["packed_band"] > 0, f"kernel D did not launch: {r_launches}")
+    require(r_bodies == {"mma": 1, "bytes": 0}, f"kernel D did not run its tensor-core body once: {r_bodies}")
+    require(r_launches["packed_band"] == 1, f"kernel D did not launch once: {r_launches}")
     require(r_launches["pairs_counts"] == 0, f"the ragged set took kernel A: {r_launches}")
-    require(r_launches["smo_solve"] > 0, f"kernel B did not launch: {r_launches}")
+    require(r_launches["smo_solve"] == 2 and r_problems == 6,
+            f"kernel B: {r_launches['smo_solve']} launches for {r_problems} problems, not 2 for 6")
     require(r_auc >= 0.9, f"ragged slice AUC {r_auc} < 0.9")
     require(abs(r_auc - h_auc) <= 0.005, f"device AUC {r_auc} vs host AUC {h_auc}")
 
@@ -508,6 +659,12 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         del ofsk
 
     packed_src = "fastsk_tpu_torch/csrc/pairs_packed.cu"
+    d_extra = {
+        "body": pairs_packed_cuda.band_body(8, 24), "bodies": r_bodies,
+        "ms_bytes_body": packed_times["medium"]["D-bytes"][0],
+        "ms_bytes_body_2_19": full_times["D-bytes"],
+        "body_sweep": sweep, "bytes_case": wide,
+    }
     packed_rec = [
         {
             "name": fn.__name__, "route": "cuda", "source": packed_src,
@@ -518,6 +675,7 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
             "plain_ms": packed_times["medium"][key][1],
             "ms_2_19": full_times[key], "plain_ms_2_19": full_plain_ms,
             **medium_bound, "library_ms": None, "bound_ms_2_19": full_bound["bound_ms"],
+            **(d_extra if key == "D" else {}),
         }
         for key, fn, line in (
             ("D", pairs_packed_cuda.packed_band, 605),
@@ -574,8 +732,9 @@ def svr_twins(gram, targets, max_iter: int) -> dict:
     """Kernels B and C against their twins on the 2n-row SVR duals of
     ``gram`` as EpsilonSVR.fit (C=1, epsilon=0.1, zero start) and
     NuSVR.fit (C=1, nu=0.5, LIBSVM's start) assemble them, p vectors
-    included, both capped at ``max_iter``. Past 10,240 rows this is the
-    kernels' global-memory path. Equal iterations and bit-identical alpha
+    included, both capped at ``max_iter``. Past 10,240 rows this is kernel
+    C's global-memory path; kernel B keeps its slices in shared memory.
+    Equal iterations and bit-identical alpha
     and grad. Emits an "svr-twin" line per solver and returns
     {svm_type: fields}."""
     from fastsk_tpu_torch.svm import smo_cuda
@@ -646,16 +805,19 @@ def svm_family_phase(dev, Xtr, Xte, Ytr, Yte, svr_twin_iters: int = 3000):
     ):
         for c in counters:
             c.launches = 0
+        smo_cuda.smo_solve.problems = 0
         _, fit_s = wall(fsk.fit, svm_type=svm_type, **kw)
         score, score_s = wall(fsk.score, metric)
         launches = {c.__name__: c.launches for c in counters}
+        problems = smo_cuda.smo_solve.problems
         model = fsk._model
         decide = getattr(model, "decision_function", model.predict)
         dec_test, dec_train = decide(fsk._test_gram()), decide(gram_tr)
         fields = dict(
             svm_type=svm_type, kernel_s=kernel_s, fit_s=fit_s, score_s=score_s,
             metric=metric, score=score, svm_iters=getattr(model, "iters_", None),
-            launches=launches,
+            fit_us_per_iter=fit_s * 1e6 / max(getattr(model, "iters_", 1), 1),
+            launches=launches, smo_problems=problems,
             decisions_finite=bool(np.isfinite(dec_test).all() and np.isfinite(dec_train).all()),
         )
         if svm_type == "nu_svc":
@@ -683,8 +845,8 @@ def svm_family_phase(dev, Xtr, Xte, Ytr, Yte, svr_twin_iters: int = 3000):
         want_b, want_c = {"nu_svc": (0, 6), "one_class": (1, 0), "epsilon_svr": (1, 0),
                           "nu_svr": (0, 1)}[svm_type]
         require(
-            launches == {"smo_solve": want_b, "smo_nu_solve": want_c},
-            f"{svm_type}: launches {launches}, expected B {want_b} and C {want_c}",
+            launches == {"smo_solve": want_b, "smo_nu_solve": want_c} and problems == want_b,
+            f"{svm_type}: launches {launches} ({problems} problems of B), expected B {want_b} and C {want_c}",
         )
         if "class_sums" in fields:
             t = fields["class_sum_target"]
@@ -742,9 +904,11 @@ def multiclass_phase(dev, size=(1000, 16, 905)) -> dict:
     ):
         for c in counters:
             c.launches = 0
+        smo_cuda.smo_solve.problems = 0
         _, fit_s = wall(fsk.fit, svm_type=svm_type, **kw)
         acc, score_s = wall(fsk.score, "accuracy")
         launches = {c.__name__: c.launches for c in counters}
+        problems = smo_cuda.smo_solve.problems
         model = fsk._model
         dec = model.decision_function(gram_te)
         # the same model refitted on the CPU from the same f32 Gram: the
@@ -756,7 +920,7 @@ def multiclass_phase(dev, size=(1000, 16, 905)) -> dict:
         fields = dict(
             svm_type=svm_type, classes=4, n_train=len(tr), n_test=len(te),
             kernel_s=kernel_s, fit_s=fit_s, score_s=score_s, accuracy=acc,
-            launches=launches, decisions_shape=list(dec.shape),
+            launches=launches, smo_problems=problems, decisions_shape=list(dec.shape),
             decisions_finite=bool(np.isfinite(dec).all()),
             predictions_equal_host=bool(np.array_equal(
                 model.predict(gram_te), host.predict(gram_te.cpu())
@@ -767,9 +931,13 @@ def multiclass_phase(dev, size=(1000, 16, 905)) -> dict:
             ).max()),
         )
         emit("multiclass", **fields)
+        # c_svc: 6 pairs x (the pair's solve + its 5 Platt folds in one
+        # batch) = 12 launches of B for 36 problems; nu_svc: 36 of C
         other = "smo_nu_solve" if want == "smo_solve" else "smo_solve"
-        require(launches[want] == 36 and launches[other] == 0,
-                f"{svm_type}: launches {launches}, expected 36 of {want}")
+        want_launches, want_problems = (12, 36) if want == "smo_solve" else (36, 0)
+        require(launches[want] == want_launches and launches[other] == 0 and problems == want_problems,
+                f"{svm_type}: launches {launches} ({problems} problems of B), "
+                f"expected {want_launches} of {want}")
         require(dec.shape == (len(te), 6) and bool(np.isfinite(dec).all()),
                 f"{svm_type}: malformed pair decisions")
         require(fields["predictions_equal_host"],
@@ -779,7 +947,7 @@ def multiclass_phase(dev, size=(1000, 16, 905)) -> dict:
         require(fields["max_abs_dproba_host"] <= 1e-4,
                 f"{svm_type}: probabilities off the CPU refit's by {fields['max_abs_dproba_host']}")
         require(acc >= 90.0, f"{svm_type}: 4-class accuracy {acc}% < 90%")
-        out[svm_type] = dict(fit_s=fit_s, accuracy=acc, launches=launches)
+        out[svm_type] = dict(fit_s=fit_s, accuracy=acc, launches=launches, smo_problems=problems)
     del fsk, rows_tr, rows_te, gram_tr, gram_te
     torch.cuda.empty_cache()
     return out
@@ -1121,13 +1289,15 @@ def main() -> None:
     rows = K[:ntr, :ntr]
     with pairs.full_f32_matmul():
         gram = rows @ rows.T
-    smo_kat2b = smo_twin("KAT2B", gram, Ytr, np.ones(ntr))
+    smo_kat2b = smo_twin("KAT2B", gram, Ytr, np.ones(ntr), clusters=(8, 16))
+    folds_kat2b = platt_folds_phase(gram, Ytr)
     del rows, K, kat2b_counts  # the Gram stays for kernel C (phase 10)
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------- main path
     pairs_cuda.pairs_counts.launches = 0
     smo_cuda.smo_solve.launches = 0
+    smo_cuda.smo_solve.problems = 0
     fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
     _, kernel_s = wall(fsk.compute_kernel, Xtr, Xte, Ytr, Yte)
     _, fit_s = wall(fsk.fit, C=1.0)
@@ -1136,6 +1306,7 @@ def main() -> None:
         "pairs_counts": pairs_cuda.pairs_counts.launches,
         "smo_solve": smo_cuda.smo_solve.launches,
     }
+    smo_problems = smo_cuda.smo_solve.problems
     k_dev = fsk._K_dev
     dec = fsk._model.decision_function(fsk._test_gram())
     outputs_ok = (
@@ -1149,11 +1320,18 @@ def main() -> None:
         "slice", dataset="KAT2B", g=8, m=4, C=1.0, n_train=len(Xtr),
         n_test=len(Xte), kernel_s=kernel_s, fit_s=fit_s, score_s=score_s,
         auc=auc, auc_anchor=AUC_ANCHOR, auc_diff=auc - AUC_ANCHOR,
-        svm_iters=fsk._model.iters_, launches=launches, outputs_ok=outputs_ok,
+        svm_iters=fsk._model.iters_, launches=launches, smo_problems=smo_problems,
+        outputs_ok=outputs_ok,
     )
     require(outputs_ok, "the slice's kernel or decision values are malformed")
-    require(all(v > 0 for v in launches.values()), f"a kernel did not launch: {launches}")
+    require(launches["pairs_counts"] > 0, f"kernel A did not launch: {launches}")
+    require(
+        launches["smo_solve"] == 2 and smo_problems == 6,
+        f"the C-SVC fit took {launches['smo_solve']} launches of kernel B for "
+        f"{smo_problems} problems, not 2 for 6 (the main solve, then 5 Platt folds)",
+    )
     require(abs(auc - AUC_ANCHOR) <= 0.005, f"AUC {auc} is off the anchor {AUC_ANCHOR}")
+    require(round(auc, 6) == AUC_KAT2B, f"AUC {auc} moved from {AUC_KAT2B} (the same trajectories)")
 
     # ------------------------------------------------------------ golden
     golden = load_tri(os.path.join(GOLDEN, "ep_sl_g6m2.txt"))
@@ -1214,9 +1392,20 @@ def main() -> None:
                 "launches": launches["smo_solve"],
                 "max_abs_err": smo_kat2b["max_abs_dalpha"],
                 "ms": smo_kat2b["kernel_ms"], "plain_ms": smo_kat2b["plain_ms"],
+                "iters": smo_kat2b["iters_kernel"], "us_per_iter": smo_kat2b["us_per_iter"],
+                "cluster_size": smo_kat2b["cluster_size"], "smem_path": smo_kat2b["smem_path"],
+                "ms_by_cluster": smo_kat2b["ms_by_cluster"], "problems": smo_problems,
+                "platt_batched_ms": folds_kat2b["batched_ms"],
+                "platt_single_ms_sum": folds_kat2b["single_ms_sum"],
+                "platt_slowest_single_ms": folds_kat2b["slowest_single_ms"],
+                "platt_iters": folds_kat2b["iters"],
                 "max_abs_err_2_19": smo_219["max_abs_dalpha"],
                 "ms_2_19": smo_219["kernel_ms"], "plain_ms_2_19": smo_219["plain_ms"],
                 **svr_record(svr["epsilon_svr"]),
+                "epsilon_svr_fit_s": family["epsilon_svr"]["fit_s"],
+                "epsilon_svr_iters": family["epsilon_svr"]["svm_iters"],
+                "epsilon_svr_fit_us_per_iter": family["epsilon_svr"]["fit_us_per_iter"],
+                "slice_fit_s": fit_s,
                 **smo_bound(smo_kat2b["n"], smo_kat2b["iters_kernel"]), "library_ms": None,
             },
             *packed_rec,

@@ -120,11 +120,18 @@ def kernels() -> ctypes.CDLL:
         lib.pairs_counts_launch.restype = ci
         lib.pairs_probe_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.pairs_probe_launch.restype = ci
-        for fn in (lib.smo_solve_launch, lib.smo_nu_solve_launch):
-            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, cf, ci, vp]
+        lib.smo_solve_launch.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, cf, ci, ci, vp
+        ]
+        lib.smo_nu_solve_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, cf, ci, vp]
+        lib.smo_solve_smem.argtypes = [ci, ci]
+        for fn in (lib.smo_solve_launch, lib.smo_nu_solve_launch, lib.smo_solve_smem):
             fn.restype = ci
         ll = ctypes.c_longlong
         lib.packed_band_launch.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ci, ci, vp]
+        lib.packed_band_mma_launch.argtypes = [
+            vp, vp, vp, vp, ll, ll, ci, ci, ci, ci, ci, ci, ci, vp
+        ]
         lib.packed_pairlist_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp
         ]
@@ -134,7 +141,7 @@ def kernels() -> ctypes.CDLL:
         lib.packed_s1_launch.argtypes = [
             vp, vp, vp, ci, ci, vp, vp, ll, ci, ci, ci, ci, vp, vp
         ]
-        for fn in (lib.packed_band_launch, lib.packed_pairlist_launch,
+        for fn in (lib.packed_band_launch, lib.packed_band_mma_launch, lib.packed_pairlist_launch,
                    lib.packed_grouped_launch, lib.packed_s1_launch):
             fn.restype = ci
         _KERNELS = lib

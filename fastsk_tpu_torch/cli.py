@@ -7,8 +7,10 @@ flags plus ``--device``:
     python -m fastsk_tpu_torch.cli -g 10 -m 4 --json train.fasta test.fasta
 
 It runs the exact kernel and any SVM type of the LIBSVM family on
-``--device``. The flags that only unported slices read raise
-``NotImplementedError`` when set, instead of being ignored: ``-a`` /
+``--device``: the card by default, the CPU only with ``--device cpu``
+(without a card and without that flag it exits with an error). The
+flags that only unported slices read raise ``NotImplementedError`` when
+set, instead of being ignored: ``-a`` /
 ``--approx``, ``-I``, ``--delta``, ``--skip-variance`` and ``--seed``
 (approx mode, ROADMAP.md slice 3), ``--checkpoint`` and
 ``--checkpoint-every`` (slice 5). ``-t`` is accepted and ignored, as in
@@ -73,9 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device-resident", action="store_true",
                     help="keep the kernel on the device end to end (fit/score "
                          "without the O(N^2) device->host pull)")
-    ap.add_argument("--device", default=None,
+    ap.add_argument("--device", default="cuda",
                     help="torch device for the kernel and the SVM (default: "
-                         "cuda when a CUDA device is present, else cpu)")
+                         "cuda; the CPU runs only with --device cpu)")
     ap.add_argument("--no-svm", action="store_true", help="kernel computation only")
     ap.add_argument("--json", action="store_true", help="emit one JSON line of results")
     ap.add_argument("train_file")
@@ -110,7 +112,9 @@ def main(argv=None) -> int:
     from .io.fasta import FastaUtility, Vocabulary
     from .kernel.config import KernelConfig
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        parser.error("no CUDA device found; pass --device cpu to run on the CPU")
     vocab = (
         Vocabulary.from_dictionary_file(args.dictionary_file)
         if args.dictionary_file

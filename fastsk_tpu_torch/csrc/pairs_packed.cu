@@ -1,13 +1,14 @@
 // Kernels D, E, G and F: the packed (ragged) exact gapped k-mer counts.
 //
 // Replace, in fastsk_tpu/ops/pairs_packed_pallas.py:
-//   D  packed_band_kernel     <- _packed_band_kernel (packed_band_pallas)
+//   D  packed_band_mma_kernel, packed_band_kernel
+//                             <- _packed_band_kernel (packed_band_pallas)
 //   E  packed_pairlist_kernel <- _packed_pairlist_kernel (packed_pairlist_pallas)
 //   G  packed_grouped_kernel  <- _packed_part_kernel (packed_part_pallas)
 //   F  packed_s1_kernel       <- _packed_s1_kernel (packed_s1_pallas); the
 //      mesh paths' stage 1, described at the kernel below
 //
-// All three compute, for row pairs (r, c) of the packed window table,
+// All four compute, for row pairs (r, c) of the packed window table,
 //
 //     w(r, c) = C(matches(r, c), k)
 //
@@ -23,6 +24,12 @@
 //      them, ops/pairs_packed.py:land_parts);
 //   G  strip a against strips gidx * group + u, u < group, into
 //      out[u, si - fa, sj - fb].
+//
+// D has two bodies: the int8 tensor-core product of one-hot rows
+// (packed_band_mma_kernel, described at the kernel, the default to a
+// stated depth g * alpha) and the byte-code body below, which E, G and F
+// share (F with its own copy of the pair loop). The rest of this note is
+// the byte-code body's.
 //
 // Row encoding: a window's g codes, one byte each, in ceil(g / 4) 32-bit
 // words (the bytes past g are 0 in every row). matches = popc(vcmpeq4)/8
@@ -51,10 +58,11 @@
 //     their code bytes may still compare equal;
 //   - D's grid is a 1-D triangular index over the upper tile pairs: no
 //     lower-triangle blocks are launched.
-// Tensor-core products, wgmma and TMA are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -320,6 +328,278 @@ cudaError_t set_smem(const void* fn, int cb) {
                               static_cast<int>(bins_bytes(cb)));
 }
 
+// ------------------------------------------------------ D, tensor cores
+//
+// D's default body (packed_band_mma_kernel): the match counts as the int8
+// tensor-core product of one-hot rows, M = X_r X_c^T (X_r [128, depth],
+// byte p * alpha + code_p set, depth = g * alpha rounded up to 64), by
+// wgmma m64n128k32 s8 -> s32 (two warpgroups, 64 rows each, against the
+// 128 columns). A persistent block walks a contiguous run of the upper
+// tile triangle in row-tile-major order, so the row tile's one-hot stays
+// in shared memory across the run and only the column tile changes. What
+// bounds it, and the design:
+//   - one-hot operands are g * alpha bytes a row where the codes are g:
+//     staged from global memory they would be about a terabyte of L2
+//     traffic at the 2.19 shape (one 24 KB tile a tile pair). Only the
+//     code words and sequence ids travel (cp.async, double buffered: the
+//     next column tile's arrive while this one computes); each block
+//     expands them into zeroed one-hot tiles in shared memory itself,
+//     straight into wgmma's K-major core-matrix layout (onehot_at), and
+//     wgmma reads both operands from there: no fragment loads;
+//   - the epilogue looks up C(M, k) only where the warp holds some
+//     M >= k (a vote), and then only for those counts, each added to its
+//     shared 32-bit (si, sj) bin: at alpha = 24 a window pair matches in
+//     k = 4 places about once in 5,000, so most warps pay one max a count
+//     and one vote;
+//     bins land in the int64 output once a tile pair, both halves off the
+//     diagonal;
+//   - measured at the 2.19 shape (experiments/probe_band.py), the wgmma
+//     loop sets the pace (about half the card's int8 peak), then the
+//     lookups, then expansion and barriers;
+//   - two barriers a tile pair (tiles ready; bins complete and the next
+//     codes landed), the next column tile's codes in flight meanwhile;
+//   - padding rows expand to zero rows: M = 0 and C(0, k) = 0 for k >= 1,
+//     so they add nothing and need no test in the product.
+// The depth grows as g * alpha (5,120 bytes at g = 20 over 256 codes),
+// where the byte-code body's cost does not: packed_band takes this body
+// to a stated depth (ops/pairs_packed_cuda.py:band_body) and D's byte-code
+// body above it.
+
+constexpr int kMmaThreads = 256;  // 2 warpgroups, 64 rows x 128 columns each
+constexpr int kMaxWords = 5;
+constexpr int kMmaDepthMax = 768;  // two 128-row tiles of 768 B rows fit
+
+// Byte (r, kb) of a one-hot tile in wgmma's K-major layout without
+// swizzle: 8-row x 16-byte core matrices of 128 contiguous bytes, those
+// of one 8-row group side by side along K (LBO 128 B), the groups one
+// after another (SBO 8 * depth B).
+__device__ __forceinline__ int onehot_at(int r, int kb, int depth) {
+  return (r >> 3) * (depth * 8) + (kb >> 4) * 128 + (r & 7) * 16 + (kb & 15);
+}
+
+size_t mma_smem_bytes(int depth, int cb) {
+  return 2 * static_cast<size_t>(kThreads) * depth +
+         2 * kThreads * kMaxWords * sizeof(uint32_t) + 3 * kThreads * sizeof(int) +
+         32 * sizeof(int) + bins_bytes(cb);
+}
+
+// A shared-memory matrix descriptor of wgmma (no swizzle).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// D (64 x 128 s32, this warpgroup's) += or = A (64 x 32 s8) B^T (128 x
+// 32 s8), both K-major in shared memory; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// One 128-row tile's one-hot rows into dst (onehot_at's layout), from
+// its code words [128, w] and sequence ids; thread t zeroes and fills
+// half t & 1 of row t >> 1, so no thread waits on another here. The
+// writes are made visible to wgmma (the async proxy) before it reads.
+__device__ void expand_onehot(uint8_t* dst, int depth, const uint32_t* codes,
+                              const int* seq, int w, int g, int alpha) {
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1;
+  const int half = depth / 2;  // a multiple of 32
+  for (int q = h * half; q < (h + 1) * half; q += 16) {
+    *reinterpret_cast<uint4*>(dst + onehot_at(r, q, depth)) = make_uint4(0, 0, 0, 0);
+  }
+  if (seq[r] >= 0) {
+    uint32_t word = 0;
+    for (int p = 0; p < g; ++p) {
+      if ((p & 3) == 0) word = codes[r * w + (p >> 2)];
+      const int pos = p * alpha + ((word >> (8 * (p & 3))) & 0xff);
+      if ((pos >= half) == (h != 0)) dst[onehot_at(r, pos, depth)] = 1;
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Tile pairs before row tile ti in row-tile-major order of the upper
+// triangle of nt tiles.
+__device__ __forceinline__ int64_t pairs_before(int64_t ti, int64_t nt) {
+  return ti * nt - ti * (ti - 1) / 2;
+}
+
+// kVariant 0 is the kernel; the others time its parts (the product is
+// then not the count matrix): 1 skips the epilogue, 2 the mma loop, 3 the
+// column tiles' expansion (they stay zero, so the epilogue finds nothing).
+template <int kVariant>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+packed_band_mma_kernel(const uint32_t* __restrict__ x,
+                       const int* __restrict__ seq_of,
+                       const int* __restrict__ tile_first,
+                       unsigned long long* __restrict__ out, int64_t nt,
+                       int64_t ld, int w, int g, int alpha, int depth, int cb,
+                       int k) {
+  extern __shared__ __align__(128) uint4 smem_raw[];
+  uint8_t* sa = reinterpret_cast<uint8_t*>(smem_raw);
+  uint8_t* sb = sa + kThreads * depth;
+  uint32_t* scode = reinterpret_cast<uint32_t*>(sb + kThreads * depth);  // [2][128 * w]
+  int* sseq_b = reinterpret_cast<int*>(scode + 2 * kThreads * kMaxWords);  // [2][128]
+  int* sseq_a = sseq_b + 2 * kThreads;
+  int* tbl = sseq_a + kThreads;
+  unsigned* bins = reinterpret_cast<unsigned*>(tbl + 32);
+  const int tid = threadIdx.x;
+
+  const int64_t total = nt * (nt + 1) / 2;
+  const int64_t begin = blockIdx.x * total / gridDim.x;
+  const int64_t end = (blockIdx.x + 1) * total / gridDim.x;
+  if (begin >= end) return;
+  if (tid < 32) {  // C(d, k) for d = tid matches, exactly
+    int64_t c = tid >= k ? 1 : 0;
+    for (int j = 0; j < k && c; ++j) c = c * (tid - j) / (j + 1);
+    tbl[tid] = static_cast<int>(c);
+  }
+  for (int q = tid; q < cb * cb; q += kMmaThreads) bins[q] = 0;
+
+  // the run's first tile pair: the last row tile ti with pairs_before <= begin
+  const double b2 = 2.0 * nt + 1.0;
+  int64_t ti = static_cast<int64_t>((b2 - sqrt(b2 * b2 - 8.0 * begin)) / 2.0);
+  ti = ti < 0 ? 0 : (ti >= nt ? nt - 1 : ti);
+  while (ti > 0 && pairs_before(ti, nt) > begin) --ti;
+  while (ti + 1 < nt && pairs_before(ti + 1, nt) <= begin) ++ti;
+  int64_t tj = ti + (begin - pairs_before(ti, nt));
+
+  // column tile t's code words and sequence ids into buffer `buf`
+  auto prefetch = [&](int64_t t, int buf) {
+    const int code_chunks = 32 * w;  // 128 * w words, 16 bytes a chunk
+    if (tid < code_chunks) {
+      cp_async16(scode + buf * kThreads * kMaxWords + tid * 4, x + t * kThreads * w + tid * 4);
+    } else if (tid < code_chunks + 32) {
+      const int q = tid - code_chunks;
+      cp_async16(sseq_b + buf * kThreads + q * 4, seq_of + t * kThreads + q * 4);
+    }
+    cp_async_commit();
+  };
+  prefetch(tj, 0);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wg = warp >> 2;  // warpgroup: rows 64 * wg of the row tile
+  const int row0 = 64 * wg + 16 * (warp & 3) + gid;  // this thread's first row
+  int64_t cur_ti = -1;
+  int buf = 0;
+  // two barriers a tile pair: after the expansion (tiles ready) and after
+  // the epilogue (bins complete, the next codes landed, tiles free)
+  for (int64_t L = begin; L < end; ++L) {
+    if (ti != cur_ti) {  // a new row tile: its one-hot straight from global
+      expand_onehot(sa, depth, x + ti * kThreads * w, seq_of + ti * kThreads, w,
+                    g, alpha);
+      if (tid < kThreads) sseq_a[tid] = seq_of[ti * kThreads + tid];
+      cur_ti = ti;
+    }
+    const int fi = tile_first[ti], fj = tile_first[tj];
+    int64_t ti2 = ti, tj2 = tj + 1;
+    if (tj2 == nt) tj2 = ++ti2;
+    if (L + 1 < end) prefetch(tj2, buf ^ 1);
+    const int* sseq = sseq_b + buf * kThreads;
+    if (kVariant != 3) {
+      expand_onehot(sb, depth, scode + buf * kThreads * kMaxWords, sseq, w, g,
+                    alpha);
+    } else if (L == begin) {  // zero column tiles: every count 0
+      for (int q = tid; q < kThreads * depth / 16; q += kMmaThreads) {
+        reinterpret_cast<uint4*>(sb)[q] = make_uint4(0, 0, 0, 0);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // this warpgroup's 64 x 128 counts: element v of a thread is row
+    // row0 + 8 * ((v >> 1) & 1), column 8 * (v >> 2) + 2 * tig + (v & 1)
+    int acc[64];
+#pragma unroll
+    for (int v = 0; v < 64; ++v) acc[v] = 0;
+    if (kVariant != 2) {
+      const uint8_t* a_rows = sa + wg * 64 * depth;  // 8 row groups of 8 * depth B
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      for (int c = 0; c < depth; c += 32) {  // two core matrices along K
+        wgmma_s8(acc, smem_desc(a_rows + c * 8, 128, depth * 8),
+                 smem_desc(sb + c * 8, 128, depth * 8), c > 0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    }
+
+    if (kVariant == 1) {  // consume the counts, so the products stay
+      int s = 0;
+#pragma unroll
+      for (int v = 0; v < 64; ++v) s ^= acc[v];
+      if (s == 0x7fffffff) atomicAdd(&bins[0], 1u);
+    } else {
+      int mx = 0;
+#pragma unroll
+      for (int v = 0; v < 64; ++v) mx = max(mx, acc[v]);
+      if (__any_sync(kFull, mx >= k)) {
+        // only counts >= k weigh anything (and only rows of sequences
+        // reach them: padding rows are zero)
+#pragma unroll
+        for (int v = 0; v < 64; ++v) {
+          const int m = acc[v];
+          if (m >= k) {
+            const int si = sseq_a[row0 + 8 * ((v >> 1) & 1)];
+            const int sj = sseq[8 * (v >> 2) + 2 * tig + (v & 1)];
+            atomicAdd(&bins[(si - fi) * cb + (sj - fj)], static_cast<unsigned>(tbl[m]));
+          }
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    for (int q = tid; q < cb * cb; q += kMmaThreads) {
+      const unsigned v = bins[q];
+      if (!v) continue;
+      bins[q] = 0;
+      const int64_t si = fi + q / cb, sj = fj + q % cb;
+      atomicAdd(&out[si * ld + sj], static_cast<unsigned long long>(v));
+      if (ti != tj) atomicAdd(&out[sj * ld + si], static_cast<unsigned long long>(v));
+    }
+    ti = ti2;
+    tj = tj2;
+    buf ^= 1;
+  }
+}
+
+using MmaKernel = void (*)(const uint32_t*, const int*, const int*,
+                           unsigned long long*, int64_t, int64_t, int, int,
+                           int, int, int, int);
+const MmaKernel kMmaVariants[4] = {
+    packed_band_mma_kernel<0>, packed_band_mma_kernel<1>,
+    packed_band_mma_kernel<2>, packed_band_mma_kernel<3>};
+
 }  // namespace
 
 // Common arguments: x [R, w] int32 words of window code bytes; seq_of [R]
@@ -328,7 +608,7 @@ cudaError_t set_smem(const void* fn, int cb) {
 // span; pad = 4 * w - g; 1 <= k <= g <= 20, 1 <= w <= 5. Outputs are int64,
 // zeroed by the caller; the kernels add into them.
 
-// D: n_tiles 128-row tiles; out [ld, ld].
+// D's byte-code body: n_tiles 128-row tiles; out [ld, ld].
 extern "C" int packed_band_launch(const void* x, const void* seq_of,
                                   const void* tile_first, void* out,
                                   long long n_tiles, long long ld, int w,
@@ -355,6 +635,43 @@ extern "C" int packed_band_launch(const void* x, const void* seq_of,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D's tensor-core body: n_tiles 128-row tiles; out [ld, ld]; g * alpha <=
+// depth <= 768, depth a multiple of 64. Persistent blocks, as many as the
+// card holds at once. variant 0 computes the counts; 1 to 3 time its parts
+// (see packed_band_mma_kernel) and leave `out` meaningless.
+extern "C" int packed_band_mma_launch(const void* x, const void* seq_of,
+                                      const void* tile_first, void* out,
+                                      long long n_tiles, long long ld, int w,
+                                      int g, int alpha, int depth, int cb,
+                                      int k, int variant, void* stream) {
+  if (n_tiles == 0) return 0;
+  if (w < 1 || w > kMaxWords || depth % 64 || depth > kMmaDepthMax ||
+      g * alpha > depth || alpha > 256 || variant < 0 || variant > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const MmaKernel kernel = kMmaVariants[variant];
+  const size_t smem = mma_smem_bytes(depth, cb);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t pairs = n_tiles * (n_tiles + 1) / 2;
+  const int64_t blocks = std::min<int64_t>(pairs, static_cast<int64_t>(sms) * per_sm);
+  kernel<<<static_cast<unsigned>(blocks), kMmaThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<const int*>(seq_of),
+      static_cast<const int*>(tile_first),
+      static_cast<unsigned long long*>(out), n_tiles, ld, w, g, alpha, depth,
+      cb, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,13 +7,14 @@
 //
 // from a feasible start (alpha0, grad0 = Q alpha0 + p) with LIBSVM's
 // second-order working-set selection, the clipped analytic pair update
-// and the stop gmax + gmax2 < eps, and returns (alpha, grad, iters).
-// Kernel C replaces smo_pallas.py:_smo_nu_kernel (smo_solve_nu_fused),
-// LIBSVM's Solver_NU: the same problem with the sum of alpha conserved in
-// each class separately, so the pair is chosen within a class (see
-// smo_nu_kernel below). Their plain twins are svm/smo_cuda.py:
-// smo_loop_plain and smo_nu_loop_plain; each kernel follows its twin's
-// f32 trajectory:
+// and the stop gmax + gmax2 < eps, and returns (alpha, grad, iters); one
+// launch solves a batch of such problems over one Q (the Platt folds,
+// which differ only in C and alpha0). Kernel C replaces
+// smo_pallas.py:_smo_nu_kernel (smo_solve_nu_fused), LIBSVM's Solver_NU:
+// the same problem with the sum of alpha conserved in each class
+// separately, so the pair is chosen within a class (see smo_nu_kernel
+// below). Their plain twins are svm/smo_cuda.py: smo_loop_plain and
+// smo_nu_loop_plain; each kernel follows its twin's f32 trajectory:
 //   - the operations and their order are the twin's (and
 //     fastsk_tpu/svm/kernel_svm.py:_smo_solve_general's / _smo_solve_nu's),
 //     built with --fmad=false so no multiply-add is contracted;
@@ -23,35 +24,59 @@
 //     without a row hold (their -inf loses to any row's -1e30);
 //   - max and argmax are exact, so the reduction order does not matter.
 //
-// What bounds them on the H100: the serial dependency — every iteration
-// needs a block-wide argmax before it can read the i row(s), and an
-// argmin over those rows before it can read row j — and the Q-row reads
-// per iteration (B: rows i and j; C: the two class candidates ip and in,
-// then j, then i again in the update; Q is n x n f32, larger than L2 at
-// n = 6k, so a row is one pass of 4n bytes from HBM). The design against
-// that:
-//   - one persistent block of 1024 threads runs every iteration; block
-//     reductions (warp shuffles, then one warp over 32 partials) replace
-//     a grid-wide sync, so nothing returns to the host between updates;
-//   - alpha, grad, y, C and diag(Q) (20 n bytes) live in shared memory
-//     while they fit (n <= 10240); beyond that the same code runs on
-//     them in global memory, where they stay L2-resident;
-//   - the rows are read straight from Q with coalesced loads; kernel C
-//     reads a candidate row's entry only for the rows that can be j.
-// Fusing the gradient update with the next selection pass, and spreading
-// the row reads over more SMs, are later work.
+// What bounds kernel B on the H100 is the serial chain of one iteration:
+// two reductions over all n rows (the I_up/I_low argmax, then the
+// second-order argmin, which needs the argmax's row i), each ending in a
+// cluster barrier, and two dependent row-slice loads from HBM (row i for
+// the j scan, row j for the gradient update; Q is n x n f32, larger than
+// L2 at n = 6k). The design against that:
+//   - one thread-block cluster of cs CTAs (cs = 16, non-portable, or 8)
+//     owns one problem; CTA r holds the contiguous slice [r*sl, r*sl + sl)
+//     of alpha, grad, y, C, diag(Q) and the current row i (6 floats a row,
+//     ceil(n / cs) rows) in its shared memory, so a row read is spread over
+//     cs SMs instead of one;
+//   - a reduction goes warp -> CTA -> cluster: warp 0 of each CTA stores
+//     the CTA's partial into slot [rank] of every CTA of the cluster
+//     (distributed shared memory), one barrier.cluster arrive/wait, then
+//     every warp reduces the cs partials itself, one a lane; each warp
+//     reduction is three redux.sync on order-preserving integer keys of
+//     the scores (ties to the lowest index) instead of shuffle rounds;
+//   - the winning partial carries the winner's state (alpha, grad, y, C,
+//     diag(Q), and for j also Q[i, j], which j's owner loaded in its j
+//     scan), so the pair update needs no third barrier;
+//   - the two reductions of an iteration use two slot sets: a CTA writes
+//     a set again only after the other set's barrier, which every CTA
+//     passes only after reading the first; two cluster barriers an
+//     iteration are all the synchronisation there is;
+//   - iteration t's gradient update and iteration t+1's I_up/I_low scan
+//     are one pass over the slice, and row i's slice stays in shared
+//     memory from the j scan to the update, so row i is read once an
+//     iteration and row j once;
+//   - b problems over one Q run as b clusters of one launch.
+// The state stays in shared memory while 24 * ceil(n / cs) bytes fit in
+// 220 KB: every n up to 150,000 at cs = 16 (Q would need 90 GB), up to
+// 75,000 at cs = 8. Past that the same code runs on global vectors (only
+// cs < 16 at such n, or the tests' cs = 1 past 9,386 rows).
+//
+// Kernel C is still one persistent block of 1024 threads on one SM
+// (block reductions, vectors in shared memory to n = 10240, global
+// above); its redesign is later work.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;  // 32 warps: one partial per lane below
+constexpr int kThreads = 1024;  // kernel C: 32 warps, one partial per lane below
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e30f;  // the twin's _NEG_INF sentinel
 constexpr float kTau = 1e-12f;
 constexpr int kSmemVectors = 5;
 constexpr int kSmemMaxN = 10240;  // 5 * 4 * 10240 = 200 KB of 227
+constexpr int kNoRow = 0x7fffffff;
 
 template <bool kMax>
 __device__ __forceinline__ void take_better(float& v, int& i, float ov,
@@ -137,93 +162,212 @@ __device__ void block_reduce_nu(float& v1, int& i1, float& v2, int& i2,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-smo_kernel(const float* __restrict__ Q, const float* y_g, const float* c_g,
-           const float* qd_g, const float* a0, const float* g0,
-           float* a_out, float* g_out, int* iters_out, int n, float eps,
-           int max_iter, int use_smem) {
+// ------------------------------------------------------------- kernel B
+
+constexpr int kBThreads = 512;  // 16 warps a CTA
+constexpr int kBWarps = kBThreads / 32;
+constexpr int kMaxCluster = 16;
+constexpr int kBVectors = 6;  // y, C, diag(Q), alpha, grad, row i
+constexpr size_t kBSmemMax = 220 * 1024;
+
+__host__ __device__ int b_slice(int n, int cs) { return (n + cs - 1) / cs; }
+
+bool b_smem(int n, int cs) {
+  return static_cast<size_t>(kBVectors) * b_slice(n, cs) * sizeof(float) <=
+         kBSmemMax;
+}
+
+// One CTA's reduction result as it lands in every CTA of the cluster: the
+// arg-best (v, i), the max w, and the state of row i.
+struct Part {
+  float v;
+  int i;
+  float w;
+  float a, g, y, c, q, r;  // alpha, grad, y, C, diag(Q), Q[i_sel, i]
+};
+
+// A CTA's view of its slice, indexed by the global row t in [lo, hi).
+struct Slice {
+  const float* y;
+  const float* C;
+  const float* qd;
+  float* alpha;
+  float* grad;
+  float* row;  // Q[i, t] of the current i, from the j scan
+};
+
+// A float's bits as an unsigned key of the same order (-0 first made
+// +0, which compares equal to it, so that equal scores tie on the index).
+__device__ __forceinline__ unsigned ordered(float f) {
+  const unsigned u = __float_as_uint(f + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Warp-wide (arg-best of v, lowest index on ties; max of w) in three
+// redux.sync instructions; every lane gets the result.
+template <bool kMax>
+__device__ __forceinline__ void warp_best(float& v, int& i, float& w) {
+  const unsigned key = ordered(v);
+  const unsigned best = kMax ? __reduce_max_sync(kFull, key) : __reduce_min_sync(kFull, key);
+  i = __reduce_min_sync(kFull, key == best ? i : kNoRow);
+  v = unordered(best);
+  w = unordered(__reduce_max_sync(kFull, ordered(w)));
+}
+
+// Cluster-wide (arg-best of v, max of w) with the winner's state; every
+// thread of every CTA passes its own values and gets the result. `slot`
+// is this reduction's set of kMaxCluster partials.
+template <bool kMax>
+__device__ Part cluster_best(cg::cluster_group& cl, int cs, float v,
+                             int i, float w, const Slice& s, bool with_row,
+                             Part* slot, float* red_v, int* red_i,
+                             float* red_w) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float inf = __int_as_float(0x7f800000);
+  warp_best<kMax>(v, i, w);
+  if (lane == 0) {
+    red_v[warp] = v;
+    red_i[warp] = i;
+    red_w[warp] = w;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool has = lane < kBWarps;
+    v = has ? red_v[lane] : (kMax ? -inf : inf);
+    i = has ? red_i[lane] : kNoRow;
+    w = has ? red_w[lane] : -inf;
+    warp_best<kMax>(v, i, w);
+    if (lane < cs) {
+      Part p{v, i, w, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (i != kNoRow) {  // a row of this CTA's slice
+        p.a = s.alpha[i];
+        p.g = s.grad[i];
+        p.y = s.y[i];
+        p.c = s.C[i];
+        p.q = s.qd[i];
+        if (with_row) p.r = s.row[i];
+      }
+      *cl.map_shared_rank(slot + cl.block_rank(), lane) = p;
+    }
+  }
+  cl.sync();
+  // every warp reduces the cs partials itself, lane r holding partial r;
+  // the slices are disjoint, so the winning index names one partial
+  const bool has = lane < cs;
+  const int own = has ? slot[lane].i : kNoRow;
+  v = has ? slot[lane].v : (kMax ? -inf : inf);
+  i = own;
+  w = has ? slot[lane].w : -inf;
+  warp_best<kMax>(v, i, w);
+  const unsigned hit = __ballot_sync(kFull, has && own == i);
+  Part out = slot[hit ? __ffs(hit) - 1 : 0];
+  out.w = w;
+  return out;
+}
+
+// Problem blockIdx.x / cs; y, diag(Q) [n] shared by the batch; C, alpha0,
+// grad0, alpha, grad, row [batch, n]; iters [batch].
+__global__ void __launch_bounds__(kBThreads, 1)
+smo_cluster_kernel(const float* __restrict__ Q, const float* y_g,
+                   const float* c_g, const float* qd_g, const float* a0,
+                   const float* g0, float* a_out, float* g_out, float* row_g,
+                   int* iters_out, int n, float eps, int max_iter,
+                   int use_smem) {
   extern __shared__ float sm[];
-  __shared__ float red_v[32], red_w[32];
-  __shared__ int red_i[32];
+  __shared__ Part slots[2][kMaxCluster];
+  __shared__ float red_v[kBWarps], red_w[kBWarps];
+  __shared__ int red_i[kBWarps];
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const int prob = blockIdx.x / cs;
+  const int sl = b_slice(n, cs);
+  const int lo = min(n, rank * sl), hi = min(n, lo + sl);
+  const size_t off = static_cast<size_t>(prob) * n;
   const int tid = threadIdx.x;
   const float inf = __int_as_float(0x7f800000);
 
-  const float* y = y_g;
-  const float* C = c_g;
-  const float* qd = qd_g;
-  float* alpha = a_out;
-  float* grad = g_out;
-  if (use_smem) {
-    float* sy = sm;
-    float* sc = sm + n;
-    float* sq = sm + 2 * n;
-    for (int t = tid; t < n; t += kThreads) {
+  Slice s;
+  if (use_smem) {  // the slice's vectors at sm + v * sl, indexed by t - lo
+    float* sy = sm - lo;
+    float* sc = sm + sl - lo;
+    float* sq = sm + 2 * sl - lo;
+    for (int t = lo + tid; t < hi; t += kBThreads) {
       sy[t] = y_g[t];
-      sc[t] = c_g[t];
+      sc[t] = c_g[off + t];
       sq[t] = qd_g[t];
     }
-    y = sy;
-    C = sc;
-    qd = sq;
-    alpha = sm + 3 * n;
-    grad = sm + 4 * n;
+    s = {sy, sc, sq, sm + 3 * sl - lo, sm + 4 * sl - lo, sm + 5 * sl - lo};
+  } else {
+    s = {y_g, c_g + off, qd_g, a_out + off, g_out + off, row_g + off};
   }
-  for (int t = tid; t < n; t += kThreads) {
-    alpha[t] = a0[t];
-    grad[t] = g0[t];
+  for (int t = lo + tid; t < hi; t += kBThreads) {
+    s.alpha[t] = a0[off + t];
+    s.grad[t] = g0[off + t];
   }
-  __syncthreads();
+
+  // i = argmax over I_up of -y*G; gmax2 = max over I_low of y*G
+  float gmax = -inf, gmax2 = -inf;
+  int ii = kNoRow;
+  auto scan = [&](int t, float at, float gt) {
+    const float yt = s.y[t], ct = s.C[t];
+    const bool pos = yt > 0.0f;
+    const bool up = pos ? (at < ct) : (at > 0.0f);
+    const bool low = pos ? (at > 0.0f) : (at < ct);
+    const float minus_yg = -yt * gt;
+    const float su = up ? minus_yg : kNegInf;
+    if (su > gmax) {
+      gmax = su;
+      ii = t;
+    }
+    gmax2 = fmaxf(gmax2, low ? -minus_yg : kNegInf);
+  };
+  for (int t = lo + tid; t < hi; t += kBThreads) scan(t, s.alpha[t], s.grad[t]);
+  Part pi = cluster_best<true>(cl, cs, gmax, ii, gmax2, s, false, slots[0],
+                               red_v, red_i, red_w);
 
   int it = 0;
-  float viol = inf;
-  while (it < max_iter && viol >= eps) {
-    // i = argmax over I_up of -y*G; gmax2 = max over I_low of y*G
-    float gmax = -inf, gmax2 = -inf;
-    int i = 0x7fffffff;
-    for (int t = tid; t < n; t += kThreads) {
-      const float yt = y[t], at = alpha[t], ct = C[t];
-      const bool pos = yt > 0.0f;
-      const bool up = pos ? (at < ct) : (at > 0.0f);
-      const bool low = pos ? (at > 0.0f) : (at < ct);
-      const float minus_yg = -yt * grad[t];
-      const float su = up ? minus_yg : kNegInf;
-      if (su > gmax) {
-        gmax = su;
-        i = t;
-      }
-      gmax2 = fmaxf(gmax2, low ? -minus_yg : kNegInf);
-    }
-    block_reduce<true>(gmax, i, gmax2, red_v, red_i, red_w);
-
-    // j = second-order argmin over I_low with b > 0
+  bool more = max_iter > 0;  // the twin's viol starts at +inf
+  while (more) {
+    // j = second-order argmin over I_low with b > 0; row i's slice kept
+    const int i = pi.i;
     const float* row_i = Q + static_cast<size_t>(i) * n;
-    const float yi = y[i], qdi = qd[i];
+    const float yi = pi.y, qdi = pi.q;
     float best = inf, unused = -inf;
-    int j = 0x7fffffff;
-    for (int t = tid; t < n; t += kThreads) {
-      const float yt = y[t], at = alpha[t], ct = C[t];
+    int jj = kNoRow;
+#pragma unroll 4
+    for (int t = lo + tid; t < hi; t += kBThreads) {
+      const float rt = row_i[t];
+      s.row[t] = rt;
+      const float yt = s.y[t], at = s.alpha[t], ct = s.C[t];
       const bool pos = yt > 0.0f;
       const bool low = pos ? (at > 0.0f) : (at < ct);
-      const float b = gmax + yt * grad[t];
-      float a_coef = (qdi + qd[t]) - ((2.0f * yi) * yt) * row_i[t];
+      const float b = pi.v + yt * s.grad[t];
+      float a_coef = (qdi + s.qd[t]) - ((2.0f * yi) * yt) * rt;
       a_coef = a_coef <= 0.0f ? kTau : a_coef;
       const float obj_diff = -(b * b) / a_coef;
       const float sc = (low && b > 0.0f) ? obj_diff : -kNegInf;
       if (sc < best) {
         best = sc;
-        j = t;
+        jj = t;
       }
     }
-    block_reduce<false>(best, j, unused, red_v, red_i, red_w);
+    const Part pj = cluster_best<false>(cl, cs, best, jj, unused, s, true,
+                                        slots[1], red_v, red_i, red_w);
 
     // clipped analytic pair update (every thread computes the scalars)
-    const float* row_j = Q + static_cast<size_t>(j) * n;
-    const float yj = y[j], qdj = qd[j], qij = row_i[j];
+    const int j = pj.i;
+    const float yj = pj.y, qdj = pj.q, qij = pj.r;
     float quad = (qdi + qdj) - ((2.0f * yi) * yj) * qij;
     quad = quad <= 0.0f ? kTau : quad;
-    const float ai = alpha[i], aj = alpha[j];
-    const float gi = grad[i], gj = grad[j];
-    const float ci = C[i], cj = C[j];
+    const float ai = pi.a, aj = pj.a;
+    const float gi = pi.g, gj = pj.g;
+    const float ci = pi.c, cj = pj.c;
     const bool same = yi == yj;
     const float delta_eq = (gi - gj) / quad;
     const float delta_neq = (-gi - gj) / quad;
@@ -235,28 +379,41 @@ smo_kernel(const float* __restrict__ Q, const float* y_g, const float* c_g,
     const float new_aj = same ? s_term - new_ai : new_ai - s_term;
     const float dai = new_ai - ai;
     const float daj = new_aj - aj;
-    __syncthreads();  // every thread has read alpha/grad at i and j
-
-    for (int t = tid; t < n; t += kThreads) {
-      grad[t] = (grad[t] + row_i[t] * dai) + row_j[t] * daj;
-    }
-    if (tid == 0) {
-      alpha[i] = new_ai;
-      alpha[j] = new_aj;  // j last, as the twin's .at[i].set().at[j].set()
-    }
-    __syncthreads();
     ++it;
-    viol = gmax + gmax2;
+    more = it < max_iter && pi.v + pi.w >= eps;
+
+    // this update and the next iteration's I_up/I_low scan in one pass
+    const float* row_j = Q + static_cast<size_t>(j) * n;
+    gmax = -inf;
+    gmax2 = -inf;
+    ii = kNoRow;
+#pragma unroll 4
+    for (int t = lo + tid; t < hi; t += kBThreads) {
+      const float gt = (s.grad[t] + s.row[t] * dai) + row_j[t] * daj;
+      s.grad[t] = gt;
+      float at = s.alpha[t];
+      if (t == i) at = new_ai;
+      if (t == j) at = new_aj;  // j last, as the twin's .at[i].set().at[j].set()
+      if (t == i || t == j) s.alpha[t] = at;
+      if (more) scan(t, at, gt);
+    }
+    if (more) {
+      pi = cluster_best<true>(cl, cs, gmax, ii, gmax2, s, false, slots[0],
+                              red_v, red_i, red_w);
+    }
   }
 
   if (use_smem) {
-    for (int t = tid; t < n; t += kThreads) {
-      a_out[t] = alpha[t];
-      g_out[t] = grad[t];
+    for (int t = lo + tid; t < hi; t += kBThreads) {
+      a_out[off + t] = s.alpha[t];
+      g_out[off + t] = s.grad[t];
     }
   }
-  if (tid == 0) iters_out[0] = it;
+  if (rank == 0 && tid == 0) iters_out[prob] = it;
+  cl.sync();  // no CTA leaves while another may still address its slots
 }
+
+// ------------------------------------------------------------- kernel C
 
 // Kernel C, Solver_NU (svm.cpp:1029-1285). Per iteration: ip = argmax of
 // -G over upP = {y=+1, a<C}, in = argmax of +G over upN = {y=-1, a>0},
@@ -392,50 +549,88 @@ smo_nu_kernel(const float* __restrict__ Q, const float* y_g,
   if (tid == 0) iters_out[0] = it;
 }
 
-using SolverKernel = void (*)(const float*, const float*, const float*,
-                              const float*, const float*, const float*,
-                              float*, float*, int*, int, float, int, int);
-
-int launch_solver(SolverKernel kernel, const void* Q, const void* y,
-                  const void* C, const void* qd, const void* alpha0,
-                  const void* grad0, void* alpha, void* grad, void* iters,
-                  int n, float eps, int max_iter, void* stream) {
-  const int use_smem = n <= kSmemMaxN;
-  const size_t smem =
-      use_smem ? static_cast<size_t>(kSmemVectors) * n * sizeof(float) : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(Q), static_cast<const float*>(y),
-      static_cast<const float*>(C), static_cast<const float*>(qd),
-      static_cast<const float*>(alpha0), static_cast<const float*>(grad0),
-      static_cast<float*>(alpha), static_cast<float*>(grad),
-      static_cast<int*>(iters), n, eps, max_iter, use_smem);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Q: [n, n] f32 row-major; y, C, qd, alpha0, grad0: [n] f32;
-// alpha, grad: [n] f32 out; iters: [1] int32 out.
+// Kernel B. Q: [n, n] f32 row-major; y, qd: [n] f32; C, alpha0, grad0:
+// [batch, n] f32; alpha, grad: [batch, n] f32 out; row: [batch, n] f32
+// scratch (read only where the slices leave shared memory); iters:
+// [batch] int32 out. cluster: CTAs a problem, 1 to 16.
 extern "C" int smo_solve_launch(const void* Q, const void* y, const void* C,
                                 const void* qd, const void* alpha0,
                                 const void* grad0, void* alpha, void* grad,
-                                void* iters, int n, float eps, int max_iter,
+                                void* row, void* iters, int n, int batch,
+                                float eps, int max_iter, int cluster,
                                 void* stream) {
-  return launch_solver(smo_kernel, Q, y, C, qd, alpha0, grad0, alpha, grad,
-                       iters, n, eps, max_iter, stream);
+  if (cluster < 1 || cluster > kMaxCluster || batch < 1 || n < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int use_smem = b_smem(n, cluster);
+  const size_t smem = use_smem ? static_cast<size_t>(kBVectors) *
+                                     b_slice(n, cluster) * sizeof(float)
+                               : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      smo_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(smo_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(batch * cluster));
+  cfg.blockDim = dim3(kBThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fit = 0;  // clusters of this size the card can hold at once
+  err = cudaOccupancyMaxActiveClusters(&fit, smo_cluster_kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fit < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaLaunchKernelEx(
+      &cfg, smo_cluster_kernel, static_cast<const float*>(Q),
+      static_cast<const float*>(y), static_cast<const float*>(C),
+      static_cast<const float*>(qd), static_cast<const float*>(alpha0),
+      static_cast<const float*>(grad0), static_cast<float*>(alpha),
+      static_cast<float*>(grad), static_cast<float*>(row),
+      static_cast<int*>(iters), n, eps, max_iter, use_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The same arguments; alpha0 must be feasible for both class sums.
+// 1 if kernel B keeps an n-row problem's slices in shared memory at this
+// cluster size, else 0.
+extern "C" int smo_solve_smem(int n, int cluster) {
+  return cluster >= 1 && b_smem(n, cluster) ? 1 : 0;
+}
+
+// Kernel C. Q: [n, n] f32 row-major; y, C, qd, alpha0, grad0: [n] f32;
+// alpha, grad: [n] f32 out; iters: [1] int32 out; alpha0 must be feasible
+// for both class sums.
 extern "C" int smo_nu_solve_launch(const void* Q, const void* y,
                                    const void* C, const void* qd,
                                    const void* alpha0, const void* grad0,
                                    void* alpha, void* grad, void* iters,
                                    int n, float eps, int max_iter,
                                    void* stream) {
-  return launch_solver(smo_nu_kernel, Q, y, C, qd, alpha0, grad0, alpha,
-                       grad, iters, n, eps, max_iter, stream);
+  const int use_smem = n <= kSmemMaxN;
+  const size_t smem =
+      use_smem ? static_cast<size_t>(kSmemVectors) * n * sizeof(float) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      smo_nu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  smo_nu_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Q), static_cast<const float*>(y),
+      static_cast<const float*>(C), static_cast<const float*>(qd),
+      static_cast<const float*>(alpha0), static_cast<const float*>(grad0),
+      static_cast<float*>(alpha), static_cast<float*>(grad),
+      static_cast<int*>(iters), n, eps, max_iter, use_smem);
+  return static_cast<int>(cudaGetLastError());
 }

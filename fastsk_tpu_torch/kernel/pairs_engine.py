@@ -139,7 +139,8 @@ class PackedPairsEngine:
 
     Routes, as in the JAX engine: kernel D (``packed_band``, one launch)
     by default; kernel E (``packed_pairlist``, slabs of strip pairs) with
-    ``FASTSK_PACKED_PAIRLIST=1`` or where D's grid does not fit;
+    ``FASTSK_PACKED_PAIRLIST=1`` or where D's byte-code body (wide
+    alphabets, ``band_body``) would pass its 1-D grid;
     kernel G (``packed_grouped``) with ``pairs_backend="pallas_grouped"``.
     Under a mesh, kernel F (``packed_s1``) in the ring ("ring") or in
     round-robin strips ("round-robin"), by ``mesh_state``.
@@ -197,7 +198,7 @@ class PackedPairsEngine:
         self.total_rows = self.pack["total_pad"]
         if self.route == "band" and (
             os.environ.get("FASTSK_PACKED_PAIRLIST") == "1"
-            or not band_fits(self.total_rows)
+            or not band_fits(self.total_rows, g, self.alpha)
         ):
             self.route = "pairlist"
         self._ids_sorted = np.asarray(enc.ids)[self.order]

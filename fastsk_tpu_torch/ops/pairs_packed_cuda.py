@@ -4,7 +4,8 @@ Counterparts of ``fastsk_tpu/ops/pairs_packed_pallas.py``:
 
 - ``packed_band``     (kernel D, ``packed_band_pallas``): every
   upper-triangle row-pair tile at once, landed straight into the full
-  symmetric count matrix;
+  symmetric count matrix; the int8 tensor-core product of one-hot rows
+  up to ``band_body``'s depth, the byte-code body above it;
 - ``packed_pairlist`` (kernel E, ``packed_pairlist_pallas``): part blocks
   of a list of strip pairs, for ``ops/pairs_packed.py:land_parts``;
 - ``packed_grouped``  (kernel G, ``packed_part_pallas``): part blocks of
@@ -158,10 +159,41 @@ def _check_k(rows: PackedRows, k: int) -> None:
         raise ValueError(f"kernels D to G run on CUDA or CPU tensors, not {rows.device}")
 
 
-def band_fits(total_rows: int) -> bool:
-    """Kernel D's own limit on the card: one block per upper-triangle pair
-    of 128-row tiles, in a 1-D grid of at most 2^31 - 1 blocks (about 8.4M
-    window rows)."""
+# kernel D's tensor-core body holds two 128-row one-hot tiles of up to
+# this many bytes a row in shared memory (csrc/pairs_packed.cu:kMmaDepthMax)
+MMA_DEPTH_MAX = 768
+# ... and beats the byte-code body up to this depth: chip_smoke.py's sweep
+# of both bodies over medium ragged sets at g=8 (NVIDIA H100 80GB HBM3,
+# 700 W): faster at 192 and 320 bytes, slower from 448, where two tiles
+# leave room for one block an SM instead of two
+MMA_DEPTH_FASTER = 320
+
+
+def onehot_depth(g: int, alpha: int) -> int:
+    """Bytes a one-hot row of g codes over ``alpha`` letters takes in
+    kernel D's tensor-core body: g * alpha rounded up to 64 (two k-steps
+    of the int8 mma; the padding bytes are zero and add no matches)."""
+    return -(-g * alpha // 64) * 64
+
+
+def band_body(g: int, alpha: int) -> str:
+    """Kernel D's body for g codes over ``alpha`` letters: "mma" (the int8
+    tensor-core product of one-hot rows) up to the measured depth
+    ``MMA_DEPTH_FASTER``, else "bytes" (the byte-code body, whose cost
+    does not grow with the alphabet)."""
+    return "mma" if onehot_depth(g, alpha) <= MMA_DEPTH_FASTER else "bytes"
+
+
+def band_fits(total_rows: int, g: int, alpha: int) -> bool:
+    """Kernel D's own limit on the card. The tensor-core body runs
+    persistent blocks over the upper tile triangle and has none; the
+    byte-code body launches one block per upper-triangle pair of 128-row
+    tiles, in a 1-D grid of at most 2^31 - 1 blocks (about 8.4M window
+    rows)."""
+    return band_body(g, alpha) == "mma" or _bytes_grid_fits(total_rows)
+
+
+def _bytes_grid_fits(total_rows: int) -> bool:
     nt = -(-total_rows // ROW_TILE)
     return nt * (nt + 1) // 2 <= _MAX_BLOCKS
 
@@ -173,29 +205,46 @@ def _launch(fn, name: str, rows: PackedRows, *args) -> None:
     _build.check_launch(status, name)
 
 
-def packed_band(rows: PackedRows, *, k: int, n_out: int) -> torch.Tensor:
+def packed_band(rows: PackedRows, *, k: int, n_out: int, body=None) -> torch.Tensor:
     """Kernel D: the full symmetric count matrix ``[n_out, n_out]`` int64
     in packed (length-sorted) sequence order; ``n_out`` is at least the
-    number of sequences."""
+    number of sequences. ``body`` ("mma" or "bytes") overrides
+    ``band_body``'s choice; ``packed_band.bodies`` counts the launches of
+    each."""
     _check_k(rows, k)
+    body = band_body(rows.g, rows.alpha) if body is None else body
+    if body not in ("mma", "bytes"):
+        raise ValueError(f"body must be 'mma' or 'bytes'; got {body!r}")
+    if body == "mma" and onehot_depth(rows.g, rows.alpha) > MMA_DEPTH_MAX:
+        raise ValueError(
+            f"one-hot rows of {onehot_depth(rows.g, rows.alpha)} bytes exceed "
+            f"the tensor-core body's {MMA_DEPTH_MAX}"
+        )
     if rows.device.type == "cpu":
         return packed_counts_plain(
             rows.onehot, rows.seq_of, rows.first_seq,
             k=k, tile=rows.tile, c_pad=rows.c_pad, n_out=n_out,
         )
     words = rows.words
-    if not band_fits(words.shape[0]):
-        raise ValueError(f"{words.shape[0]} rows exceed kernel D's 1-D grid")
+    if body == "bytes" and not _bytes_grid_fits(words.shape[0]):
+        raise ValueError(f"{words.shape[0]} rows exceed the byte-code body's 1-D grid")
     meta = rows.meta(ROW_TILE)
     out = torch.zeros((n_out, n_out), dtype=torch.int64, device=rows.device)
     lib = _build.kernels()
-    _launch(
-        lib.packed_band_launch, "packed_band", rows,
-        words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
-        out.data_ptr(), words.shape[0] // ROW_TILE, n_out, words.shape[1],
-        meta.cb, k, 4 * words.shape[1] - rows.g,
-    )
+    common = (words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+              out.data_ptr(), words.shape[0] // ROW_TILE, n_out, words.shape[1])
+    if body == "mma":
+        _launch(
+            lib.packed_band_mma_launch, "packed_band", rows, *common,
+            rows.g, rows.alpha, onehot_depth(rows.g, rows.alpha), meta.cb, k, 0,
+        )
+    else:
+        _launch(
+            lib.packed_band_launch, "packed_band", rows, *common,
+            meta.cb, k, 4 * words.shape[1] - rows.g,
+        )
     packed_band.launches += 1
+    packed_band.bodies[body] += 1
     return out
 
 
@@ -316,6 +365,7 @@ def packed_s1(
 
 # kernel launches; the CPU path does not count
 packed_band.launches = 0
+packed_band.bodies = {"mma": 0, "bytes": 0}  # launches of each body
 packed_pairlist.launches = 0
 packed_grouped.launches = 0
 packed_s1.launches = 0

@@ -393,13 +393,7 @@ class KernelSVC(_Classifier):
         self.classes_ = classes
         y_signed = np.where(y == classes[1], 1.0, -1.0).astype(np.float32)
 
-        if self.class_weight == "balanced":
-            counts = np.array([(y == c).sum() for c in classes], dtype=np.float64)
-            cw = len(y) / (2.0 * counts)
-            c_vec = np.where(y == classes[1], cw[1], cw[0]) * self.C
-        else:
-            c_vec = np.full(len(y), self.C)
-        c_vec = c_vec.astype(np.float32)
+        c_vec = self._box(y, classes)
 
         alpha, rho, iters = self._solve(gram, y_signed, c_vec)
         self.alpha_y_ = alpha * y_signed
@@ -429,6 +423,16 @@ class KernelSVC(_Classifier):
         )
         return _to_host(alpha), float(rho), int(iters)
 
+    def _box(self, y, classes) -> np.ndarray:
+        """Per-row C: ``C``, times the class weight under ``balanced``."""
+        if self.class_weight == "balanced":
+            counts = np.array([(y == c).sum() for c in classes], dtype=np.float64)
+            cw = len(y) / (2.0 * counts)
+            c_vec = np.where(y == classes[1], cw[1], cw[0]) * self.C
+        else:
+            c_vec = np.full(len(y), self.C)
+        return c_vec.astype(np.float32)
+
     def _fit_platt(self, gram: torch.Tensor, y, y_signed, c_vec):
         """Cross-validated decision values -> sigmoid (svm.cpp:1913-1999).
 
@@ -443,23 +447,57 @@ class KernelSVC(_Classifier):
         from the full optimum repaired by ``_restrict_feasible``.
         """
         folds = stratified_kfold_indices(y, self.cv_folds)
-        n = len(y)
-        alpha_full = self.alpha_y_ * y_signed  # recover alpha >= 0
-        dec = np.zeros(n, dtype=np.float64)
-        for f in folds:
-            c_mask = np.asarray(c_vec, np.float32).copy()
-            c_mask[f] = 0.0
-            a0 = (
-                _restrict_feasible(alpha_full, y_signed, c_mask)
-                if self.platt_warm_start
-                else None
-            )
-            a, rho, _ = self._solve(gram, y_signed, c_mask, alpha0=a0)
-            coef = torch.as_tensor(a * y_signed, dtype=torch.float32, device=gram.device)
-            with full_f32_matmul():
-                d = gram @ coef  # coef is 0 on the held-out rows
-            dec[f] = _to_host(d)[f] - rho
+        alpha_full = self.alpha_y_ * y_signed if self.platt_warm_start else None
+        dec = self._fold_decisions(gram, y_signed, c_vec, folds, alpha_full)
         self.platt_ = sigmoid_train(dec, y_signed)
+
+    def _fold_decisions(self, gram: torch.Tensor, y_signed, c_vec, folds, alpha_full=None):
+        """Each row's decision value from the fold that holds it out (0 for
+        a row of no fold). The folds depend on nothing but ``alpha_full``,
+        so they are one batched solve over one Q (one launch of kernel B
+        on the card), each bit for bit the solve of that fold alone."""
+        n = len(y_signed)
+        dec = np.zeros(n, dtype=np.float64)
+        if not folds:
+            return dec
+        dev = gram.device
+        c_masks = np.tile(np.asarray(c_vec, np.float32), (len(folds), 1))
+        for r, f in enumerate(folds):
+            c_masks[r, f] = 0.0
+        a0 = np.zeros_like(c_masks)
+        if alpha_full is not None:
+            a0 = np.stack([_restrict_feasible(alpha_full, y_signed, c) for c in c_masks])
+        ys = torch.as_tensor(y_signed, device=dev)
+        C = torch.as_tensor(c_masks, device=dev)
+        alpha, grad, _ = smo_solve(
+            gram * torch.outer(ys, ys), ys, C,
+            -torch.ones(n, dtype=torch.float32, device=dev),
+            torch.as_tensor(a0, device=dev), self.eps, _max_iter(self.max_iter, n),
+        )
+        for r, f in enumerate(folds):
+            a, rho = _finalize_rho(alpha[r], grad[r], ys, C[r])
+            with full_f32_matmul():
+                d = gram @ (a * ys)  # a is 0 on the held-out rows
+            dec[f] = _to_host(d)[f] - float(rho)
+        return dec
+
+    def cv_platt(self, gram, y, cv_folds: int) -> tuple:
+        """The Platt sigmoid of a two-class ``y`` on ``gram`` under this
+        model's settings, from ``ovo.py:platt_cv_binary``'s folds (at most
+        ``len(y)``; a fold whose training rows hold one class gives 0),
+        each solved on the full ``gram`` with its held-out rows boxed at 0,
+        all in one batched solve. One-vs-one C-SVC takes this instead of
+        fitting each fold's sub-Gram."""
+        gram = _gram_f32(gram)
+        y = np.asarray(y)
+        classes = np.unique(y)
+        y_signed = np.where(y == classes[1], 1.0, -1.0).astype(np.float32)
+        folds = [
+            f for f in stratified_kfold_indices(y, min(cv_folds, len(y)))
+            if len(np.unique(np.delete(y, f))) == 2
+        ]
+        dec = self._fold_decisions(gram, y_signed, self._box(y, classes), folds)
+        return sigmoid_train(dec, y_signed)
 
 
 @dataclass

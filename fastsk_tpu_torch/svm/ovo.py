@@ -159,13 +159,15 @@ class OneVsOneSVC:
                     ]
                 )
                 sub = take_block(gram, idx, idx)
-                if self.probability:
-                    self.platt_.append(
-                        platt_cv_binary(
-                            self.binary_factory, sub, ys, self.cv_folds
-                        )
-                    )
                 model = self.binary_factory().fit(sub, ys)
+                if self.probability:
+                    # C-SVC solves its folds in one batch on the pair's
+                    # Gram (KernelSVC.cv_platt); nu-SVC on fold sub-Grams
+                    self.platt_.append(
+                        model.cv_platt(sub, ys, self.cv_folds)
+                        if hasattr(model, "cv_platt")
+                        else platt_cv_binary(self.binary_factory, sub, ys, self.cv_folds)
+                    )
                 self.pairs_.append((i, j))
                 self.models_.append(model)
                 self.pair_idx_.append(idx)

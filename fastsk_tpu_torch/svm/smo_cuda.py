@@ -8,9 +8,11 @@ Each loop runs from a feasible start to the eps-KKT stop and returns
 (``svm/kernel_svm.py:_finalize_rho`` / ``_finalize_nu``). A CPU tensor
 takes the plain twin (``smo_loop_plain`` / ``smo_nu_loop_plain``); a CUDA
 tensor launches the kernel or raises. Every solve on the card goes
-through a kernel, at every n.
+through a kernel, at every n. ``smo_solve`` also takes a batch of
+problems over one Q (the Platt folds: one launch, one thread-block
+cluster a problem).
 
-No padding is needed: the kernel loops over exactly n lanes. Rows whose
+No padding is needed: the kernels loop over exactly n rows. Rows whose
 C is 0 (the Platt folds' held-out rows) can join neither I_up nor I_low,
 so they are inert in both versions.
 """
@@ -153,61 +155,123 @@ def initial_state(Q, p, alpha0):
     return grad0, torch.diagonal(Q).contiguous()
 
 
-def _solve(wrapper, kernel, plain, Q, y, C_vec, p, alpha0, eps, max_iter):
-    """Check the inputs, then run ``plain`` on a CPU tensor, or on a CUDA
-    one launch the C entry point named after ``wrapper`` and add one to
-    ``wrapper.launches``."""
+def _check_problem(Q, vecs, names: str) -> int:
+    """n of a square f32 Q whose companion vectors lie on its device, are
+    f32 and contiguous (shapes are checked by the callers)."""
     n = Q.shape[0]
     if Q.dim() != 2 or Q.shape[1] != n:
         raise ValueError(f"Q must be square; got {tuple(Q.shape)}")
-    vecs = (y, C_vec, p, alpha0)
     for v in (Q, *vecs):
         if v.dtype != torch.float32 or v.device != Q.device:
-            raise ValueError("Q, y, C, p and alpha0 must be f32 on one device")
-    if any(v.shape != (n,) for v in vecs):
-        raise ValueError(f"y, C, p and alpha0 must have shape ({n},)")
+            raise ValueError(f"Q, {names} must be f32 on one device")
     if not all(v.is_contiguous() for v in (Q, *vecs)):
-        raise ValueError("Q, y, C, p and alpha0 must be contiguous")
-    grad0, qd = initial_state(Q, p, alpha0)
-    if Q.device.type == "cpu":
-        return plain(Q, y, C_vec, qd, alpha0, grad0, eps, max_iter)
-    if Q.device.type != "cuda":
-        raise ValueError(f"kernel {kernel} runs on CUDA or CPU tensors, not {Q.device}")
+        raise ValueError(f"Q, {names} must be contiguous")
+    if Q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the SMO kernels run on CUDA or CPU tensors, not {Q.device}")
+    return n
 
-    alpha = torch.empty_like(alpha0)
-    grad = torch.empty_like(grad0)
-    iters = torch.empty(1, dtype=torch.int32, device=Q.device)
-    name = wrapper.__name__
-    lib = _build.kernels()
-    with torch.cuda.device(Q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(lib, f"{name}_launch")(
-            Q.data_ptr(), y.data_ptr(), C_vec.data_ptr(), qd.data_ptr(),
-            alpha0.data_ptr(), grad0.data_ptr(), alpha.data_ptr(),
-            grad.data_ptr(), iters.data_ptr(), n, float(eps), int(max_iter),
-            stream,
+
+def smo_cluster_size() -> int:
+    """CTAs of kernel B's cluster per problem on the card: 16 (a
+    non-portable cluster), the faster of 8 and 16 at KAT2B in
+    ``chip_smoke.py``'s phase 4."""
+    return 16
+
+
+def smo_smem_path(n: int, cluster: int) -> bool:
+    """Whether kernel B keeps an n-row problem's slices in shared memory
+    at ``cluster`` CTAs a problem (the kernel's own rule)."""
+    return bool(_build.kernels().smo_solve_smem(n, cluster))
+
+
+def smo_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int, *, cluster=None):
+    """Solver::Solve (kernel B) of one problem or a batch over one Q.
+
+    ``y`` and ``p`` are ``[n]``; ``C_vec`` and ``alpha0`` are both ``[n]``
+    (one problem: returns ``(alpha [n], grad [n], iters)``) or both ``[b,
+    n]`` (b problems, one launch of b clusters: returns ``(alpha [b, n],
+    grad [b, n], [iters] * b)``). Each problem's result is bit for bit
+    that of solving it alone. A CPU tensor runs ``smo_loop_plain`` once per
+    problem; a CUDA tensor launches the kernel (``cluster`` CTAs a
+    problem, ``smo_cluster_size()`` by default) or raises."""
+    n = _check_problem(Q, (y, C_vec, p, alpha0), "y, C, p and alpha0")
+    if y.shape != (n,) or p.shape != (n,):
+        raise ValueError(f"y and p must have shape ({n},)")
+    batched = C_vec.dim() == 2
+    if C_vec.shape != alpha0.shape or C_vec.shape[-1:] != (n,) or C_vec.dim() > 2 or (
+        batched and C_vec.shape[0] < 1
+    ):
+        raise ValueError(
+            f"C and alpha0 must both have shape ({n},) or (b, {n}); got "
+            f"{tuple(C_vec.shape)} and {tuple(alpha0.shape)}"
         )
-    _build.check_launch(status, name)
-    wrapper.launches += 1
-    return alpha, grad, int(iters.item())
-
-
-def smo_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int):
-    """One Solver::Solve (kernel B): ``(alpha, grad, iters)`` at the
-    eps-KKT point."""
-    return _solve(
-        smo_solve, "B", smo_loop_plain, Q, y, C_vec, p, alpha0, eps, max_iter
-    )
+    C2, A0 = C_vec.reshape(-1, n), alpha0.reshape(-1, n)
+    b = C2.shape[0]
+    # one mv a problem: the same grad0 as a lone solve of it, bit for bit
+    grad0 = torch.stack([initial_state(Q, p, a)[0] for a in A0])
+    qd = torch.diagonal(Q).contiguous()
+    if Q.device.type == "cpu":
+        runs = [
+            smo_loop_plain(Q, y, C2[f], qd, A0[f], grad0[f], eps, max_iter)
+            for f in range(b)
+        ]
+        alpha = torch.stack([r[0] for r in runs])
+        grad = torch.stack([r[1] for r in runs])
+        iters = [r[2] for r in runs]
+    else:
+        cluster = smo_cluster_size() if cluster is None else int(cluster)
+        if not 1 <= cluster <= 16:
+            raise ValueError(f"cluster must be 1 to 16 CTAs; got {cluster}")
+        alpha = torch.empty_like(grad0)
+        grad = torch.empty_like(grad0)
+        row = torch.empty_like(grad0)
+        it = torch.empty(b, dtype=torch.int32, device=Q.device)
+        lib = _build.kernels()
+        with torch.cuda.device(Q.device):
+            status = lib.smo_solve_launch(
+                Q.data_ptr(), y.data_ptr(), C2.data_ptr(), qd.data_ptr(),
+                A0.data_ptr(), grad0.data_ptr(), alpha.data_ptr(), grad.data_ptr(),
+                row.data_ptr(), it.data_ptr(), n, b, float(eps), int(max_iter),
+                cluster, torch.cuda.current_stream().cuda_stream,
+            )
+        _build.check_launch(status, "smo_solve")
+        smo_solve.launches += 1
+        smo_solve.problems += b
+        iters = it.tolist()
+    if batched:
+        return alpha, grad, iters
+    return alpha[0], grad[0], iters[0]
 
 
 def smo_nu_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int):
     """One Solver_NU solve (kernel C): ``(alpha, grad, iters)`` at the
-    eps-KKT point; the per-class sums of ``alpha0`` are conserved."""
-    return _solve(
-        smo_nu_solve, "C", smo_nu_loop_plain, Q, y, C_vec, p, alpha0, eps,
-        max_iter,
-    )
+    eps-KKT point; the per-class sums of ``alpha0`` are conserved. A CPU
+    tensor takes ``smo_nu_loop_plain``; a CUDA tensor launches the kernel
+    or raises."""
+    vecs = (y, C_vec, p, alpha0)
+    n = _check_problem(Q, vecs, "y, C, p and alpha0")
+    if any(v.shape != (n,) for v in vecs):
+        raise ValueError(f"y, C, p and alpha0 must have shape ({n},)")
+    grad0, qd = initial_state(Q, p, alpha0)
+    if Q.device.type == "cpu":
+        return smo_nu_loop_plain(Q, y, C_vec, qd, alpha0, grad0, eps, max_iter)
+    alpha = torch.empty_like(alpha0)
+    grad = torch.empty_like(grad0)
+    iters = torch.empty(1, dtype=torch.int32, device=Q.device)
+    lib = _build.kernels()
+    with torch.cuda.device(Q.device):
+        status = lib.smo_nu_solve_launch(
+            Q.data_ptr(), y.data_ptr(), C_vec.data_ptr(), qd.data_ptr(),
+            alpha0.data_ptr(), grad0.data_ptr(), alpha.data_ptr(),
+            grad.data_ptr(), iters.data_ptr(), n, float(eps), int(max_iter),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(status, "smo_nu_solve")
+    smo_nu_solve.launches += 1
+    return alpha, grad, int(iters.item())
 
 
-smo_solve.launches = 0  # kernel launches; the CPU path does not count
+# kernel launches, and kernel B's problems solved; the CPU path counts neither
+smo_solve.launches = 0
+smo_solve.problems = 0
 smo_nu_solve.launches = 0

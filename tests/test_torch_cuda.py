@@ -4,7 +4,8 @@ Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
 with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 Tolerances: counts are integers (equal); kernels B and C must take their
-twins' exact f32 trajectories (equal iterations, alpha and grad).
+twins' exact f32 trajectories (equal iterations, alpha and grad), and a
+batched launch of B each problem's lone one.
 """
 
 import math
@@ -51,30 +52,86 @@ def test_kernel_a_matches_plain_and_oracle(cuda, g, m, n, length, alpha):
     np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], oracle.exact_counts(X, g, m))
 
 
-# n=700 keeps the solver state in shared memory; n=10500 is past the
-# 10240-row limit, so the same loop runs on it in global memory
-@pytest.mark.parametrize("n", [700, 10500])
-def test_kernel_b_matches_twin(cuda, n):
-    rng = np.random.default_rng(3)
+def _c_svc_problem(n, seed=3):
+    rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, 8)).astype(np.float32)
     y = np.where(X[:, 0] + 0.5 * rng.normal(size=n) > 0, 1.0, -1.0).astype(np.float32)
-    K = X @ X.T
+    return X @ X.T * np.outer(y, y), y
+
+
+def _twin(Q, y, C, p, a0, max_iter):
+    grad0, qd = smo_cuda.initial_state(Q, p, a0)
+    return smo_cuda.smo_loop_plain(Q, y, C, qd, a0, grad0, 1e-3, max_iter)
+
+
+# n=700 and 10500 run to the eps stop; 12636 (the SVR duals' 2n at
+# KAT2B) on a capped prefix, as the twin runs one host-synced step per
+# iteration. At the default cluster every one keeps its slices in shared
+# memory.
+@pytest.mark.parametrize("n", [700, 10500, 12636])
+def test_kernel_b_matches_twin(cuda, n):
+    max_iter = 3000 if n == 12636 else 10**6
+    Qn, y = _c_svc_problem(n)
     for c_mask in (np.ones(n, np.float32), (np.arange(n) % 5 != 0).astype(np.float32)):
-        Q = torch.from_numpy(K * np.outer(y, y)).to(cuda)
+        Q = torch.from_numpy(Qn).to(cuda)
         args = (
             torch.from_numpy(y).to(cuda), torch.from_numpy(c_mask).to(cuda),
             -torch.ones(n, device=cuda), torch.zeros(n, device=cuda),
         )
-        before = smo_cuda.smo_solve.launches
-        a_k, g_k, it_k = smo_cuda.smo_solve(Q, *args, 1e-3, 10**6)
-        assert smo_cuda.smo_solve.launches == before + 1
-        qd = torch.diagonal(Q).contiguous()
-        a_p, g_p, it_p = smo_cuda.smo_loop_plain(
-            Q, args[0], args[1], qd, args[3], args[2].clone(), 1e-3, 10**6
-        )
+        before = smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems
+        a_k, g_k, it_k = smo_cuda.smo_solve(Q, *args, 1e-3, max_iter)
+        assert (smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems) == (before[0] + 1, before[1] + 1)
+        assert smo_cuda.smo_smem_path(n, smo_cuda.smo_cluster_size())
+        a_p, g_p, it_p = _twin(Q, *args[:2], args[2], args[3], max_iter)
         assert it_k == it_p
         torch.testing.assert_close(a_k, a_p, rtol=0, atol=0)
         torch.testing.assert_close(g_k, g_p, rtol=0, atol=0)
+
+
+# every cluster size on one problem; one CTA cannot hold 10500 rows' slice
+# (6 floats a row past 220 KB), so cluster=1 runs the global-memory mode
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+def test_kernel_b_cluster_sizes(cuda, cluster):
+    n, max_iter = 10500, 4000
+    Qn, y = _c_svc_problem(n, seed=4)
+    Q = torch.from_numpy(Qn).to(cuda)
+    args = (torch.from_numpy(y).to(cuda), torch.ones(n, device=cuda),
+            -torch.ones(n, device=cuda), torch.zeros(n, device=cuda))
+    assert smo_cuda.smo_smem_path(n, cluster) == (cluster > 1)
+    a_k, g_k, it_k = smo_cuda.smo_solve(Q, *args, 1e-3, max_iter, cluster=cluster)
+    a_p, g_p, it_p = _twin(Q, *args[:2], args[2], args[3], max_iter)
+    assert it_k == it_p
+    torch.testing.assert_close(a_k, a_p, rtol=0, atol=0)
+    torch.testing.assert_close(g_k, g_p, rtol=0, atol=0)
+
+
+def test_kernel_b_batched_folds(cuda):
+    """Five Platt-fold masks in one launch: each fold bit-identical to its
+    own launch and to the twin."""
+    from fastsk_tpu_torch.svm.linear import stratified_kfold_indices
+
+    n = 1500
+    Qn, y = _c_svc_problem(n, seed=6)
+    Q = torch.from_numpy(Qn).to(cuda)
+    yt = torch.from_numpy(y).to(cuda)
+    p = -torch.ones(n, device=cuda)
+    C = torch.ones((5, n), device=cuda)
+    for r, f in enumerate(stratified_kfold_indices(y, 5)):
+        C[r, torch.as_tensor(f, device=cuda)] = 0.0
+    a0 = torch.zeros((5, n), device=cuda)
+    before = smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems
+    a_b, g_b, it_b = smo_cuda.smo_solve(Q, yt, C, p, a0, 1e-3, 10**6)
+    assert (smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems) == (before[0] + 1, before[1] + 5)
+    assert a_b.shape == g_b.shape == (5, n) and len(it_b) == 5
+    for r in range(5):
+        a_s, g_s, it_s = smo_cuda.smo_solve(Q, yt, C[r].contiguous(), p, a0[r].contiguous(), 1e-3, 10**6)
+        assert it_b[r] == it_s
+        torch.testing.assert_close(a_b[r], a_s, rtol=0, atol=0)
+        torch.testing.assert_close(g_b[r], g_s, rtol=0, atol=0)
+        a_p, g_p, it_p = _twin(Q, yt, C[r].contiguous(), p, a0[r].contiguous(), 10**6)
+        assert it_p == it_s
+        torch.testing.assert_close(a_s, a_p, rtol=0, atol=0)
+        torch.testing.assert_close(g_s, g_p, rtol=0, atol=0)
 
 
 def _nu_problem(kind, n, rng):
@@ -164,11 +221,14 @@ def test_kernels_d_e_g_match_plain_and_oracle(cuda, monkeypatch, X, g, m, tile):
         oracle_counts = oracle.exact_counts(X, g, m)
     np.testing.assert_array_equal(want.cpu().numpy(), oracle_counts[np.ix_(order, order)])
 
-    before = pairs_packed_cuda.packed_band.launches
-    band = pairs_packed_cuda.packed_band(rows, k=k, n_out=eng.n)
-    torch.cuda.synchronize()
-    assert pairs_packed_cuda.packed_band.launches == before + 1
-    torch.testing.assert_close(band, want, rtol=0, atol=0)
+    assert pairs_packed_cuda.band_body(g, eng.alpha) == "mma"
+    for body in ("mma", "bytes"):  # the default body, then the byte-code one
+        before = pairs_packed_cuda.packed_band.launches, pairs_packed_cuda.packed_band.bodies[body]
+        band = pairs_packed_cuda.packed_band(rows, k=k, n_out=eng.n, body=None if body == "mma" else body)
+        torch.cuda.synchronize()
+        assert pairs_packed_cuda.packed_band.launches == before[0] + 1
+        assert pairs_packed_cuda.packed_band.bodies[body] == before[1] + 1
+        torch.testing.assert_close(band, want, rtol=0, atol=0)
 
     ns = eng.n_strips
     pa = torch.repeat_interleave(torch.arange(ns), torch.arange(ns, 0, -1)).to(cuda, torch.int32)
@@ -196,6 +256,27 @@ def test_kernels_d_e_g_match_plain_and_oracle(cuda, monkeypatch, X, g, m, tile):
     for route in ("band", "pairlist", "grouped"):
         eng.route = route
         np.testing.assert_array_equal(eng.exact(), oracle_counts)
+
+
+def test_kernel_d_bytes_body_above_depth(cuda, monkeypatch):
+    """One-hot rows past the tensor-core body's depth (g=12 over 100
+    codes: 1,216 bytes) take D's byte-code body, equal to the plain
+    version and the oracle."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", 256)
+    X = _ragged(21, 12, 12, 300, 100)
+    X[0] = list(range(1, 101)) + X[0]  # every code, so alpha = 100
+    eng = PackedPairsEngine(encode_sequences(X), 12, 7, KernelConfig(device=cuda))
+    assert eng.alpha == 100 and pairs_packed_cuda.band_body(12, 100) == "bytes"
+    rows = eng.rows()
+    want = pairs_packed.packed_counts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, k=5, tile=256, c_pad=eng.c_pad, n_out=eng.n
+    )
+    before = dict(pairs_packed_cuda.packed_band.bodies)
+    got = pairs_packed_cuda.packed_band(rows, k=5, n_out=eng.n)
+    torch.cuda.synchronize()
+    assert pairs_packed_cuda.packed_band.bodies == {"mma": before["mma"], "bytes": before["bytes"] + 1}
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    np.testing.assert_array_equal(eng.exact(), oracle.exact_counts(X, 12, 7))
 
 
 # kernel F at every word width (g=6 one word, 7 with a padding byte, 12

@@ -363,3 +363,37 @@ def test_packed_onehot_matches_jax_build_packed_x(rng, small_tile):
         g=5, alpha=eng.alpha, code_min=eng.code_min, dtype=jnp.int8,
     )
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize(
+    "g,alpha,body",
+    [(8, 24, "mma"), (8, 5, "mma"), (8, 40, "mma"), (8, 56, "bytes"), (20, 256, "bytes"), (12, 100, "bytes")],
+)
+def test_kernel_d_body_selection(g, alpha, body):
+    """Kernel D's tensor-core body up to its one-hot depth, the byte-code
+    body above it; the byte-code body alone keeps the 1-D grid limit."""
+    pc = pairs_packed_cuda
+    assert pc.band_body(g, alpha) == body
+    assert pc.onehot_depth(g, alpha) % 64 == 0 and pc.onehot_depth(g, alpha) >= g * alpha
+    assert pc.band_fits(10**8, g, alpha) == (body == "mma")
+    assert pc.band_fits(1000, g, alpha)
+
+
+def test_packed_band_on_cpu_takes_the_plain_version(monkeypatch):
+    """On a CPU tensor either body is the plain version and counts no
+    launch; an unknown body is refused."""
+    pc = pairs_packed_cuda
+    monkeypatch.setattr(PackedPairsEngine, "TILE", 64)
+    rng = np.random.default_rng(9)
+    X = [rng.integers(1, 6, size=int(rng.integers(8, 60))).tolist() for _ in range(9)]
+    eng = PackedPairsEngine(encode_sequences(X), 5, 2, T.KernelConfig(device="cpu"))
+    rows = eng.rows()
+    before = pc.packed_band.launches, dict(pc.packed_band.bodies)
+    got = [pc.packed_band(rows, k=3, n_out=eng.n, body=b) for b in (None, "mma", "bytes")]
+    assert (pc.packed_band.launches, pc.packed_band.bodies) == before
+    for g in got[1:]:
+        torch.testing.assert_close(g, got[0], rtol=0, atol=0)
+    pos = np.argsort(eng.order)
+    np.testing.assert_array_equal(got[0].numpy()[np.ix_(pos, pos)], oracle.exact_counts(X, 5, 2))
+    with pytest.raises(ValueError, match="body"):
+        pc.packed_band(rows, k=3, n_out=eng.n, body="wmma")

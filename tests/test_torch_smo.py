@@ -197,3 +197,110 @@ def test_multiclass_refused(rng):
     pm = KernelSVC(C=1.0, eps=1e-5).fit(K, y)
     np.testing.assert_allclose(pm.decision_function(K), jm.decision_function(K), atol=1e-4)
     np.testing.assert_array_equal(pm.predict(K), jm.predict(K))
+
+
+def _fold_masks(y, C=1.0, folds=5):
+    """[folds, n] boxes of the Platt folds: C, 0 on each fold's held-out
+    rows (KernelSVC._fit_platt's masks)."""
+    from fastsk_tpu_torch.svm.linear import stratified_kfold_indices
+
+    masks = np.full((folds, len(y)), C, np.float32)
+    for r, f in enumerate(stratified_kfold_indices(y, folds)):
+        masks[r, f] = 0.0
+    return masks
+
+
+def test_batched_wrapper_equals_single_solves(rng):
+    """A [b, n] batch on the CPU is a loop of single solves, bit for bit."""
+    K, y = _problem(rng, n=50)
+    n = len(y)
+    Q = torch.from_numpy(K * np.outer(y, y))
+    yt, p = torch.from_numpy(y), -torch.ones(n)
+    C = torch.from_numpy(_fold_masks(y))
+    a0 = torch.zeros(5, n)
+    before = smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems
+    a_b, g_b, it_b = smo_cuda.smo_solve(Q, yt, C, p, a0, 1e-3, 100000)
+    assert (smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems) == before
+    assert a_b.shape == g_b.shape == (5, n) and len(it_b) == 5
+    for r in range(5):
+        a_s, g_s, it_s = smo_cuda.smo_solve(Q, yt, C[r].contiguous(), p, a0[r].contiguous(), 1e-3, 100000)
+        assert it_b[r] == it_s > 0
+        np.testing.assert_array_equal(a_b[r].numpy(), a_s.numpy())
+        np.testing.assert_array_equal(g_b[r].numpy(), g_s.numpy())
+        assert np.all(a_b[r].numpy()[C[r].numpy() == 0] == 0)
+
+
+def test_batched_folds_match_jax_solver(rng):
+    """Each fold of a batched solve against fastsk_tpu's
+    _smo_solve_general on that fold's box: equal iterations, max|dalpha|
+    <= 1e-4 * C, rho within 1e-6, equal decision signs."""
+    from fastsk_tpu_torch.svm.kernel_svm import _finalize_rho
+
+    K, y = _problem(rng, n=60)
+    n = len(y)
+    Q = (K * np.outer(y, y)).astype(np.float32)
+    masks = _fold_masks(y)
+    yt = torch.from_numpy(y)
+    a_b, g_b, it_b = smo_cuda.smo_solve(
+        torch.from_numpy(Q), yt, torch.from_numpy(masks), -torch.ones(n), torch.zeros(5, n),
+        1e-3, 100000,
+    )
+    for r, c in enumerate(masks):
+        a_t, rho_t = _finalize_rho(a_b[r], g_b[r], yt, torch.from_numpy(c))
+        a_j, rho_j, it_j = j_smo_general(
+            jnp.asarray(Q), jnp.asarray(y), jnp.asarray(c),
+            -jnp.ones(n, jnp.float32), jnp.zeros(n, jnp.float32), 1e-3, 100000,
+        )
+        a_t, a_j = a_t.numpy(), np.asarray(a_j)
+        assert it_b[r] == int(it_j)
+        assert np.abs(a_t - a_j).max() <= 1e-4
+        assert abs(float(rho_t) - float(rho_j)) <= 1e-6
+        np.testing.assert_array_equal(
+            np.sign(K @ (a_t * y) - float(rho_t)), np.sign(K @ (a_j * y) - float(rho_j))
+        )
+
+
+def test_batched_wrapper_refuses_mismatches(rng):
+    K, y = _problem(rng, n=20)
+    n = len(y)
+    Q = torch.from_numpy(K * np.outer(y, y))
+    yt, p = torch.from_numpy(y), -torch.ones(n)
+    C, a0 = torch.ones(3, n), torch.zeros(3, n)
+    for bad_c, bad_a in (
+        (C, torch.zeros(n)),  # [b, n] box, [n] start
+        (C, torch.zeros(2, n)),  # two batch sizes
+        (torch.ones(3, n + 1), torch.zeros(3, n + 1)),  # the wrong n
+        (torch.ones(0, n), torch.zeros(0, n)),  # an empty batch
+        (torch.ones(1, 3, n), torch.zeros(1, 3, n)),  # three dimensions
+    ):
+        with pytest.raises(ValueError, match="shape"):
+            smo_cuda.smo_solve(Q, yt, bad_c, p, bad_a, 1e-3, 10)
+    with pytest.raises(ValueError, match="f32"):
+        smo_cuda.smo_solve(Q, yt, C.double(), p, a0, 1e-3, 10)
+    with pytest.raises(ValueError, match="one device"):
+        smo_cuda.smo_solve(Q, yt, C.to("meta"), p, a0, 1e-3, 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        smo_cuda.smo_solve(Q, yt, torch.ones(n, 3).T, p, a0, 1e-3, 10)
+
+
+def test_probability_fit_solves_folds_in_one_batch(rng, monkeypatch):
+    """KernelSVC(probability=True) calls the kernel B wrapper twice: the
+    main solve, then its five Platt folds as one [5, n] batch; its Platt
+    parameters still match the JAX fit's (as test_port_fit_matches_jax_fit
+    holds them)."""
+    from fastsk_tpu_torch.svm import kernel_svm as tk
+
+    calls = []
+    real = tk.smo_solve
+
+    def spy(Q, y, C_vec, *args, **kwargs):
+        calls.append(tuple(C_vec.shape))
+        return real(Q, y, C_vec, *args, **kwargs)
+
+    monkeypatch.setattr(tk, "smo_solve", spy)
+    K, y = _blobs(rng)
+    pm = KernelSVC(C=1.0, probability=True).fit(K, y)
+    assert calls == [(len(y),), (5, len(y))]
+    jm = JKernelSVC(C=1.0, probability=True).fit(K, y)
+    np.testing.assert_allclose(pm.platt_, jm.platt_, atol=1e-3)
+    np.testing.assert_allclose(pm.predict_proba(K), jm.predict_proba(K), atol=1e-4)

@@ -507,7 +507,7 @@ def test_cli_unported_flags_raise(tmp_path, rng):
         tcli.main(["-g", "5", "-m", "2", "-a", tr])
     with pytest.raises(NotImplementedError, match="slice 5"):
         tcli.main(["-g", "5", "-m", "2", "--checkpoint", str(tmp_path / "ck"), tr])
-    assert "cuda when a CUDA device is present" in " ".join(tcli.build_parser().format_help().split())
+    assert "the CPU runs only with --device cpu" in " ".join(tcli.build_parser().format_help().split())
 
 
 @pytest.mark.parametrize(
@@ -526,3 +526,40 @@ def test_cli_unported_options_raise_when_set(tmp_path, rng, flag, slice_):
     tr = _labelled_fasta(tmp_path / "tr.fasta", rng, 10)
     with pytest.raises(NotImplementedError, match=slice_):
         tcli.main(["-g", "5", "-m", "2", "--device", "cpu", *flag, tr])
+
+
+def test_cli_without_a_card_needs_device_cpu(tmp_path, rng, capsys, monkeypatch):
+    """The CLI runs on the card by default: with no card and no --device
+    cpu it exits with an error naming the flag instead of running on the
+    CPU; with --device cpu it runs the plain versions."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tr = _labelled_fasta(tmp_path / "tr.fasta", rng, 20)
+    te = _labelled_fasta(tmp_path / "te.fasta", rng, 8)
+    args = ["-g", "5", "-m", "2", "--json", "-q", tr, te]
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(args)
+    assert exc.value.code == 2
+    assert "--device cpu" in capsys.readouterr().err
+    assert tcli.build_parser().get_default("device") == "cuda"
+    assert tcli.main(["--device", "cpu", *args]) == 0
+    assert "auc" in json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_one_vs_one_c_svc_batches_each_pairs_folds(rng, monkeypatch):
+    """One-vs-one C-SVC with probabilities calls the kernel B wrapper twice
+    a pair (the pair's solve, then its five Platt folds as one batch);
+    nu-SVC keeps its sub-Gram folds."""
+    calls = []
+    real = tk.smo_solve
+
+    def spy(Q, y, C_vec, *args, **kwargs):
+        calls.append(tuple(C_vec.shape))
+        return real(Q, y, C_vec, *args, **kwargs)
+
+    monkeypatch.setattr(tk, "smo_solve", spy)
+    X, y = _multiclass(rng, 3)
+    K = _rbf(X, X)
+    tk.KernelSVC(C=1.0, probability=True, eps=EPS).fit(K, y)
+    m = 2 * 14  # rows of a pair
+    assert calls == [(m,), (5, m)] * 3
+    assert sum(c[0] if len(c) == 2 else 1 for c in calls) == 18
