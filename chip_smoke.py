@@ -9,12 +9,18 @@ raises and the exit code is non-zero:
 1. env    torch / CUDA / card / nvcc / triton facts; refuses to run
           without a CUDA device.
 2. build  compiles kernels A, H (csrc/pairs.cu), B, C (csrc/smo.cu) and
-          D, E, F, G (csrc/pairs_packed.cu) from the checkout, one nvcc per
-          source in parallel; prints the seconds.
-3. pairs  kernel A against its plain PyTorch version: a small seeded shape
-          (also against inline numpy counts), the full KAT2B shape
-          (g=8, m=4) and 7230 seeded length-200 DNA at g=16, m=10.
-          Integers must be equal.
+          D, E, F, G (csrc/pairs_packed.cu; A and D share csrc/hopper.cuh)
+          from the checkout, one nvcc per source in parallel; prints the
+          seconds.
+3. pairs  kernel A's two bodies (the int8 tensor-core one, with its
+          shared-table and prmt lookups, and the dp4a one) against the
+          plain PyTorch version: a small seeded shape (also against inline
+          numpy counts), the full KAT2B shape (g=8, m=4) and 7230 seeded
+          length-200 DNA at g=16, m=10, each body timed. Integers must be
+          equal. Then the KAT2B counts through kernel D's tensor-core body
+          (exact_engine="packed"), timed, equal to kernel A's; and both
+          bodies timed on seeded 1000 x 200 sets at g=8 over 16, 24 and 40
+          letters (one-hot depths 128, 192, 320 bytes), equal.
 4. smo    kernel B (one thread-block cluster a problem) against its plain
           twin on the KAT2B linear Gram (the main solve of phase 5): the
           same iteration count at the eps-KKT stop, bit-identical alpha and
@@ -25,7 +31,8 @@ raises and the exit code is non-zero:
           the twin on a 20,000-iteration prefix, bit for bit.
 5. slice  KAT2B g=8 m=4 C=1 through FastaUtility -> FastSK.compute_kernel
           (device_resident=True) -> fit -> score("auc"), with the launch
-          counters zeroed just before: kernel A launched, kernel B twice
+          counters zeroed just before: kernel A launched with its
+          tensor-core body once, kernel B twice
           for 6 problems (the main solve, then the 5 Platt folds in one
           batch), AUC 0.904993 to 6 decimals and |AUC - 0.903321| <= 0.005.
 6. golden tests/golden/ep_sl at g=6, m=2 with device_resident=False on the
@@ -52,23 +59,27 @@ raises and the exit code is non-zero:
           AUC within 0.005. Kernel B is then held to its twin, as in phase
           4, on that fit's training Gram: the main solve (C=0.01) and the
           first Platt fold.
-10. smo-nu  kernel C (Solver_NU, csrc/smo.cu) against its plain twin on
-          the nu-SVC solve (nu=0.5) of the KAT2B linear Gram (n=6318), both
-          capped at 20,000 iterations, and of the ragged slice's training
-          Gram (n=2051) to the eps stop: equal iterations, bit-identical
-          alpha and grad, each class's sum of alpha at nu*n/2.
+10. smo-nu  kernel C (Solver_NU, csrc/smo.cu, one thread-block cluster)
+          against its plain twin on the nu-SVC solve (nu=0.5) of the KAT2B
+          linear Gram (n=6318), both capped at 20,000 iterations, timed
+          also at clusters of 8 and 16 CTAs with the same bits, and of the
+          ragged slice's training Gram (n=2051) to the eps stop: equal
+          iterations, bit-identical alpha and grad, each class's sum of
+          alpha at nu*n/2.
 11. svm-family  KAT2B g=8 m=4, one compute_kernel (device_resident=True),
           then fit + score of nu_svc (AUC), one_class, epsilon_svr and
           nu_svr (r2 on the 0/1 test labels), the counters zeroed before
           each fit: nu_svc launches kernel C 6 times and B never, AUC >=
           0.85 and within 0.005 of the host path's; one_class and
-          epsilon_svr launch B once, nu_svr C once; the solvers' sums of
+          epsilon_svr launch B once, nu_svr C once (that launch timed with
+          CUDA events inside the fit); the solvers' sums of
           alpha hold; one_class leaves at most nu + 0.02 of the training
           rows outside; r2 > 0; every decision finite. Then kernels B and
           C against their twins on the epsilon-SVR and nu-SVR duals of that
-          Gram (2n = 12,636 rows: B's shared-memory path, C's global one),
-          with the fits' p vectors and starts, both capped at 3,000
-          iterations: equal iterations, bit-identical alpha and grad.
+          Gram (2n = 12,636 rows, both in shared memory), with the fits'
+          p vectors and starts, both capped at 3,000 iterations: equal
+          iterations, bit-identical alpha and grad (C also at clusters of
+          8 and 16, timed).
 12. multiclass  a seeded 4-class ragged set (one motif per class, planted
           once per 100 letters, 1,000 sequences, lengths 16-905, alphabet
           24, 80/20 split) through
@@ -105,7 +116,10 @@ raises and the exit code is non-zero:
           3 each, the counters zeroed before: every variant equal to its
           plain version (current and int32 to phase 3's plain counts) and
           the same checksum in every repetition; the chain cost of current
-          and int32 against skeleton.
+          and int32 against skeleton. Then the parts of kernel A's
+          tensor-core body at both shapes (experiments/probe_pairs.py
+          --body mma): whole, without the epilogue, without the wgmma
+          loop, loads only; the whole equal to phase 3's plain counts.
 
 The last three lines are the card's name and power limit (nvidia-smi),
 the per-kernel JSON record (every kernel's launches on its path, error
@@ -340,6 +354,72 @@ def smo_twin(shape: str, gram, labels, c_box, clusters=()) -> dict:
     require(all(same_by_cluster.values()), f"a cluster size changed kernel B's result ({shape}): {same_by_cluster}")
     require(it_k < max_iter, f"the SMO run hit max_iter before the eps stop ({shape})")
     return fields
+
+
+def kat2b_on_d(dev, Xtr, Xte, a_counts) -> dict:
+    """Part of phase 3: the KAT2B count matrix through the packed engine
+    (``exact_engine="packed"``) and kernel D's tensor-core body, warmed up
+    then timed: the yardstick kernel A's tensor-core body must beat.
+    Integer-equal to kernel A's counts."""
+    from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_tpu_torch.ops import pairs_packed_cuda
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    eng = PackedPairsEngine(
+        encode_sequences(Xtr, Xte), 8, 4, KernelConfig(device=dev, exact_engine="packed")
+    )
+    rows = eng.rows()
+    pairs_packed_cuda.packed_band(rows, k=4, n_out=eng.n)
+    before = dict(pairs_packed_cuda.packed_band.bodies)
+    got, ms = cuda_ms(pairs_packed_cuda.packed_band, rows, k=4, n_out=eng.n)
+    bodies = {b: pairs_packed_cuda.packed_band.bodies[b] - before[b] for b in before}
+    pos = torch.from_numpy(np.argsort(eng.order)).to(dev)
+    err = int((got[pos][:, pos] - a_counts.long()).abs().max())
+    fields = dict(
+        shape="KAT2B", g=8, m=4, depth=pairs_packed_cuda.onehot_depth(8, eng.alpha),
+        bodies=bodies, d_ms=ms, max_abs_err_vs_a=err,
+    )
+    emit("pairs-on-d", **fields)
+    require(bodies == {"mma": 1, "bytes": 0}, f"KAT2B did not take D's tensor-core body: {bodies}")
+    require(err == 0, "kernel D's KAT2B counts differ from kernel A's")
+    del eng, rows, got
+    torch.cuda.empty_cache()
+    return fields
+
+
+def pairs_body_sweep(dev, n: int = 1000, length: int = 200, alphas=(16, 24, 40)) -> dict:
+    """Part of phase 3: kernel A's two bodies on seeded sets of ``n``
+    sequences of ``length`` letters at g=8, m=4 over each of ``alphas``
+    letters (one-hot depths 128, 192 and 320 bytes; KAT2B and the g=16
+    set give 64), each warmed up then timed, integer-equal."""
+    from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.kernel.pairs_engine import PairsGkmEngine
+    from fastsk_tpu_torch.ops import pairs_cuda
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    sweep = {}
+    for alpha in alphas:
+        X = np.random.default_rng(300 + alpha).integers(1, alpha + 1, size=(n, length))
+        X[0, :alpha] = np.arange(1, alpha + 1)  # every letter
+        eng = PairsGkmEngine(encode_sequences(X.tolist()), 8, 4, KernelConfig(device=dev))
+        x = eng._build_x()
+        got, ms = {}, {}
+        for body in ("mma", "dp4a"):
+            pairs_cuda.pairs_counts(x, g=8, k=4, p_pad=eng.p_pad, body=body)
+            got[body], ms[body] = cuda_ms(pairs_cuda.pairs_counts, x, g=8, k=4, p_pad=eng.p_pad, body=body)
+        sweep[alpha] = dict(
+            depth=pairs_cuda.mma_depth(x.shape[1]), alpha=eng.alpha,
+            default=pairs_cuda.pairs_body(8, eng.alpha), mma_ms=ms["mma"], dp4a_ms=ms["dp4a"],
+            tile_mma=pairs_cuda.mma_tile_sequences(eng.n_pad, eng.p_pad, pairs_cuda.mma_depth(x.shape[1])),
+            equal=bool(torch.equal(got["mma"], got["dp4a"])),
+        )
+        del eng, x, got
+    emit("a-bodies", g=8, m=4, n=n, length=length, sweep=sweep)
+    require(all(v["equal"] for v in sweep.values()), f"kernel A's bodies disagree: {sweep}")
+    require(all(v["alpha"] == a for a, v in sweep.items()), "a sweep set lost a letter")
+    torch.cuda.empty_cache()
+    return sweep
 
 
 def platt_folds_phase(gram, labels, folds: int = 5, twin_iters: int = 20_000) -> dict:
@@ -686,12 +766,13 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
     return packed_rec, smo_219, rfsk
 
 
-def smo_nu_twin(shape: str, gram, labels, nu: float, max_iter: int) -> dict:
+def smo_nu_twin(shape: str, gram, labels, nu: float, max_iter: int, clusters=()) -> dict:
     """Kernel C against its plain twin on the nu-SVC solve of ``gram`` that
     NuSVC.fit makes (LIBSVM's start, eps=1e-3), both capped at
     ``max_iter``: the same iteration count, bit-identical alpha and grad,
-    and each class's sum of alpha still nu*n/2. Emits an "smo-nu" line
-    and returns its fields."""
+    and each class's sum of alpha still nu*n/2. Each of ``clusters`` (CTAs
+    a problem) is timed too and must give the same bits. Emits an
+    "smo-nu" line and returns its fields."""
     from fastsk_tpu_torch.svm import smo_cuda
     from fastsk_tpu_torch.svm.kernel_svm import nu_svc_start
 
@@ -710,17 +791,25 @@ def smo_nu_twin(shape: str, gram, labels, nu: float, max_iter: int) -> dict:
     )
     dalpha = float((a_k - a_p).abs().max())
     dgrad = float((g_k - g_p).abs().max())
+    ms_by_cluster, same_by_cluster = by_cluster(
+        smo_cuda.smo_nu_solve, (Q, y, C, p, a0, 1e-3, max_iter), (a_k, g_k, it_k), clusters
+    )
     target = nu * n / 2.0
     sums = [float(a_k[y == c].double().sum()) for c in (1.0, -1.0)]
+    cluster = smo_cuda.smo_cluster_size()
     fields = dict(
         shape=shape, n=n, nu=nu, max_iter=max_iter, kernel_ms=ms,
         plain_ms=plain_ms, iters_kernel=it_k, iters_plain=it_p,
+        us_per_iter=ms * 1e3 / max(it_k, 1), cluster_size=cluster,
+        smem_path=smo_cuda.smo_smem_path(n, cluster, "C"),
         reached_eps=it_k < max_iter, max_abs_dalpha=dalpha,
         max_abs_dgrad=dgrad, class_sums=sums, class_sum_target=target,
+        ms_by_cluster=ms_by_cluster, bit_identical_by_cluster=same_by_cluster,
     )
     emit("smo-nu", **fields)
     require(it_k == it_p, f"kernel C stopped at {it_k} iterations, its twin at {it_p} ({shape})")
     require(dalpha == 0.0 and dgrad == 0.0, f"kernel C left its twin's trajectory ({shape})")
+    require(all(same_by_cluster.values()), f"a cluster size changed kernel C's result ({shape}): {same_by_cluster}")
     require(
         all(abs(v - target) <= 1e-3 * target for v in sums),
         f"kernel C did not conserve the class sums {sums} (target {target}, {shape})",
@@ -728,15 +817,25 @@ def smo_nu_twin(shape: str, gram, labels, nu: float, max_iter: int) -> dict:
     return fields
 
 
-def svr_twins(gram, targets, max_iter: int) -> dict:
+def by_cluster(solve, args, ref, clusters):
+    """({cluster: ms}, {cluster: bit-identical to ``ref``}) of ``solve(*args,
+    cluster=cs)`` for each of ``clusters``."""
+    ms_by, same_by = {}, {}
+    a_r, g_r, it_r = ref
+    for cs in clusters:
+        (a_c, g_c, it_c), ms_by[cs] = cuda_ms(solve, *args, cluster=cs)
+        same_by[cs] = it_c == it_r and torch.equal(a_c, a_r) and torch.equal(g_c, g_r)
+    return ms_by, same_by
+
+
+def svr_twins(gram, targets, max_iter: int, clusters=(8, 16)) -> dict:
     """Kernels B and C against their twins on the 2n-row SVR duals of
     ``gram`` as EpsilonSVR.fit (C=1, epsilon=0.1, zero start) and
     NuSVR.fit (C=1, nu=0.5, LIBSVM's start) assemble them, p vectors
-    included, both capped at ``max_iter``. Past 10,240 rows this is kernel
-    C's global-memory path; kernel B keeps its slices in shared memory.
-    Equal iterations and bit-identical alpha
-    and grad. Emits an "svr-twin" line per solver and returns
-    {svm_type: fields}."""
+    included, both capped at ``max_iter``; both keep their slices in
+    shared memory. Equal iterations and bit-identical alpha and grad, also
+    for kernel C at each of ``clusters`` (timed). Emits an "svr-twin" line
+    per solver and returns {svm_type: fields}."""
     from fastsk_tpu_torch.svm import smo_cuda
     from fastsk_tpu_torch.svm.kernel_svm import EpsilonSVR, nu_svr_start, svr_dual
 
@@ -757,13 +856,20 @@ def svr_twins(gram, targets, max_iter: int) -> dict:
         (a_k, g_k, it_k), ms = cuda_ms(solve, Q2, y2, C2, p, a0, 1e-3, max_iter)
         grad0, qd = smo_cuda.initial_state(Q2, p, a0)
         (a_p, g_p, it_p), plain_ms = cuda_ms(plain, Q2, y2, C2, qd, a0, grad0, 1e-3, max_iter)
+        ms_by, same_by = by_cluster(
+            solve, (Q2, y2, C2, p, a0, 1e-3, max_iter), (a_k, g_k, it_k),
+            clusters if svm_type == "nu_svr" else (),
+        )
         fields = dict(
             svm_type=svm_type, rows=2 * n, max_iter=max_iter, kernel_ms=ms,
             plain_ms=plain_ms, iters_kernel=it_k, iters_plain=it_p,
+            us_per_iter=ms * 1e3 / max(it_k, 1),
             max_abs_dalpha=float((a_k - a_p).abs().max()),
             max_abs_dgrad=float((g_k - g_p).abs().max()),
+            ms_by_cluster=ms_by, bit_identical_by_cluster=same_by,
         )
         emit("svr-twin", **fields)
+        require(all(same_by.values()), f"{svm_type}: a cluster size changed the result: {same_by}")
         require(it_k == it_p, f"{svm_type}: the kernel stopped at {it_k} iterations, its twin at {it_p}")
         require(fields["max_abs_dalpha"] == 0.0 and fields["max_abs_dgrad"] == 0.0,
                 f"{svm_type}: the kernel left its twin's trajectory on the 2n dual")
@@ -788,9 +894,17 @@ def svm_family_phase(dev, Xtr, Xte, Ytr, Yte, svr_twin_iters: int = 3000):
     duals of the same Gram for ``svr_twin_iters`` iterations. Returns
     ({svm_type: fields}, svr_twins' result)."""
     from fastsk_tpu_torch import FastSK, KernelConfig
-    from fastsk_tpu_torch.svm import smo_cuda
+    from fastsk_tpu_torch.svm import kernel_svm, smo_cuda
 
     counters = (smo_cuda.smo_solve, smo_cuda.smo_nu_solve)
+    real_nu, c_solves = kernel_svm.smo_nu_solve, []
+
+    def timed_nu(*args, **kwargs):  # kernel C's launches in a fit, timed
+        out, ms = cuda_ms(real_nu, *args, **kwargs)
+        c_solves.append(dict(ms=ms, iters=out[2], rows=args[0].shape[0],
+                             us_per_iter=ms * 1e3 / max(out[2], 1)))
+        return out
+
     fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
     _, kernel_s = wall(fsk.compute_kernel, Xtr, Xte, Ytr, Yte)
     rows_tr = fsk._rows()[0]
@@ -806,7 +920,12 @@ def svm_family_phase(dev, Xtr, Xte, Ytr, Yte, svr_twin_iters: int = 3000):
         for c in counters:
             c.launches = 0
         smo_cuda.smo_solve.problems = 0
-        _, fit_s = wall(fsk.fit, svm_type=svm_type, **kw)
+        c_solves.clear()
+        kernel_svm.smo_nu_solve = timed_nu if svm_type == "nu_svr" else real_nu
+        try:
+            _, fit_s = wall(fsk.fit, svm_type=svm_type, **kw)
+        finally:
+            kernel_svm.smo_nu_solve = real_nu
         score, score_s = wall(fsk.score, metric)
         launches = {c.__name__: c.launches for c in counters}
         problems = smo_cuda.smo_solve.problems
@@ -820,6 +939,8 @@ def svm_family_phase(dev, Xtr, Xte, Ytr, Yte, svr_twin_iters: int = 3000):
             launches=launches, smo_problems=problems,
             decisions_finite=bool(np.isfinite(dec_test).all() and np.isfinite(dec_train).all()),
         )
+        if svm_type == "nu_svr":
+            fields["kernel_c_solve"] = c_solves[0]
         if svm_type == "nu_svc":
             hfsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=False))
             hfsk.compute_kernel(Xtr, Xte, Ytr, Yte)
@@ -1167,11 +1288,11 @@ def probe_phase(cases: dict, reps: int = 3) -> dict:
     (x, g, k, p_pad, plain counts, windows, width)}), the counter zeroed
     before. Returns {"launches": n, "shapes": {shape: run_probe's
     result}}, each variant with its bound."""
-    from fastsk_tpu_torch.experiments.probe_pairs import run_probe
+    from fastsk_tpu_torch.experiments.probe_pairs import run_mma_parts, run_probe
     from fastsk_tpu_torch.ops import pairs_cuda
 
     pairs_cuda.pairs_probe.launches = 0
-    out = {}
+    out, parts = {}, {}
     for shape, (x, g, k, p_pad, plain, windows, width) in cases.items():
         res = run_probe(x, g=g, k=k, p_pad=p_pad, reps=reps, counts_plain=plain)
         out_bytes = (x.shape[0] // p_pad) ** 2 * 4
@@ -1187,7 +1308,15 @@ def probe_phase(cases: dict, reps: int = 3) -> dict:
         out[shape] = res
     launches = pairs_cuda.pairs_probe.launches
     require(launches == reps * 5 * len(cases), f"kernel H launched {launches} times")
-    return {"launches": launches, "shapes": out}
+    # the parts of kernel A's tensor-core body (not kernel H: uncounted)
+    for shape, (x, g, k, p_pad, plain, _, _) in cases.items():
+        parts[shape] = run_mma_parts(x, g=g, k=k, p_pad=p_pad, reps=reps, counts_plain=plain)
+        emit("probe-mma", shape=shape, g=g, m=g - k, reps=reps, parts=parts[shape])
+        require(parts[shape]["current"]["max_abs_err"] == 0,
+                f"kernel A's tensor-core body differs from its plain version on {shape}")
+    return {"launches": launches, "shapes": out,
+            "mma_parts": {shape: p["split"] | {"current_ms": p["current"]["best_ms"]}
+                          for shape, p in parts.items()}}
 
 
 def main() -> None:
@@ -1237,13 +1366,15 @@ def main() -> None:
     X = [rng.integers(1, 5, size=int(rng.integers(12, 30))).tolist() for _ in range(13)]
     eng = PairsGkmEngine(encode_sequences(X), 6, 2, KernelConfig(device=dev))
     x = eng._build_x()
-    got = pairs_cuda.pairs_counts(x, g=6, k=4, p_pad=eng.p_pad)[:13, :13]
     want = pairs.pairs_counts_plain(x, k=4, p_pad=eng.p_pad)[:13, :13]
-    small_ok = torch.equal(got, want) and np.array_equal(
-        got.cpu().numpy(), numpy_counts(X, 6, 4)
-    )
+    small_ok = {}
+    for body, lookup in (("mma", "table"), ("mma", "prmt"), ("dp4a", None)):
+        got = pairs_cuda.pairs_counts(x, g=6, k=4, p_pad=eng.p_pad, body=body, lookup=lookup)[:13, :13]
+        small_ok[f"{body}-{lookup}" if lookup else body] = torch.equal(got, want) and np.array_equal(
+            got.cpu().numpy(), numpy_counts(X, 6, 4)
+        )
     emit("pairs", shape="seeded 13 x <=30, g=6 m=2", equal=small_ok)
-    require(small_ok, "kernel A differs from its plain version on the small shape")
+    require(all(small_ok.values()), f"kernel A differs from its plain version on the small shape: {small_ok}")
 
     reader = FastaUtility()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
@@ -1260,28 +1391,44 @@ def main() -> None:
         eng = PairsGkmEngine(encode_sequences(*seqs), g, m, KernelConfig(device=dev))
         x = eng._build_x()
         kw = dict(g=g, k=g - m, p_pad=eng.p_pad)
-        pairs_cuda.pairs_counts(x, **kw)  # warm-up launch
-        got, ms = cuda_ms(pairs_cuda.pairs_counts, x, **kw)
         want, plain_ms = cuda_ms(pairs.pairs_counts_plain, x, k=g - m, p_pad=eng.p_pad)
-        err = int((got.long() - want.long()).abs().max())
+        # each body (the tensor-core one with both lookups where prmt
+        # applies), warmed up, then timed; every one held to the plain counts
+        runs = [("mma", "table"), ("dp4a", None)]
+        if pairs_cuda.prmt_table(g, g - m):
+            runs.insert(0, ("mma", "prmt"))
+        ms_by, err_by = {}, {}
+        for body, lookup in runs:
+            pairs_cuda.pairs_counts(x, **kw, body=body, lookup=lookup)
+            got, ms_by[f"{body}-{lookup}" if lookup else body] = cuda_ms(
+                pairs_cuda.pairs_counts, x, **kw, body=body, lookup=lookup
+            )
+            err_by[f"{body}-{lookup}" if lookup else body] = int((got.long() - want.long()).abs().max())
+            if name == "KAT2B" and body == "mma":
+                kat2b_counts = got[: eng.n, : eng.n].clone()
+            del got
+        default_key = "mma-" + (pairs_cuda.MMA_LOOKUP if pairs_cuda.prmt_table(g, g - m) else "table")
+        depth = pairs_cuda.mma_depth(x.shape[1])
         emit(
-            "pairs", shape=name, n=eng.n, p_pad=eng.p_pad, width=x.shape[1],
-            tile=pairs_cuda.tile_sequences(eng.n_pad, eng.p_pad, pairs_cuda.padded_width(x.shape[1])),
-            kernel_ms=ms, plain_ms=plain_ms, max_abs_err=err,
-            checksum=int(got.long().sum()),
+            "pairs", shape=name, n=eng.n, p_pad=eng.p_pad, width=x.shape[1], depth_mma=depth,
+            body=pairs_cuda.pairs_body(g, eng.alpha), default=default_key,
+            tile_dp4a=pairs_cuda.tile_sequences(eng.n_pad, eng.p_pad, pairs_cuda.padded_width(x.shape[1])),
+            tile_mma=pairs_cuda.mma_tile_sequences(eng.n_pad, eng.p_pad, depth),
+            kernel_ms=ms_by, plain_ms=plain_ms, max_abs_err=err_by,
+            checksum=int(want.long().sum()),
         )
-        require(err == 0, f"kernel A differs from its plain version on {name}")
+        require(all(e == 0 for e in err_by.values()), f"kernel A differs from its plain version on {name}: {err_by}")
         windows = windows_of([s for part in seqs if part for s in part], g)
         width = g * eng.alpha
         pairs_times[name] = (
-            ms, plain_ms, err,
-            count_bound(windows, width, x.numel() + eng.n_pad**2 * 4),
+            ms_by[default_key], plain_ms, max(err_by.values()),
+            count_bound(windows, width, x.numel() + eng.n_pad**2 * 4), ms_by,
         )
         probe_cases[name] = (x, g, g - m, eng.p_pad, want, windows, width)
-        if name == "KAT2B":
-            kat2b_counts = got[: eng.n, : eng.n].clone()
-        del x, got, want
+        del x, want
     torch.cuda.empty_cache()
+    d_kat2b = kat2b_on_d(dev, Xtr, Xte, kat2b_counts)
+    a_sweep = pairs_body_sweep(dev)
 
     # --------------------------------------------------- kernel B vs twin
     ntr = len(Xtr)
@@ -1296,6 +1443,7 @@ def main() -> None:
 
     # --------------------------------------------------------- main path
     pairs_cuda.pairs_counts.launches = 0
+    pairs_cuda.pairs_counts.bodies = {"mma": 0, "dp4a": 0}
     smo_cuda.smo_solve.launches = 0
     smo_cuda.smo_solve.problems = 0
     fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
@@ -1307,6 +1455,7 @@ def main() -> None:
         "smo_solve": smo_cuda.smo_solve.launches,
     }
     smo_problems = smo_cuda.smo_solve.problems
+    a_bodies = dict(pairs_cuda.pairs_counts.bodies)
     k_dev = fsk._K_dev
     dec = fsk._model.decision_function(fsk._test_gram())
     outputs_ok = (
@@ -1321,10 +1470,11 @@ def main() -> None:
         n_test=len(Xte), kernel_s=kernel_s, fit_s=fit_s, score_s=score_s,
         auc=auc, auc_anchor=AUC_ANCHOR, auc_diff=auc - AUC_ANCHOR,
         svm_iters=fsk._model.iters_, launches=launches, smo_problems=smo_problems,
-        outputs_ok=outputs_ok,
+        a_bodies=a_bodies, outputs_ok=outputs_ok,
     )
     require(outputs_ok, "the slice's kernel or decision values are malformed")
     require(launches["pairs_counts"] > 0, f"kernel A did not launch: {launches}")
+    require(a_bodies == {"mma": 1, "dp4a": 0}, f"KAT2B did not take kernel A's tensor-core body once: {a_bodies}")
     require(
         launches["smo_solve"] == 2 and smo_problems == 6,
         f"the C-SVC fit took {launches['smo_solve']} launches of kernel B for "
@@ -1347,7 +1497,7 @@ def main() -> None:
     packed_rec, smo_219, rfsk = packed_phases(dev)
 
     # ------------------------------------------------ kernel C vs its twin
-    nu_kat2b = smo_nu_twin("KAT2B nu-SVC main solve", gram, Ytr, 0.5, 20_000)
+    nu_kat2b = smo_nu_twin("KAT2B nu-SVC main solve", gram, Ytr, 0.5, 20_000, clusters=(8, 16))
     del gram
     rows_219 = rfsk._rows()[0]
     gram_219 = rfsk._build_gram(rows_219, rows_219, "linear")
@@ -1381,9 +1531,13 @@ def main() -> None:
                 "max_abs_err": pairs_times["KAT2B"][2],
                 "ms": pairs_times["KAT2B"][0], "plain_ms": pairs_times["KAT2B"][1],
                 **pairs_times["KAT2B"][3], "library_ms": None,
+                "bodies": a_bodies, "ms_by_body": pairs_times["KAT2B"][4],
                 "ms_g16": pairs_times["dna7230x200"][0],
+                "ms_by_body_g16": pairs_times["dna7230x200"][4],
                 "plain_ms_g16": pairs_times["dna7230x200"][1],
                 "bound_ms_g16": pairs_times["dna7230x200"][3]["bound_ms"],
+                "d_ms_kat2b": d_kat2b["d_ms"], "body_sweep": a_sweep,
+                "mma_parts": probe["mma_parts"],
             },
             {
                 "name": "smo_solve", "route": "cuda",
@@ -1410,18 +1564,35 @@ def main() -> None:
             },
             *packed_rec,
             {
+                # the top-level numbers are the nu-SVR fit's one launch at
+                # 2n = 12,636 rows (its twin, and so max_abs_err and
+                # plain_ms, on a 3,000-iteration prefix of the same dual)
                 "name": "smo_nu_solve", "route": "cuda",
                 "source": "fastsk_tpu_torch/csrc/smo.cu",
                 "replaces": "fastsk_tpu/svm/smo_pallas.py:254",
-                "launches": family["nu_svc"]["launches"]["smo_nu_solve"],
-                "max_abs_err": nu_kat2b["max_abs_dalpha"],
-                "ms": nu_kat2b["kernel_ms"], "plain_ms": nu_kat2b["plain_ms"],
-                "iters": nu_kat2b["iters_kernel"],
+                "launches": family["nu_svr"]["launches"]["smo_nu_solve"],
+                "max_abs_err": svr["nu_svr"]["max_abs_dalpha"],
+                "ms": family["nu_svr"]["kernel_c_solve"]["ms"],
+                "plain_ms": svr["nu_svr"]["plain_ms"],
+                "plain_iters": svr["nu_svr"]["iters_plain"],
+                "iters": family["nu_svr"]["kernel_c_solve"]["iters"],
+                "us_per_iter": family["nu_svr"]["kernel_c_solve"]["us_per_iter"],
+                "rows": family["nu_svr"]["kernel_c_solve"]["rows"],
+                "nu_svr_fit_s": family["nu_svr"]["fit_s"],
+                "cluster_size": smo_cuda.smo_cluster_size(),
+                "prefix_ms_by_cluster": svr["nu_svr"]["ms_by_cluster"],
+                **smo_bound(family["nu_svr"]["kernel_c_solve"]["rows"],
+                            family["nu_svr"]["kernel_c_solve"]["iters"]),
+                "library_ms": None,
+                "nu_svc_launches": family["nu_svc"]["launches"]["smo_nu_solve"],
+                "max_abs_err_kat2b": nu_kat2b["max_abs_dalpha"],
+                "ms_kat2b": nu_kat2b["kernel_ms"], "plain_ms_kat2b": nu_kat2b["plain_ms"],
+                "iters_kat2b": nu_kat2b["iters_kernel"], "us_per_iter_kat2b": nu_kat2b["us_per_iter"],
+                "ms_by_cluster_kat2b": nu_kat2b["ms_by_cluster"],
+                "bound_ms_kat2b": smo_bound(nu_kat2b["n"], nu_kat2b["iters_kernel"])["bound_ms"],
                 "max_abs_err_2_19": nu_219["max_abs_dalpha"],
                 "ms_2_19": nu_219["kernel_ms"], "plain_ms_2_19": nu_219["plain_ms"],
                 "iters_2_19": nu_219["iters_kernel"],
-                **svr_record(svr["nu_svr"]),
-                **smo_bound(nu_kat2b["n"], nu_kat2b["iters_kernel"]), "library_ms": None,
             },
             {
                 "name": "packed_s1", "route": "cuda",

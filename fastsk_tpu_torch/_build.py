@@ -120,11 +120,16 @@ def kernels() -> ctypes.CDLL:
         lib.pairs_counts_launch.restype = ci
         lib.pairs_probe_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.pairs_probe_launch.restype = ci
+        cu = ctypes.c_uint
+        lib.pairs_mma_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, cu, cu, vp]
+        lib.pairs_mma_launch.restype = ci
         lib.smo_solve_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, cf, ci, ci, vp
         ]
-        lib.smo_nu_solve_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, cf, ci, vp]
-        lib.smo_solve_smem.argtypes = [ci, ci]
+        lib.smo_nu_solve_launch.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, cf, ci, ci, vp
+        ]
+        lib.smo_solve_smem.argtypes = [ci, ci, ci]
         for fn in (lib.smo_solve_launch, lib.smo_nu_solve_launch, lib.smo_solve_smem):
             fn.restype = ci
         ll = ctypes.c_longlong

@@ -27,7 +27,8 @@
 //     the VPU exact; integers make that unnecessary);
 //   - sums are int32: every per-pair total is < p_pad^2 * C(g, k) < 2^31,
 //     which the engine guards.
-// int8 tensor-core products (mma / wgmma) are later work.
+// That is the `__dp4a` body (pairs_kernel). Kernel A's default body,
+// pairs_mma_kernel below, counts the matches on the int8 tensor cores.
 //
 // Kernel H: variants of kernel A's body that attribute its cost (replace
 // experiments/probe_pairs.py:make_kernel, keeping its variant names). Each
@@ -46,7 +47,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace fastsk_hopper;
 
 constexpr int kThreads = 256;
 
@@ -181,6 +186,259 @@ cudaError_t launch_probe(const uint32_t* x, int32_t* out, int n_pad,
   }
 }
 
+// ------------------------------------------------------- A, tensor cores
+//
+// pairs_mma_kernel: the same count matrix with the match counts as the
+// int8 tensor-core product M = X_i X_j^T of the one-hot window rows (the
+// wrapper pads their depth g * alpha with zero bytes to a multiple of 64;
+// zero bytes add no matches), by wgmma m64n64k32 s8 -> s32. What bounds
+// it, and the design:
+//   - the time is shared by the product (64 bytes a row at KAT2B: about
+//     59 ms at the card's int8 peak), the epilogue (one C(M, k) and one
+//     add a window pair, ~1e12 pairs at KAT2B) and the tile loads;
+//     experiments/probe_pairs.py --body mma times each part. C(M, k) is
+//     a lookup in a 32-entry shared table (one LDS a pair, conflict-free: a bank per
+//     entry) or, where every C(M, k) < 128 (g <= 8, k >= 2), a byte of two
+//     registers picked by one prmt with selector M - 1 (M = 0 gives the
+//     selector 0xffffffff: byte 7 sign-replicated, and C(8, k) < 128 makes
+//     it 0; for M >= 1 the upper result bytes copy C(1, k) = 0);
+//   - a block owns a pair of sequence tiles (bi <= bj, a 1-D triangular
+//     grid) and writes both K[i, j] and K[j, i] from s x s shared bins, so
+//     every entry is written once with no atomics across blocks;
+//   - A's rows are one-hot already, so tiles arrive by 16-byte cp.async
+//     straight into wgmma's K-major core-matrix layout, in core-matrix
+//     order (contiguous in shared memory; a warp reads 8 whole rows at a
+//     depth of 64): tile bj stays resident, tile bi streams in 128-row
+//     chunks, double buffered; rows past the tile are zero-filled;
+//   - each warpgroup multiplies its 64 rows of the i chunk by every
+//     128-row j chunk, as two 64-column halves in a pipeline: one half's
+//     wgmma runs while the warp looks up the other's counts. ptxas
+//     serializes the wgmmas (C7515, C7518) where a non-wgmma instruction
+//     writes an accumulator or a divergent path runs while one is in
+//     flight, so the accumulators are never zeroed (each half's first
+//     k-step overwrites them) and, for sequences of 64 windows or more
+//     (a half then spans at most two sequences), the epilogue has no
+//     branch: each lookup goes to one of two sums by a select, flushed
+//     once a half (a redux.sync each, a shared atomic by lane 0);
+//     shorter sequences take a run per column sequence. p_pad % 8 == 0,
+//     so an 8-row group, and an 8-column group of the fragment, lies in
+//     one sequence. Rows and columns past the tile are zero-filled, so
+//     they weigh C(0, k) = 0 and need no test;
+//   - two blocks an SM where the resident tile allows (the wrapper sizes
+//     it), so one block's loads overlap the other's work.
+// kVariant 0 is the kernel; the others time its parts (the result is then
+// not the count matrix): 1 skips the epilogue, 2 the wgmma loop (its
+// counts replaced by opaque zeros, so every lookup still runs), 3 both
+// (loads, barriers and writes only).
+
+constexpr int kMmaThreads = 256;  // 2 warpgroups: 64 i rows x 128 j rows each
+constexpr int kChunk = 128;       // window rows of a chunk
+constexpr unsigned kFullMask = 0xffffffffu;
+
+enum Lookup : int { kTable = 0, kPrmt = 1 };
+
+size_t mma_smem_bytes(int chunks, int depth, int s) {
+  return (static_cast<size_t>(chunks) + 2) * kChunk * depth +
+         (static_cast<size_t>(s) * s + 32) * sizeof(int32_t);
+}
+
+template <int kLookup>
+__device__ __forceinline__ int c_of(int m, const int32_t* tbl, uint32_t tlo,
+                                    uint32_t thi) {
+  if constexpr (kLookup == kPrmt) {
+    uint32_t r;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(tlo), "r"(thi), "r"(m - 1));
+    return static_cast<int>(r);
+  } else {
+    return tbl[m];
+  }
+}
+
+template <int kLookup, int kVariant>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
+                 int n_pad, int p_pad, int s, int k, int depth, uint32_t tlo,
+                 uint32_t thi) {
+  extern __shared__ __align__(128) uint4 smem_raw[];
+  const int64_t nt = n_pad / s;
+  const int64_t bi = row_tile_of(blockIdx.x, nt);
+  const int64_t bj = bi + (static_cast<int64_t>(blockIdx.x) - pairs_before(bi, nt));
+  const int T = s * p_pad;  // window rows of a tile
+  const int nc = (T + kChunk - 1) / kChunk;
+  const int chunk_bytes = kChunk * depth;
+  uint8_t* sj = reinterpret_cast<uint8_t*>(smem_raw);  // tile bj: [nc] chunks
+  uint8_t* sa = sj + nc * chunk_bytes;                 // tile bi: [2] chunks
+  int32_t* bins = reinterpret_cast<int32_t*>(sa + 2 * chunk_bytes);  // [s, s]
+  int32_t* tbl = bins + s * s;                                       // [32]
+  const int tid = threadIdx.x;
+
+  // chunk c of a tile into dst in core-matrix order (dst + 16 q is
+  // onehot_at(r, 16 pc)); rows past the tile are zero
+  const int pieces = depth >> 4;
+  auto load_chunk = [&](uint8_t* dst, int64_t tile, int c) {
+    for (int q = tid; q < kChunk * pieces; q += kMmaThreads) {
+      const int grp = q / (8 * pieces), rem = q - grp * 8 * pieces;
+      const int r = grp * 8 + (rem & 7);
+      const int tr = c * kChunk + r;
+      const bool ok = tr < T;
+      const uint8_t* src =
+          x + (tile * T + (ok ? tr : 0)) * static_cast<int64_t>(depth) + (rem >> 3) * 16;
+      cp_async16_zfill(dst + q * 16, src, ok ? 16 : 0);
+    }
+  };
+  for (int c = 0; c < nc; ++c) load_chunk(sj + c * chunk_bytes, bj, c);
+  load_chunk(sa, bi, 0);
+  cp_async_commit();
+  if (tid < 32) {  // C(tid, k) exactly
+    int64_t c = tid >= k ? 1 : 0;
+    for (int j = 0; j < k && c; ++j) c = c * (tid - j) / (j + 1);
+    tbl[tid] = static_cast<int32_t>(c);
+  }
+  for (int q = tid; q < s * s; q += kMmaThreads) bins[q] = 0;
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  // this warp's fragment rows: lane's gid in the 8-row groups at
+  // wrow and wrow + 8 of the warpgroup's 64 rows of the chunk
+  const int wrow = 64 * wg + 16 * (warp & 3);
+  for (int ci = 0; ci < nc; ++ci) {
+    if (ci + 1 < nc) {
+      load_chunk(sa + ((ci + 1) & 1) * chunk_bytes, bi, ci + 1);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // the warp's two 8-row groups (each in one sequence: p_pad % 8 == 0);
+    // rows past the tile are zero, their bins clamped into the tile
+    const int ir = ci * kChunk + wrow;
+    const int si0 = min(ir / p_pad, s - 1), si1 = min((ir + 8) / p_pad, s - 1);
+    const uint8_t* a_rows = sa + (ci & 1) * chunk_bytes + wg * 64 * depth;
+    // a warpgroup whose 64 rows all lie past the tile has nothing to add
+    const bool live = ci * kChunk + 64 * wg < T;
+    // each j chunk's 128 columns as two 64-column halves h, in a
+    // pipeline: half h + 1's wgmma is in flight while half h's epilogue
+    // runs, so every warp overlaps its products with its lookups
+    int acc[2][32];
+    auto start_half = [&](int* d, int cj, int h) {
+      if constexpr (kVariant == 0 || kVariant == 1) {
+        const uint8_t* b_rows = sj + cj * chunk_bytes + h * 64 * depth;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        for (int kk = 0; kk < depth; kk += 32) {  // two core matrices along K
+          wgmma_s8_n64(d, smem_desc(a_rows + kk * 8, 128, depth * 8),
+                       smem_desc(b_rows + kk * 8, 128, depth * 8), kk > 0);
+        }
+        wgmma_commit();
+      } else {
+#pragma unroll
+        for (int v = 0; v < 32; ++v) asm volatile("mov.b32 %0, 0;" : "=r"(d[v]));
+      }
+    };
+    // element v of a half's fragment: row wrow + gid + 8 * ((v >> 1) & 1),
+    // column 8 * (v >> 2) + 2 * tig + (v & 1) of the half's 64
+    auto epilogue = [&](const int* d, int cbase) {
+      if constexpr (kVariant == 1 || kVariant == 3) {  // keep the products live
+        int f = 0;
+#pragma unroll
+        for (int v = 0; v < 32; ++v) f ^= d[v];
+        if (f == 0x7fffffff) atomicAdd(&bins[0], 1);
+      } else if (p_pad >= 64) {
+        // a half's 64 columns span at most two sequences: sums a (the
+        // first) and b, selected without a branch, flushed once each, so
+        // no divergent path runs while the other half's wgmma is in
+        // flight. Rows and columns past the tile are zero (their counts
+        // 0 weigh 0); their bins are clamped into the tile.
+        const int sq = cbase / p_pad;
+        const int edge = (sq + 1) * p_pad;  // the second sequence's first column
+        int a0 = 0, a1 = 0, b0 = 0, b1 = 0;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const bool first = cbase + 8 * c < edge;
+          const int w0 = c_of<kLookup>(d[4 * c], tbl, tlo, thi) +
+                         c_of<kLookup>(d[4 * c + 1], tbl, tlo, thi);
+          const int w1 = c_of<kLookup>(d[4 * c + 2], tbl, tlo, thi) +
+                         c_of<kLookup>(d[4 * c + 3], tbl, tlo, thi);
+          a0 += first ? w0 : 0;
+          b0 += first ? 0 : w0;
+          a1 += first ? w1 : 0;
+          b1 += first ? 0 : w1;
+        }
+        const int sa_ = min(sq, s - 1), sb_ = min(sq + 1, s - 1);
+        const int t0 = __reduce_add_sync(kFullMask, a0);
+        const int t1 = __reduce_add_sync(kFullMask, a1);
+        const int t2 = __reduce_add_sync(kFullMask, b0);
+        const int t3 = __reduce_add_sync(kFullMask, b1);
+        if (lane == 0) {
+          atomicAdd(&bins[si0 * s + sa_], t0);
+          atomicAdd(&bins[si1 * s + sa_], t1);
+          atomicAdd(&bins[si0 * s + sb_], t2);
+          atomicAdd(&bins[si1 * s + sb_], t3);
+        }
+      } else {  // short sequences: a run per column sequence
+        int sq = cbase / p_pad;        // the column sequence of the run
+        int next = (sq + 1) * p_pad;   // its end
+        int run0 = 0, run1 = 0;
+        auto flush = [&]() {
+          const int t0 = __reduce_add_sync(kFullMask, run0);
+          const int t1 = __reduce_add_sync(kFullMask, run1);
+          if (lane == 0) {
+            atomicAdd(&bins[si0 * s + min(sq, s - 1)], t0);
+            atomicAdd(&bins[si1 * s + min(sq, s - 1)], t1);
+          }
+        };
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int jc = cbase + 8 * c;
+          if (jc >= next) {  // a new column sequence (p_pad >= 8)
+            flush();
+            ++sq;
+            next += p_pad;
+            run0 = run1 = 0;
+          }
+          run0 += c_of<kLookup>(d[4 * c], tbl, tlo, thi) +
+                  c_of<kLookup>(d[4 * c + 1], tbl, tlo, thi);
+          run1 += c_of<kLookup>(d[4 * c + 2], tbl, tlo, thi) +
+                  c_of<kLookup>(d[4 * c + 3], tbl, tlo, thi);
+        }
+        flush();
+      }
+    };
+    if (live) {
+      start_half(acc[0], 0, 0);
+      for (int cj = 0; cj < nc; ++cj) {
+        start_half(acc[1], cj, 1);
+        wgmma_wait<1>();  // half 0 of chunk cj landed
+        epilogue(acc[0], cj * kChunk);
+        // the next chunk's half 0 (the last chunk's again at the end, so
+        // that no branch runs while half 1 is in flight; discarded)
+        start_half(acc[0], min(cj + 1, nc - 1), 0);
+        wgmma_wait<1>();  // half 1 of chunk cj landed
+        epilogue(acc[1], cj * kChunk + 64);
+      }
+      wgmma_wait<0>();
+    }
+    __syncthreads();  // the chunk's buffer is refilled two chunks on
+  }
+
+  for (int t = tid; t < s * s; t += kMmaThreads) {
+    const int64_t gi = bi * s + t / s;
+    const int64_t gj = bj * s + t % s;
+    out[gi * n_pad + gj] = bins[t];
+    out[gj * n_pad + gi] = bins[t];
+  }
+}
+
+using MmaKernel = void (*)(const uint8_t*, int32_t*, int, int, int, int, int,
+                           uint32_t, uint32_t);
+const MmaKernel kMmaKernels[2][4] = {
+    {pairs_mma_kernel<kTable, 0>, pairs_mma_kernel<kTable, 1>,
+     pairs_mma_kernel<kTable, 2>, pairs_mma_kernel<kTable, 3>},
+    {pairs_mma_kernel<kPrmt, 0>, pairs_mma_kernel<kPrmt, 1>,
+     pairs_mma_kernel<kPrmt, 2>, pairs_mma_kernel<kPrmt, 3>}};
+
 }  // namespace
 
 // x: [n_pad * p_pad, 4 * w] int8 one-hot windows; out: [n_pad, n_pad] int32.
@@ -221,4 +479,34 @@ extern "C" int pairs_probe_launch(const void* x, void* out, int n_pad,
     case 16: return launch_probe<16>(xw, o, n_pad, p_pad, s, k, variant, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Kernel A's tensor-core body. x: [n_pad * p_pad, depth] int8 one-hot
+// windows, depth a multiple of 64; s sequences a tile side (divides
+// n_pad); lookup 0 (shared table) or 1 (prmt on tlo/thi: byte b of
+// thi:tlo is C(b + 1, k); needs every C(m, k) < 128 and k >= 2); variant
+// 0 computes the counts, 1 to 3 time its parts (see pairs_mma_kernel).
+extern "C" int pairs_mma_launch(const void* x, void* out, int n_pad, int p_pad,
+                                int depth, int k, int s, int lookup,
+                                int variant, unsigned tlo, unsigned thi,
+                                void* stream) {
+  if (depth < 64 || depth % 64 || p_pad < 8 || p_pad % 8 || s < 1 ||
+      n_pad % s || k < 1 || lookup < 0 || lookup > 1 || variant < 0 ||
+      variant > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t nt = n_pad / s;
+  const int64_t blocks = nt * (nt + 1) / 2;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int nc = (s * p_pad + kChunk - 1) / kChunk;
+  const size_t smem = mma_smem_bytes(nc, depth, s);
+  const MmaKernel kernel = kMmaKernels[lookup][variant];
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kMmaThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x), static_cast<int32_t*>(out), n_pad, p_pad,
+      s, k, depth, tlo, thi);
+  return static_cast<int>(cudaGetLastError());
 }

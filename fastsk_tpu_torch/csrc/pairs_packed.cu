@@ -64,7 +64,11 @@
 
 #include <algorithm>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace fastsk_hopper;
 
 constexpr int kThreads = 128;  // = the largest row tile
 constexpr unsigned kFull = 0xffffffffu;
@@ -369,58 +373,10 @@ constexpr int kMmaThreads = 256;  // 2 warpgroups, 64 rows x 128 columns each
 constexpr int kMaxWords = 5;
 constexpr int kMmaDepthMax = 768;  // two 128-row tiles of 768 B rows fit
 
-// Byte (r, kb) of a one-hot tile in wgmma's K-major layout without
-// swizzle: 8-row x 16-byte core matrices of 128 contiguous bytes, those
-// of one 8-row group side by side along K (LBO 128 B), the groups one
-// after another (SBO 8 * depth B).
-__device__ __forceinline__ int onehot_at(int r, int kb, int depth) {
-  return (r >> 3) * (depth * 8) + (kb >> 4) * 128 + (r & 7) * 16 + (kb & 15);
-}
-
 size_t mma_smem_bytes(int depth, int cb) {
   return 2 * static_cast<size_t>(kThreads) * depth +
          2 * kThreads * kMaxWords * sizeof(uint32_t) + 3 * kThreads * sizeof(int) +
          32 * sizeof(int) + bins_bytes(cb);
-}
-
-// A shared-memory matrix descriptor of wgmma (no swizzle).
-__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// D (64 x 128 s32, this warpgroup's) += or = A (64 x 32 s8) B^T (128 x
-// 32 s8), both K-major in shared memory; scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_s8(int* d, uint64_t desc_a, uint64_t desc_b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // One 128-row tile's one-hot rows into dst (onehot_at's layout), from
@@ -443,12 +399,6 @@ __device__ void expand_onehot(uint8_t* dst, int depth, const uint32_t* codes,
     }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Tile pairs before row tile ti in row-tile-major order of the upper
-// triangle of nt tiles.
-__device__ __forceinline__ int64_t pairs_before(int64_t ti, int64_t nt) {
-  return ti * nt - ti * (ti - 1) / 2;
 }
 
 // kVariant 0 is the kernel; the others time its parts (the product is
@@ -484,11 +434,7 @@ packed_band_mma_kernel(const uint32_t* __restrict__ x,
   for (int q = tid; q < cb * cb; q += kMmaThreads) bins[q] = 0;
 
   // the run's first tile pair: the last row tile ti with pairs_before <= begin
-  const double b2 = 2.0 * nt + 1.0;
-  int64_t ti = static_cast<int64_t>((b2 - sqrt(b2 * b2 - 8.0 * begin)) / 2.0);
-  ti = ti < 0 ? 0 : (ti >= nt ? nt - 1 : ti);
-  while (ti > 0 && pairs_before(ti, nt) > begin) --ti;
-  while (ti + 1 < nt && pairs_before(ti + 1, nt) <= begin) ++ti;
+  int64_t ti = row_tile_of(begin, nt);
   int64_t tj = ti + (begin - pairs_before(ti, nt));
 
   // column tile t's code words and sequence ids into buffer `buf`

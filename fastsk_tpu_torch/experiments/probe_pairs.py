@@ -13,11 +13,23 @@ their times:
 
 Each variant is checked against its plain version (``ops/pairs.py:
 pairs_probe_plain``), and every repetition must give the same checksum.
+
+``--body mma`` times the parts of kernel A's tensor-core body instead
+(``ops/pairs_cuda.py:pairs_mma_parts``, on the card only):
+
+    current      the body itself (held to the plain counts)
+    no_epilogue  the wgmma products, consumed but not looked up
+    no_mma       the epilogue on opaque zero counts (every lookup runs)
+    loads        the tiles' loads, barriers and output writes only
+
+so the product costs about current - no_mma, the epilogue current -
+no_epilogue, and the loads the last.
 The default shape is 7230 seeded length-200 DNA sequences at g=16, m=10;
 ``--dataset KAT2B`` reads the in-repo KAT2B split (g=8, m=4 there)::
 
     python -m fastsk_tpu_torch.experiments.probe_pairs --variants skeleton,current,int32 --reps 3
     python -m fastsk_tpu_torch.experiments.probe_pairs --dataset KAT2B --g 8 --m 4
+    python -m fastsk_tpu_torch.experiments.probe_pairs --dataset KAT2B --g 8 --m 4 --body mma
 
 Progress goes to stderr; the last line of stdout is one JSON object with
 each variant's best time, the chain cost against ``skeleton`` and the
@@ -42,7 +54,7 @@ from ..kernel.config import KernelConfig
 from ..kernel.pairs_engine import PairsGkmEngine
 from ..ops.encode import encode_sequences
 from ..ops.pairs import PROBE_VARIANTS, pairs_counts_plain, pairs_probe_plain
-from ..ops.pairs_cuda import padded_width, pairs_probe, tile_sequences
+from ..ops.pairs_cuda import MMA_PARTS, padded_width, pairs_mma_parts, pairs_probe, tile_sequences
 
 SPLITS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -136,6 +148,46 @@ def run_probe(
     return results
 
 
+def run_mma_parts(
+    x: torch.Tensor,
+    *,
+    g: int,
+    k: int,
+    p_pad: int,
+    reps: int = 3,
+    counts_plain: Optional[torch.Tensor] = None,
+    lookup: Optional[str] = None,
+) -> Dict[str, dict]:
+    """Each part of kernel A's tensor-core body (``MMA_PARTS``) on ``x``,
+    best of ``reps``; "current" is held to ``counts_plain`` (computed
+    here where not given). Returns {part: fields} and a "split" entry:
+    product, epilogue and loads in ms."""
+    results = {}
+    for part in MMA_PARTS:
+        times = []
+        for rep in range(reps):
+            out, ms = timed(
+                lambda: pairs_mma_parts(x, g=g, k=k, p_pad=p_pad, variant=part, lookup=lookup),
+                x.device,
+            )
+            times.append(ms)
+            if part == "current" and rep == 0:
+                if counts_plain is None:
+                    counts_plain = pairs_counts_plain(x, k=k, p_pad=p_pad)
+                err = int((out.long() - counts_plain.long()).abs().max())
+            del out
+        results[part] = dict(best_ms=min(times), ms=times)
+        log(f"mma {part}: best {min(times):.3f} ms of {reps}")
+    results["current"]["max_abs_err"] = err
+    best = {part: results[part]["best_ms"] for part in MMA_PARTS}
+    results["split"] = dict(
+        product_ms=best["current"] - best["no_mma"],
+        epilogue_ms=best["current"] - best["no_epilogue"],
+        loads_ms=best["loads"],
+    )
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dataset", default="", help="KAT2B: the in-repo split; default: seeded DNA")
@@ -147,6 +199,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--variants", default=",".join(PROBE_VARIANTS))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--body", default="dp4a", choices=("dp4a", "mma"),
+                    help="dp4a: kernel H's variants; mma: the tensor-core body's parts (card only)")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -161,16 +215,20 @@ def main(argv=None) -> int:
     eng = PairsGkmEngine(encode_sequences(train, test), args.g, args.m, KernelConfig(device=device))
     x = eng._build_x()
     log(f"{shape}: n_pad={eng.n_pad} p_pad={eng.p_pad} width={x.shape[1]} on {device}")
-    variants = [v.strip() for v in args.variants.split(",") if v.strip()]
-    results = run_probe(
-        x, g=args.g, k=eng.k, p_pad=eng.p_pad, variants=variants, reps=args.reps
-    )
-    ok = all(r["max_abs_err"] == 0 and r["checksums_equal"] for r in results.values())
+    if args.body == "mma":
+        results = run_mma_parts(x, g=args.g, k=eng.k, p_pad=eng.p_pad, reps=args.reps)
+        ok = results["current"]["max_abs_err"] == 0
+    else:
+        variants = [v.strip() for v in args.variants.split(",") if v.strip()]
+        results = run_probe(
+            x, g=args.g, k=eng.k, p_pad=eng.p_pad, variants=variants, reps=args.reps
+        )
+        ok = all(r["max_abs_err"] == 0 and r["checksums_equal"] for r in results.values())
     print(json.dumps({
         "shape": shape, "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "timer": "cuda_events" if device.type == "cuda" else "host_clock",
-        "n_pad": eng.n_pad, "p_pad": eng.p_pad, "width": x.shape[1],
+        "n_pad": eng.n_pad, "p_pad": eng.p_pad, "width": x.shape[1], "body": args.body,
         "variants": results, "ok": ok,
     }))
     return 0 if ok else 1

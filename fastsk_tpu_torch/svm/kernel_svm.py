@@ -448,22 +448,25 @@ class KernelSVC(_Classifier):
         """
         folds = stratified_kfold_indices(y, self.cv_folds)
         alpha_full = self.alpha_y_ * y_signed if self.platt_warm_start else None
-        dec = self._fold_decisions(gram, y_signed, c_vec, folds, alpha_full)
+        c_masks = np.tile(np.asarray(c_vec, np.float32), (len(folds), 1))
+        for r, f in enumerate(folds):
+            c_masks[r, f] = 0.0
+        dec = self._fold_decisions(gram, y_signed, c_masks, folds, alpha_full)
         self.platt_ = sigmoid_train(dec, y_signed)
 
-    def _fold_decisions(self, gram: torch.Tensor, y_signed, c_vec, folds, alpha_full=None):
+    def _fold_decisions(self, gram: torch.Tensor, y_signed, c_masks, folds, alpha_full=None):
         """Each row's decision value from the fold that holds it out (0 for
-        a row of no fold). The folds depend on nothing but ``alpha_full``,
-        so they are one batched solve over one Q (one launch of kernel B
-        on the card), each bit for bit the solve of that fold alone."""
+        a row of no fold). ``c_masks [len(folds), n]`` is each fold's box,
+        0 on its held-out rows. The folds depend on nothing but
+        ``alpha_full``, so they are one batched solve over one Q (one
+        launch of kernel B on the card), each bit for bit the solve of that
+        fold alone."""
         n = len(y_signed)
         dec = np.zeros(n, dtype=np.float64)
         if not folds:
             return dec
         dev = gram.device
-        c_masks = np.tile(np.asarray(c_vec, np.float32), (len(folds), 1))
-        for r, f in enumerate(folds):
-            c_masks[r, f] = 0.0
+        c_masks = np.asarray(c_masks, np.float32)
         a0 = np.zeros_like(c_masks)
         if alpha_full is not None:
             a0 = np.stack([_restrict_feasible(alpha_full, y_signed, c) for c in c_masks])
@@ -486,8 +489,11 @@ class KernelSVC(_Classifier):
         model's settings, from ``ovo.py:platt_cv_binary``'s folds (at most
         ``len(y)``; a fold whose training rows hold one class gives 0),
         each solved on the full ``gram`` with its held-out rows boxed at 0,
-        all in one batched solve. One-vs-one C-SVC takes this instead of
-        fitting each fold's sub-Gram."""
+        all in one batched solve. Each fold's box is ``_box`` of its own
+        training rows, as ``ovo.py:platt_cv_binary`` fits a fresh model on
+        them (the class weights under ``balanced`` follow the fold's
+        counts). One-vs-one C-SVC takes this instead of fitting each fold's
+        sub-Gram."""
         gram = _gram_f32(gram)
         y = np.asarray(y)
         classes = np.unique(y)
@@ -496,7 +502,11 @@ class KernelSVC(_Classifier):
             f for f in stratified_kfold_indices(y, min(cv_folds, len(y)))
             if len(np.unique(np.delete(y, f))) == 2
         ]
-        dec = self._fold_decisions(gram, y_signed, self._box(y, classes), folds)
+        c_masks = np.zeros((len(folds), len(y)), np.float32)
+        for r, f in enumerate(folds):
+            tr = np.setdiff1d(np.arange(len(y)), f)
+            c_masks[r, tr] = self._box(y[tr], classes)
+        dec = self._fold_decisions(gram, y_signed, c_masks, folds)
         return sigmoid_train(dec, y_signed)
 
 

@@ -8,9 +8,9 @@ Each loop runs from a feasible start to the eps-KKT stop and returns
 (``svm/kernel_svm.py:_finalize_rho`` / ``_finalize_nu``). A CPU tensor
 takes the plain twin (``smo_loop_plain`` / ``smo_nu_loop_plain``); a CUDA
 tensor launches the kernel or raises. Every solve on the card goes
-through a kernel, at every n. ``smo_solve`` also takes a batch of
-problems over one Q (the Platt folds: one launch, one thread-block
-cluster a problem).
+through a kernel, at every n. Both kernels run one thread-block cluster
+a problem; ``smo_solve`` also takes a batch of problems over one Q (the
+Platt folds: one launch, one cluster a problem).
 
 No padding is needed: the kernels loop over exactly n rows. Rows whose
 C is 0 (the Platt folds' held-out rows) can join neither I_up nor I_low,
@@ -172,16 +172,26 @@ def _check_problem(Q, vecs, names: str) -> int:
 
 
 def smo_cluster_size() -> int:
-    """CTAs of kernel B's cluster per problem on the card: 16 (a
-    non-portable cluster), the faster of 8 and 16 at KAT2B in
-    ``chip_smoke.py``'s phase 4."""
+    """CTAs of kernel B's and kernel C's cluster per problem on the card:
+    16 (a non-portable cluster), the faster of 8 and 16 at KAT2B in
+    ``chip_smoke.py``'s phases 4 and 10."""
     return 16
 
 
-def smo_smem_path(n: int, cluster: int) -> bool:
-    """Whether kernel B keeps an n-row problem's slices in shared memory
-    at ``cluster`` CTAs a problem (the kernel's own rule)."""
-    return bool(_build.kernels().smo_solve_smem(n, cluster))
+def _cluster(cluster) -> int:
+    cluster = smo_cluster_size() if cluster is None else int(cluster)
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster must be 1 to 16 CTAs; got {cluster}")
+    return cluster
+
+
+def smo_smem_path(n: int, cluster: int, solver: str = "B") -> bool:
+    """Whether kernel ``solver`` ("B" or "C") keeps an n-row problem's
+    slices in shared memory at ``cluster`` CTAs a problem (the kernel's
+    own rule: 6 floats a row for B, 7 for C, within 220 KB a CTA)."""
+    if solver not in ("B", "C"):
+        raise ValueError(f"solver must be 'B' or 'C'; got {solver!r}")
+    return bool(_build.kernels().smo_solve_smem(n, cluster, int(solver == "C")))
 
 
 def smo_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int, *, cluster=None):
@@ -219,9 +229,7 @@ def smo_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int, *, cluster=None
         grad = torch.stack([r[1] for r in runs])
         iters = [r[2] for r in runs]
     else:
-        cluster = smo_cluster_size() if cluster is None else int(cluster)
-        if not 1 <= cluster <= 16:
-            raise ValueError(f"cluster must be 1 to 16 CTAs; got {cluster}")
+        cluster = _cluster(cluster)
         alpha = torch.empty_like(grad0)
         grad = torch.empty_like(grad0)
         row = torch.empty_like(grad0)
@@ -243,28 +251,33 @@ def smo_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int, *, cluster=None
     return alpha[0], grad[0], iters[0]
 
 
-def smo_nu_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int):
+def smo_nu_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int, *, cluster=None):
     """One Solver_NU solve (kernel C): ``(alpha, grad, iters)`` at the
     eps-KKT point; the per-class sums of ``alpha0`` are conserved. A CPU
     tensor takes ``smo_nu_loop_plain``; a CUDA tensor launches the kernel
-    or raises."""
+    (one thread-block cluster of ``cluster`` CTAs, ``smo_cluster_size()``
+    by default) or raises."""
     vecs = (y, C_vec, p, alpha0)
     n = _check_problem(Q, vecs, "y, C, p and alpha0")
     if any(v.shape != (n,) for v in vecs):
         raise ValueError(f"y, C, p and alpha0 must have shape ({n},)")
+    if cluster is not None:
+        _cluster(cluster)
     grad0, qd = initial_state(Q, p, alpha0)
     if Q.device.type == "cpu":
         return smo_nu_loop_plain(Q, y, C_vec, qd, alpha0, grad0, eps, max_iter)
+    cluster = _cluster(cluster)
     alpha = torch.empty_like(alpha0)
     grad = torch.empty_like(grad0)
+    rows = torch.empty((2, n), dtype=torch.float32, device=Q.device)
     iters = torch.empty(1, dtype=torch.int32, device=Q.device)
     lib = _build.kernels()
     with torch.cuda.device(Q.device):
         status = lib.smo_nu_solve_launch(
             Q.data_ptr(), y.data_ptr(), C_vec.data_ptr(), qd.data_ptr(),
             alpha0.data_ptr(), grad0.data_ptr(), alpha.data_ptr(),
-            grad.data_ptr(), iters.data_ptr(), n, float(eps), int(max_iter),
-            torch.cuda.current_stream().cuda_stream,
+            grad.data_ptr(), rows.data_ptr(), iters.data_ptr(), n, float(eps),
+            int(max_iter), cluster, torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(status, "smo_nu_solve")
     smo_nu_solve.launches += 1

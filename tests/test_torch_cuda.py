@@ -1,4 +1,5 @@
-"""Kernels A to H against their plain PyTorch versions, on the card.
+"""Kernels A to H against their plain PyTorch versions, on the card
+(kernel A with both of its bodies, kernel C at every cluster size).
 
 Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
@@ -43,13 +44,37 @@ def test_kernel_a_matches_plain_and_oracle(cuda, g, m, n, length, alpha):
     X = [rng.integers(1, alpha + 1, size=rng.integers(g, length + 1)).tolist() for _ in range(n)]
     eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
     x = eng._build_x()
-    before = pairs_cuda.pairs_counts.launches
-    got = pairs_cuda.pairs_counts(x, g=g, k=g - m, p_pad=eng.p_pad)
-    torch.cuda.synchronize()
-    assert pairs_cuda.pairs_counts.launches == before + 1
     want = pairs.pairs_counts_plain(x, k=g - m, p_pad=eng.p_pad)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], oracle.exact_counts(X, g, m))
+    oracle_counts = oracle.exact_counts(X, g, m)
+    # both bodies, and the tensor-core body with both C(d, k) lookups
+    for body, lookup in (("dp4a", None), ("mma", "table"), ("mma", "prmt")):
+        before = pairs_cuda.pairs_counts.launches, dict(pairs_cuda.pairs_counts.bodies)
+        got = pairs_cuda.pairs_counts(x, g=g, k=g - m, p_pad=eng.p_pad, body=body, lookup=lookup)
+        torch.cuda.synchronize()
+        assert pairs_cuda.pairs_counts.launches == before[0] + 1
+        assert pairs_cuda.pairs_counts.bodies[body] == before[1][body] + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], oracle_counts)
+
+
+# one-hot depths that take each body by default: 40 B (pads to 64, mma),
+# 320 B (mma, one block an SM) and 420 B (dp4a); a tile of several 128-row
+# chunks (p_pad = 200, four sequences a side) and sequences that end
+# inside a chunk
+@pytest.mark.parametrize(
+    "g,m,alpha,n,length,body",
+    [(8, 4, 5, 21, 200, "mma"), (8, 4, 40, 9, 60, "mma"), (6, 3, 70, 9, 40, "dp4a")],
+)
+def test_kernel_a_default_body_by_depth(cuda, g, m, alpha, n, length, body):
+    rng = np.random.default_rng(alpha * 10 + n)
+    X = [rng.integers(1, alpha + 1, size=length).tolist() for _ in range(n)]
+    X[0] = list(range(1, alpha + 1)) + X[0][alpha:]  # every code, so the alphabet is alpha
+    eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
+    assert eng.alpha == alpha and pairs_cuda.pairs_body(g, alpha) == body
+    before = dict(pairs_cuda.pairs_counts.bodies)
+    got = eng.exact()
+    assert pairs_cuda.pairs_counts.bodies[body] == before[body] + 1
+    np.testing.assert_array_equal(got, oracle.exact_counts(X, g, m))
 
 
 def _c_svc_problem(n, seed=3):
@@ -161,17 +186,19 @@ def _nu_problem(kind, n, rng):
     return K * np.outer(y, y), y, np.ones(len(y), np.float32), p, a0
 
 
-# n=700 keeps the solver state in shared memory; n=10500 runs it in global
-# memory. The large shape is held to the twin on a capped prefix: the
-# twin runs one host-synced step per iteration.
+# n=700 runs to the eps stop; 10500 and 12636 (the SVR duals' 2n at
+# KAT2B) are held to the twin on a capped prefix: the twin runs one
+# host-synced step per iteration. At the default cluster every one keeps
+# its slices in shared memory.
 @pytest.mark.parametrize("kind", ["nu_svc", "nu_svr", "upN_empty"])
-@pytest.mark.parametrize("n,max_iter", [(700, 100_000), (10500, 1500)])
+@pytest.mark.parametrize("n,max_iter", [(700, 100_000), (10500, 1500), (12636, 1500)])
 def test_kernel_c_matches_twin(cuda, kind, n, max_iter):
     rng = np.random.default_rng(5)
     Q, y, C, p, a0 = (torch.from_numpy(v).to(cuda) for v in _nu_problem(kind, n, rng))
     before = smo_cuda.smo_nu_solve.launches
     a_k, g_k, it_k = smo_cuda.smo_nu_solve(Q, y, C, p, a0, 1e-3, max_iter)
     assert smo_cuda.smo_nu_solve.launches == before + 1
+    assert smo_cuda.smo_smem_path(n, smo_cuda.smo_cluster_size(), "C")
     grad0, qd = smo_cuda.initial_state(Q, p, a0)
     a_p, g_p, it_p = smo_cuda.smo_nu_loop_plain(Q, y, C, qd, a0, grad0, 1e-3, max_iter)
     assert it_k == it_p
@@ -182,6 +209,23 @@ def test_kernel_c_matches_twin(cuda, kind, n, max_iter):
         assert abs(s1 - s0) <= 1e-3 * max(s0, 1.0)
     if kind == "upN_empty":
         assert float(a_k[y < 0].abs().max()) == 0.0
+
+
+# every cluster size on one problem; one CTA cannot hold 10500 rows' slice
+# (7 floats a row past 220 KB), so cluster=1 runs the global-memory mode
+@pytest.mark.parametrize("kind", ["nu_svc", "upN_empty"])
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+def test_kernel_c_cluster_sizes(cuda, cluster, kind):
+    n, max_iter = 10500, 1500
+    rng = np.random.default_rng(7)
+    Q, y, C, p, a0 = (torch.from_numpy(v).to(cuda) for v in _nu_problem(kind, n, rng))
+    assert smo_cuda.smo_smem_path(n, cluster, "C") == (cluster > 1)
+    a_k, g_k, it_k = smo_cuda.smo_nu_solve(Q, y, C, p, a0, 1e-3, max_iter, cluster=cluster)
+    grad0, qd = smo_cuda.initial_state(Q, p, a0)
+    a_p, g_p, it_p = smo_cuda.smo_nu_loop_plain(Q, y, C, qd, a0, grad0, 1e-3, max_iter)
+    assert it_k == it_p
+    torch.testing.assert_close(a_k, a_p, rtol=0, atol=0)
+    torch.testing.assert_close(g_k, g_p, rtol=0, atol=0)
 
 
 def _ragged(seed, n, lmin, lmax, alpha):

@@ -160,6 +160,88 @@ def test_kernel_a_tiling(n_pad, p_pad, f, width, tile):
     assert s * p_pad * width <= 227 * 1024
 
 
+@pytest.mark.parametrize(
+    "g,alpha,depth,body",
+    [
+        (8, 5, 64, "mma"),     # KAT2B: 40 one-hot bytes pad to 64
+        (16, 4, 64, "mma"),    # 7230 x 200 DNA, g=16
+        (8, 16, 128, "mma"),
+        (8, 24, 192, "mma"),
+        (8, 40, 320, "mma"),
+        (8, 41, 384, "dp4a"),  # past the measured depth
+        (10, 40, 448, "dp4a"),
+    ],
+)
+def test_kernel_a_body_and_depth(g, alpha, depth, body):
+    assert pairs_cuda.mma_depth(g * alpha) == depth
+    assert depth % 64 == 0 and depth - 64 < g * alpha <= depth
+    assert pairs_cuda.pairs_body(g, alpha) == body
+
+
+@pytest.mark.parametrize(
+    "n_pad,p_pad,depth,tile",
+    [
+        (7024, 200, 64, 4),   # KAT2B: 8 sequences would leave one block an SM
+        (7232, 192, 64, 8),   # 7230 x 200 DNA, g=16
+        (24, 96, 64, 8),
+        (12, 8, 64, 4),
+        (8, 200, 192, 1),
+        (8, 200, 320, 1),     # one block an SM
+        (8, 904, 320, 0),     # one sequence's tile does not fit: the dp4a body
+    ],
+)
+def test_kernel_a_mma_tiling(n_pad, p_pad, depth, tile):
+    s = pairs_cuda.mma_tile_sequences(n_pad, p_pad, depth)
+    assert s == tile
+    if s:
+        blocks = 2 if depth < 320 else 1  # blocks an SM holds
+        assert n_pad % s == 0
+        assert blocks * (pairs_cuda.mma_smem_bytes(s, p_pad, depth) + 1024) <= 228 * 1024
+
+
+def _prmt(lo, hi, sel):
+    """PTX prmt.b32 in its default mode: result byte n is byte (nibble n
+    of sel) & 7 of hi:lo, or that byte's sign bit replicated where the
+    nibble's bit 3 is set."""
+    src = (hi << 32) | lo
+    out = 0
+    for n in range(4):
+        nib = (sel >> (4 * n)) & 0xF
+        b = (src >> (8 * (nib & 7))) & 0xFF
+        if nib & 8:
+            b = 0xFF if b & 0x80 else 0
+        out |= b << (8 * n)
+    return out
+
+
+@pytest.mark.parametrize("g,k", [(8, 4), (8, 2), (8, 7), (6, 2), (5, 3), (8, 8)])
+def test_kernel_a_prmt_lookup_is_binomial(g, k):
+    """The tensor-core body's register lookup, prmt with selector M - 1,
+    gives C(M, k) for every match count 0 <= M <= g (M = 0 selects byte 7
+    sign-replicated, which is 0)."""
+    lo, hi = pairs_cuda.prmt_table(g, k)
+    for m in range(g + 1):
+        assert _prmt(lo, hi, (m - 1) & 0xFFFFFFFF) == math.comb(m, k), m
+
+
+def test_kernel_a_prmt_lookup_needs_small_binomials():
+    assert pairs_cuda.prmt_table(9, 4) is None   # C(9, 4) past a byte's table
+    assert pairs_cuda.prmt_table(8, 1) is None   # C(1, 1) = 1 would fill the upper bytes
+    assert pairs_cuda.prmt_table(16, 6) is None
+
+
+def test_kernel_a_body_argument_checked_and_cpu_plain():
+    x = torch.zeros((16, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="body"):
+        pairs_cuda.pairs_counts(x, g=4, k=2, p_pad=8, body="wgmma")
+    before = dict(pairs_cuda.pairs_counts.bodies)
+    for body in ("mma", "dp4a", None):
+        pairs_cuda.pairs_counts(x, g=4, k=2, p_pad=8, body=body)
+    assert pairs_cuda.pairs_counts.bodies == before  # CPU path: no launch
+    with pytest.raises(ValueError, match="card"):
+        pairs_cuda.pairs_mma_parts(x, g=4, k=2, p_pad=8, variant="current")
+
+
 def _load_tri(path):
     with open(path) as f:
         header = f.readline()

@@ -118,6 +118,22 @@ def test_nu_wrapper_takes_twin_on_cpu_and_checks_inputs(rng):
         smo_cuda.smo_nu_solve(Q.T, y, C, p, a0, 1e-3, 10)
 
 
+def test_nu_wrapper_checks_cluster(rng):
+    """``cluster`` (CTAs of kernel C's cluster) must be 1 to 16, checked on
+    every device; on the CPU it does not change the twin's result."""
+    Q, y, C, p, a0 = (torch.from_numpy(np.ascontiguousarray(v)) for v in _nu_problem(rng, "nu_svc"))
+    for bad in (0, 17, -1):
+        with pytest.raises(ValueError, match="cluster"):
+            smo_cuda.smo_nu_solve(Q, y, C, p, a0, 1e-3, 10, cluster=bad)
+    a1, g1, it1 = smo_cuda.smo_nu_solve(Q, y, C, p, a0, 1e-3, 500, cluster=8)
+    a2, g2, it2 = smo_cuda.smo_nu_solve(Q, y, C, p, a0, 1e-3, 500)
+    assert it1 == it2
+    np.testing.assert_array_equal(a1.numpy(), a2.numpy())
+    np.testing.assert_array_equal(g1.numpy(), g2.numpy())
+    with pytest.raises(ValueError, match="solver"):
+        smo_cuda.smo_smem_path(700, 16, solver="D")
+
+
 def test_nu_empty_candidate_set_takes_index_0():
     """With the negative class held at a zero sum, upN is empty in every
     iteration: the twin's argmax gives row 0, as jnp.argmax does, and the
@@ -165,8 +181,11 @@ def _blobs(rng, n=60, d=5, sep=0.6):
 
 
 def _multiclass(rng, nc, n_per=14, d=5, sep=2.5):
-    X = np.concatenate([rng.normal(size=(n_per, d)) + rng.normal(size=d) * sep for _ in range(nc)])
-    return X, np.repeat(np.arange(nc), n_per)
+    """``nc`` classes of ``n_per`` rows each, or of the sizes in ``nc``
+    where it is a tuple."""
+    sizes = nc if isinstance(nc, tuple) else (n_per,) * nc
+    X = np.concatenate([rng.normal(size=(m, d)) + rng.normal(size=d) * sep for m in sizes])
+    return X, np.repeat(np.arange(len(sizes)), sizes)
 
 
 def _assert_same_decisions(pm, jm, gram):
@@ -207,12 +226,16 @@ def test_binary_classifier_matches_jax(rng, name, make):
     _assert_same_classifier(pm, jm, _rbf(Xt, X))
 
 
-@pytest.mark.parametrize("nc", [3, 4])
+# the unequal case gives C-SVC balanced class weights, which each Platt
+# fold takes from its own training rows (as the reference refits a fold)
+@pytest.mark.parametrize("nc", [3, 4, pytest.param((9, 23, 31), id="9-23-31-balanced")])
 @pytest.mark.parametrize("solver", ["KernelSVC", "NuSVC"])
 def test_one_vs_one_matches_jax(rng, nc, solver):
     X, y = _multiclass(rng, nc)
     K = _rbf(X, X)
     kw = dict(C=1.0, eps=EPS) if solver == "KernelSVC" else dict(nu=0.3, eps=EPS)
+    if solver == "KernelSVC" and isinstance(nc, tuple):
+        kw.update(C=0.3, class_weight="balanced")  # bounded SVs: the box shows
     pm = getattr(tk, solver)(probability=True, **kw).fit(K, y)
     jm = getattr(jk, solver)(probability=True, **kw).fit(K, y)
     np.testing.assert_allclose(pm._ovo.platt_, jm._ovo.platt_, atol=1e-3)
@@ -543,6 +566,45 @@ def test_cli_without_a_card_needs_device_cpu(tmp_path, rng, capsys, monkeypatch)
     assert tcli.build_parser().get_default("device") == "cuda"
     assert tcli.main(["--device", "cpu", *args]) == 0
     assert "auc" in json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_fold_boxes_follow_each_folds_training_rows(rng, monkeypatch):
+    """cv_platt boxes fold r with ``_box`` of its own training rows (the
+    balanced weights of the fold's class counts) and 0 on its held-out
+    rows, all in one [folds, n] launch; the binary Platt fit keeps the
+    full-label box on every fold."""
+    from fastsk_tpu_torch.svm.linear import stratified_kfold_indices
+
+    boxes = []
+    real = tk.smo_solve
+
+    def spy(Q, y, C_vec, *args, **kwargs):
+        boxes.append(C_vec.numpy().copy())
+        return real(Q, y, C_vec, *args, **kwargs)
+
+    monkeypatch.setattr(tk, "smo_solve", spy)
+    X, y01 = _blobs(rng, n=32)
+    y01[:10] = 1  # unequal classes
+    ys = np.where(y01 == 1, 1.0, -1.0)
+    K = _rbf(X, X)
+    m = tk.KernelSVC(C=0.5, class_weight="balanced")
+    m.cv_platt(K, ys, 5)
+    folds = stratified_kfold_indices(ys, 5)
+    assert len(boxes) == 1 and boxes[0].shape == (5, len(ys))
+    for r, f in enumerate(folds):
+        tr = np.setdiff1d(np.arange(len(ys)), f)
+        pos, neg = (ys[tr] > 0).sum(), (ys[tr] < 0).sum()
+        want = np.zeros(len(ys), np.float32)
+        want[tr] = np.where(ys[tr] > 0, len(tr) / (2.0 * pos), len(tr) / (2.0 * neg)) * 0.5
+        np.testing.assert_array_equal(boxes[0][r], want)
+    # the binary fit: the full-label weights on every fold's training rows
+    boxes.clear()
+    tk.KernelSVC(C=0.5, class_weight="balanced", probability=True).fit(K, y01)
+    full = m._box(y01, np.array([0, 1]))
+    for r, f in enumerate(stratified_kfold_indices(y01, 5)):
+        want = full.copy()
+        want[f] = 0.0
+        np.testing.assert_array_equal(boxes[1][r], want)
 
 
 def test_one_vs_one_c_svc_batches_each_pairs_folds(rng, monkeypatch):
