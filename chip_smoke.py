@@ -11,16 +11,16 @@ raises and the exit code is non-zero:
 2. build  compiles kernels A, H (csrc/pairs.cu), B, C (csrc/smo.cu) and
           D, E, F, G (csrc/pairs_packed.cu; A and D share csrc/hopper.cuh)
           from the checkout, one nvcc per source in parallel; prints the
-          seconds.
-3. pairs  kernel A's two bodies (the int8 tensor-core one, with its
-          shared-table and prmt lookups, and the dp4a one) against the
-          plain PyTorch version: a small seeded shape (also against inline
+          seconds and the kernels whose wgmma ptxas serializes.
+3. pairs  kernel A's two bodies (the int8 tensor-core one and the dp4a
+          one) against the plain PyTorch version: a small seeded shape (also against inline
           numpy counts), the full KAT2B shape (g=8, m=4) and 7230 seeded
           length-200 DNA at g=16, m=10, each body timed. Integers must be
           equal. Then the KAT2B counts through kernel D's tensor-core body
           (exact_engine="packed"), timed, equal to kernel A's; and both
-          bodies timed on seeded 1000 x 200 sets at g=8 over 16, 24 and 40
-          letters (one-hot depths 128, 192, 320 bytes), equal.
+          bodies timed on seeded 1000 x 200 sets at g=8 over 16, 24, 40,
+          48 and 56 letters (one-hot depths 128 to 448 bytes, the deepest
+          whose tensor-core tile fits), equal.
 4. smo    kernel B (one thread-block cluster a problem) against its plain
           twin on the KAT2B linear Gram (the main solve of phase 5): the
           same iteration count at the eps-KKT stop, bit-identical alpha and
@@ -388,11 +388,12 @@ def kat2b_on_d(dev, Xtr, Xte, a_counts) -> dict:
     return fields
 
 
-def pairs_body_sweep(dev, n: int = 1000, length: int = 200, alphas=(16, 24, 40)) -> dict:
+def pairs_body_sweep(dev, n: int = 1000, length: int = 200, alphas=(16, 24, 40, 48, 56)) -> dict:
     """Part of phase 3: kernel A's two bodies on seeded sets of ``n``
     sequences of ``length`` letters at g=8, m=4 over each of ``alphas``
-    letters (one-hot depths 128, 192 and 320 bytes; KAT2B and the g=16
-    set give 64), each warmed up then timed, integer-equal."""
+    letters (one-hot depths 128, 192, 320, 384 and 448 bytes, 448 the
+    deepest whose tensor-core tile fits at p_pad = 200; KAT2B and the
+    g=16 set give 64), each warmed up then timed, integer-equal."""
     from fastsk_tpu_torch import KernelConfig
     from fastsk_tpu_torch.kernel.pairs_engine import PairsGkmEngine
     from fastsk_tpu_torch.ops import pairs_cuda
@@ -408,10 +409,12 @@ def pairs_body_sweep(dev, n: int = 1000, length: int = 200, alphas=(16, 24, 40))
         for body in ("mma", "dp4a"):
             pairs_cuda.pairs_counts(x, g=8, k=4, p_pad=eng.p_pad, body=body)
             got[body], ms[body] = cuda_ms(pairs_cuda.pairs_counts, x, g=8, k=4, p_pad=eng.p_pad, body=body)
+        depth = pairs_cuda.mma_depth(x.shape[1])
         sweep[alpha] = dict(
-            depth=pairs_cuda.mma_depth(x.shape[1]), alpha=eng.alpha,
-            default=pairs_cuda.pairs_body(8, eng.alpha), mma_ms=ms["mma"], dp4a_ms=ms["dp4a"],
-            tile_mma=pairs_cuda.mma_tile_sequences(eng.n_pad, eng.p_pad, pairs_cuda.mma_depth(x.shape[1])),
+            depth=depth, alpha=eng.alpha,
+            default=pairs_cuda.pairs_body(eng.n_pad, eng.p_pad, x.shape[1]),
+            mma_ms=ms["mma"], dp4a_ms=ms["dp4a"],
+            tile_mma=pairs_cuda.mma_tile_sequences(eng.n_pad, eng.p_pad, depth),
             equal=bool(torch.equal(got["mma"], got["dp4a"])),
         )
         del eng, x, got
@@ -1359,7 +1362,14 @@ def main() -> None:
     _build.kernels()
     build_s = time.perf_counter() - t0
     regs = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln]
-    emit("build", seconds=build_s, library_dir=_build.BUILD_DIR, ptxas=regs)
+    # kernels whose wgmma ptxas serializes (C7510, C7515, C7518 and kin)
+    serialized = sorted({
+        ln.split("function '")[-1].rstrip("'")
+        for ln in _build.build_log.splitlines()
+        if "wgmma.mma_async instructions are serialized" in ln
+    })
+    emit("build", seconds=build_s, library_dir=_build.BUILD_DIR, ptxas=regs,
+         wgmma_serialized=serialized)
 
     # --------------------------------------------------- kernel A vs plain
     rng = np.random.default_rng(0)
@@ -1368,9 +1378,9 @@ def main() -> None:
     x = eng._build_x()
     want = pairs.pairs_counts_plain(x, k=4, p_pad=eng.p_pad)[:13, :13]
     small_ok = {}
-    for body, lookup in (("mma", "table"), ("mma", "prmt"), ("dp4a", None)):
-        got = pairs_cuda.pairs_counts(x, g=6, k=4, p_pad=eng.p_pad, body=body, lookup=lookup)[:13, :13]
-        small_ok[f"{body}-{lookup}" if lookup else body] = torch.equal(got, want) and np.array_equal(
+    for body in ("mma", "dp4a"):
+        got = pairs_cuda.pairs_counts(x, g=6, k=4, p_pad=eng.p_pad, body=body)[:13, :13]
+        small_ok[body] = torch.equal(got, want) and np.array_equal(
             got.cpu().numpy(), numpy_counts(X, 6, 4)
         )
     emit("pairs", shape="seeded 13 x <=30, g=6 m=2", equal=small_ok)
@@ -1392,26 +1402,20 @@ def main() -> None:
         x = eng._build_x()
         kw = dict(g=g, k=g - m, p_pad=eng.p_pad)
         want, plain_ms = cuda_ms(pairs.pairs_counts_plain, x, k=g - m, p_pad=eng.p_pad)
-        # each body (the tensor-core one with both lookups where prmt
-        # applies), warmed up, then timed; every one held to the plain counts
-        runs = [("mma", "table"), ("dp4a", None)]
-        if pairs_cuda.prmt_table(g, g - m):
-            runs.insert(0, ("mma", "prmt"))
+        # each body, warmed up, then timed; both held to the plain counts
         ms_by, err_by = {}, {}
-        for body, lookup in runs:
-            pairs_cuda.pairs_counts(x, **kw, body=body, lookup=lookup)
-            got, ms_by[f"{body}-{lookup}" if lookup else body] = cuda_ms(
-                pairs_cuda.pairs_counts, x, **kw, body=body, lookup=lookup
-            )
-            err_by[f"{body}-{lookup}" if lookup else body] = int((got.long() - want.long()).abs().max())
+        for body in ("mma", "dp4a"):
+            pairs_cuda.pairs_counts(x, **kw, body=body)
+            got, ms_by[body] = cuda_ms(pairs_cuda.pairs_counts, x, **kw, body=body)
+            err_by[body] = int((got.long() - want.long()).abs().max())
             if name == "KAT2B" and body == "mma":
                 kat2b_counts = got[: eng.n, : eng.n].clone()
             del got
-        default_key = "mma-" + (pairs_cuda.MMA_LOOKUP if pairs_cuda.prmt_table(g, g - m) else "table")
+        default_key = pairs_cuda.pairs_body(eng.n_pad, eng.p_pad, x.shape[1])
         depth = pairs_cuda.mma_depth(x.shape[1])
         emit(
             "pairs", shape=name, n=eng.n, p_pad=eng.p_pad, width=x.shape[1], depth_mma=depth,
-            body=pairs_cuda.pairs_body(g, eng.alpha), default=default_key,
+            body=default_key,
             tile_dp4a=pairs_cuda.tile_sequences(eng.n_pad, eng.p_pad, pairs_cuda.padded_width(x.shape[1])),
             tile_mma=pairs_cuda.mma_tile_sequences(eng.n_pad, eng.p_pad, depth),
             kernel_ms=ms_by, plain_ms=plain_ms, max_abs_err=err_by,

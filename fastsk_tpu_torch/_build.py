@@ -120,9 +120,10 @@ def kernels() -> ctypes.CDLL:
         lib.pairs_counts_launch.restype = ci
         lib.pairs_probe_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.pairs_probe_launch.restype = ci
-        cu = ctypes.c_uint
-        lib.pairs_mma_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, cu, cu, vp]
+        lib.pairs_mma_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
         lib.pairs_mma_launch.restype = ci
+        lib.pairs_mma_tile.argtypes = [ci, ci, ci]
+        lib.pairs_mma_tile.restype = ci
         lib.smo_solve_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, cf, ci, ci, vp
         ]

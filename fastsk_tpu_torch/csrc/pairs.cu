@@ -197,11 +197,8 @@ cudaError_t launch_probe(const uint32_t* x, int32_t* out, int n_pad,
 //     59 ms at the card's int8 peak), the epilogue (one C(M, k) and one
 //     add a window pair, ~1e12 pairs at KAT2B) and the tile loads;
 //     experiments/probe_pairs.py --body mma times each part. C(M, k) is
-//     a lookup in a 32-entry shared table (one LDS a pair, conflict-free: a bank per
-//     entry) or, where every C(M, k) < 128 (g <= 8, k >= 2), a byte of two
-//     registers picked by one prmt with selector M - 1 (M = 0 gives the
-//     selector 0xffffffff: byte 7 sign-replicated, and C(8, k) < 128 makes
-//     it 0; for M >= 1 the upper result bytes copy C(1, k) = 0);
+//     a lookup in a 32-entry shared table (one LDS a pair, conflict-free:
+//     a bank per entry);
 //   - a block owns a pair of sequence tiles (bi <= bj, a 1-D triangular
 //     grid) and writes both K[i, j] and K[j, i] from s x s shared bins, so
 //     every entry is written once with no atomics across blocks;
@@ -224,7 +221,7 @@ cudaError_t launch_probe(const uint32_t* x, int32_t* out, int n_pad,
 //     so an 8-row group, and an 8-column group of the fragment, lies in
 //     one sequence. Rows and columns past the tile are zero-filled, so
 //     they weigh C(0, k) = 0 and need no test;
-//   - two blocks an SM where the resident tile allows (the wrapper sizes
+//   - two blocks an SM where the resident tile allows (mma_tile sizes
 //     it), so one block's loads overlap the other's work.
 // kVariant 0 is the kernel; the others time its parts (the result is then
 // not the count matrix): 1 skips the epilogue, 2 the wgmma loop (its
@@ -235,30 +232,33 @@ constexpr int kMmaThreads = 256;  // 2 warpgroups: 64 i rows x 128 j rows each
 constexpr int kChunk = 128;       // window rows of a chunk
 constexpr unsigned kFullMask = 0xffffffffu;
 
-enum Lookup : int { kTable = 0, kPrmt = 1 };
+// two blocks an SM must fit the SM's 228 KB of shared memory, 1 KB a
+// block reserved; one block alone may take 227 KB
+constexpr size_t kMmaBlockBytes = 113 * 1024;
+constexpr size_t kMaxSmemBytes = 227 * 1024;
 
-size_t mma_smem_bytes(int chunks, int depth, int s) {
-  return (static_cast<size_t>(chunks) + 2) * kChunk * depth +
-         (static_cast<size_t>(s) * s + 32) * sizeof(int32_t);
+// Shared memory of one block with a tile of s sequences: the resident
+// tile bj in 128-row chunks, two streamed chunks of tile bi, the s x s
+// bins and the C(d, k) table.
+size_t mma_smem_bytes(int s, int p_pad, int depth) {
+  const size_t chunks = (static_cast<size_t>(s) * p_pad + kChunk - 1) / kChunk;
+  return (chunks + 2) * kChunk * depth + (static_cast<size_t>(s) * s + 32) * sizeof(int32_t);
 }
 
-template <int kLookup>
-__device__ __forceinline__ int c_of(int m, const int32_t* tbl, uint32_t tlo,
-                                    uint32_t thi) {
-  if constexpr (kLookup == kPrmt) {
-    uint32_t r;
-    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(tlo), "r"(thi), "r"(m - 1));
-    return static_cast<int>(r);
-  } else {
-    return tbl[m];
+// Sequences a tile side: the largest power of two <= 8 dividing n_pad
+// whose block fits two to an SM; else 1 where one sequence's block fits
+// the SM alone; else 0 (the tensor-core body does not apply).
+int mma_tile(int n_pad, int p_pad, int depth) {
+  for (int s = 8; s >= 1; s /= 2) {
+    if (n_pad % s == 0 && mma_smem_bytes(s, p_pad, depth) <= kMmaBlockBytes) return s;
   }
+  return mma_smem_bytes(1, p_pad, depth) <= kMaxSmemBytes ? 1 : 0;
 }
 
-template <int kLookup, int kVariant>
+template <int kVariant>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
-                 int n_pad, int p_pad, int s, int k, int depth, uint32_t tlo,
-                 uint32_t thi) {
+                 int n_pad, int p_pad, int s, int k, int depth) {
   extern __shared__ __align__(128) uint4 smem_raw[];
   const int64_t nt = n_pad / s;
   const int64_t bi = row_tile_of(blockIdx.x, nt);
@@ -357,10 +357,8 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           const bool first = cbase + 8 * c < edge;
-          const int w0 = c_of<kLookup>(d[4 * c], tbl, tlo, thi) +
-                         c_of<kLookup>(d[4 * c + 1], tbl, tlo, thi);
-          const int w1 = c_of<kLookup>(d[4 * c + 2], tbl, tlo, thi) +
-                         c_of<kLookup>(d[4 * c + 3], tbl, tlo, thi);
+          const int w0 = tbl[d[4 * c]] + tbl[d[4 * c + 1]];
+          const int w1 = tbl[d[4 * c + 2]] + tbl[d[4 * c + 3]];
           a0 += first ? w0 : 0;
           b0 += first ? 0 : w0;
           a1 += first ? w1 : 0;
@@ -398,10 +396,8 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
             next += p_pad;
             run0 = run1 = 0;
           }
-          run0 += c_of<kLookup>(d[4 * c], tbl, tlo, thi) +
-                  c_of<kLookup>(d[4 * c + 1], tbl, tlo, thi);
-          run1 += c_of<kLookup>(d[4 * c + 2], tbl, tlo, thi) +
-                  c_of<kLookup>(d[4 * c + 3], tbl, tlo, thi);
+          run0 += tbl[d[4 * c]] + tbl[d[4 * c + 1]];
+          run1 += tbl[d[4 * c + 2]] + tbl[d[4 * c + 3]];
         }
         flush();
       }
@@ -412,8 +408,9 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
         start_half(acc[1], cj, 1);
         wgmma_wait<1>();  // half 0 of chunk cj landed
         epilogue(acc[0], cj * kChunk);
-        // the next chunk's half 0 (the last chunk's again at the end, so
-        // that no branch runs while half 1 is in flight; discarded)
+        // the next chunk's half 0; at the last chunk the last chunk's
+        // again, discarded: 1 / (2 nc) more products, but peeling the last
+        // chunk off instead measured slower (PERF.md section 5)
         start_half(acc[0], min(cj + 1, nc - 1), 0);
         wgmma_wait<1>();  // half 1 of chunk cj landed
         epilogue(acc[1], cj * kChunk + 64);
@@ -431,13 +428,9 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
   }
 }
 
-using MmaKernel = void (*)(const uint8_t*, int32_t*, int, int, int, int, int,
-                           uint32_t, uint32_t);
-const MmaKernel kMmaKernels[2][4] = {
-    {pairs_mma_kernel<kTable, 0>, pairs_mma_kernel<kTable, 1>,
-     pairs_mma_kernel<kTable, 2>, pairs_mma_kernel<kTable, 3>},
-    {pairs_mma_kernel<kPrmt, 0>, pairs_mma_kernel<kPrmt, 1>,
-     pairs_mma_kernel<kPrmt, 2>, pairs_mma_kernel<kPrmt, 3>}};
+using MmaKernel = void (*)(const uint8_t*, int32_t*, int, int, int, int, int);
+const MmaKernel kMmaKernels[4] = {pairs_mma_kernel<0>, pairs_mma_kernel<1>,
+                                  pairs_mma_kernel<2>, pairs_mma_kernel<3>};
 
 }  // namespace
 
@@ -481,32 +474,36 @@ extern "C" int pairs_probe_launch(const void* x, void* out, int n_pad,
   }
 }
 
+// Sequences a tile side of kernel A's tensor-core body at this shape
+// (see mma_tile); 0 where one sequence's windows do not fit its block.
+extern "C" int pairs_mma_tile(int n_pad, int p_pad, int depth) {
+  if (n_pad < 1 || p_pad < 8 || depth < 64) return 0;
+  return mma_tile(n_pad, p_pad, depth);
+}
+
 // Kernel A's tensor-core body. x: [n_pad * p_pad, depth] int8 one-hot
-// windows, depth a multiple of 64; s sequences a tile side (divides
-// n_pad); lookup 0 (shared table) or 1 (prmt on tlo/thi: byte b of
-// thi:tlo is C(b + 1, k); needs every C(m, k) < 128 and k >= 2); variant
-// 0 computes the counts, 1 to 3 time its parts (see pairs_mma_kernel).
+// windows, depth a multiple of 64; the tile side is mma_tile's (the
+// shape must have one); variant 0 computes the counts, 1 to 3 time its
+// parts (see pairs_mma_kernel).
 extern "C" int pairs_mma_launch(const void* x, void* out, int n_pad, int p_pad,
-                                int depth, int k, int s, int lookup,
-                                int variant, unsigned tlo, unsigned thi,
-                                void* stream) {
-  if (depth < 64 || depth % 64 || p_pad < 8 || p_pad % 8 || s < 1 ||
-      n_pad % s || k < 1 || lookup < 0 || lookup > 1 || variant < 0 ||
-      variant > 3) {
+                                int depth, int k, int variant, void* stream) {
+  if (depth < 64 || depth % 64 || p_pad < 8 || p_pad % 8 || n_pad < 1 ||
+      k < 1 || variant < 0 || variant > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int s = mma_tile(n_pad, p_pad, depth);
+  if (s < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t nt = n_pad / s;
   const int64_t blocks = nt * (nt + 1) / 2;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int nc = (s * p_pad + kChunk - 1) / kChunk;
-  const size_t smem = mma_smem_bytes(nc, depth, s);
-  const MmaKernel kernel = kMmaKernels[lookup][variant];
+  const size_t smem = mma_smem_bytes(s, p_pad, depth);
+  const MmaKernel kernel = kMmaKernels[variant];
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(blocks), kMmaThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<int32_t*>(out), n_pad, p_pad,
-      s, k, depth, tlo, thi);
+      s, k, depth);
   return static_cast<int>(cudaGetLastError());
 }

@@ -495,8 +495,8 @@ packed_band_mma_kernel(const uint32_t* __restrict__ x,
         wgmma_s8(acc, smem_desc(a_rows + c * 8, 128, depth * 8),
                  smem_desc(sb + c * 8, 128, depth * 8), c > 0);
       }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_commit();
+      wgmma_wait<0>();
     }
 
     if (kVariant == 1) {  // consume the counts, so the products stay

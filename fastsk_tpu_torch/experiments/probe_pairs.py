@@ -156,7 +156,6 @@ def run_mma_parts(
     p_pad: int,
     reps: int = 3,
     counts_plain: Optional[torch.Tensor] = None,
-    lookup: Optional[str] = None,
 ) -> Dict[str, dict]:
     """Each part of kernel A's tensor-core body (``MMA_PARTS``) on ``x``,
     best of ``reps``; "current" is held to ``counts_plain`` (computed
@@ -167,7 +166,7 @@ def run_mma_parts(
         times = []
         for rep in range(reps):
             out, ms = timed(
-                lambda: pairs_mma_parts(x, g=g, k=k, p_pad=p_pad, variant=part, lookup=lookup),
+                lambda: pairs_mma_parts(x, g=g, k=k, p_pad=p_pad, variant=part),
                 x.device,
             )
             times.append(ms)

@@ -4,8 +4,8 @@
 ``fastsk_tpu/ops/pairs_pallas.py`` as the engine uses it
 (``_pairs_full_device_jit``): one-hot windows in, the full symmetric
 ``[n_pad, n_pad]`` int32 count matrix out. It has two bodies: "mma", the
-match counts on the int8 tensor cores (``pairs_mma_kernel``), up to a
-measured one-hot depth, and "dp4a" (``pairs_kernel``) above it;
+match counts on the int8 tensor cores (``pairs_mma_kernel``),
+wherever its tile fits, and "dp4a" (``pairs_kernel``) elsewhere;
 ``pairs_body`` chooses and ``pairs_counts.bodies`` counts each body's
 launches. ``pairs_probe`` (kernel H) runs one of the cost-attribution
 variants of the dp4a body (``experiments/probe_pairs.py:make_kernel``) on
@@ -53,16 +53,6 @@ def tile_sequences(n_pad: int, p_pad: int, width: int) -> int:
     return s
 
 
-# the tensor-core body's resident tile: two blocks an SM must fit the
-# SM's 228 KB of shared memory, 1 KB a block reserved
-_MMA_BLOCK_BYTES = 113 * 1024
-MMA_CHUNK = 128  # window rows of a chunk (csrc/pairs.cu:kChunk)
-# the tensor-core body beat the dp4a body at every one-hot depth that
-# chip_smoke.py's phase-3 sweep times (64 to 320 bytes; NVIDIA H100 80GB
-# HBM3, 700 W); deeper rows, unmeasured, keep the dp4a body
-MMA_DEPTH_FASTER = 320
-
-
 def mma_depth(f: int) -> int:
     """Bytes a one-hot row of ``f`` bytes takes in the tensor-core body:
     ``f`` rounded up to 64 (two k-steps of the int8 wgmma); the padding
@@ -70,48 +60,23 @@ def mma_depth(f: int) -> int:
     return -(-f // 64) * 64
 
 
-def mma_smem_bytes(s: int, p_pad: int, depth: int) -> int:
-    """Shared memory of one tensor-core block (csrc/pairs.cu:mma_smem_bytes):
-    the resident tile of s sequences in 128-row chunks, two streamed
-    chunks, the s x s bins and the C(d, k) table."""
-    chunks = -(-s * p_pad // MMA_CHUNK)
-    return (chunks + 2) * MMA_CHUNK * depth + (s * s + 32) * 4
-
-
 def mma_tile_sequences(n_pad: int, p_pad: int, depth: int) -> int:
-    """Sequences per side of a tensor-core block's tile: the largest power
-    of two <= 8 dividing ``n_pad`` whose block fits two to an SM; else 1
-    where one sequence's block fits the SM alone; else 0."""
-    s = 8
-    while s >= 1 and (n_pad % s or mma_smem_bytes(s, p_pad, depth) > _MMA_BLOCK_BYTES):
-        s //= 2
-    if s < 1 and mma_smem_bytes(1, p_pad, depth) <= _MAX_SMEM_BYTES:
-        s = 1
-    return max(s, 0)
+    """Sequences per side of a tensor-core block's tile, as the kernel
+    library sizes it (``csrc/pairs.cu:mma_tile``, which alone knows the
+    block's shared-memory layout): the largest power of two <= 8 dividing
+    ``n_pad`` whose block fits two to an SM; else 1 where one sequence's
+    block fits the SM alone; else 0. Needs the built library (the card)."""
+    return int(_build.kernels().pairs_mma_tile(n_pad, p_pad, depth))
 
 
-def pairs_body(g: int, alpha: int) -> str:
-    """Kernel A's body for g codes over ``alpha`` letters: "mma" (the
-    int8 tensor-core product of one-hot rows) up to the measured depth
-    ``MMA_DEPTH_FASTER``, else "dp4a". ``pairs_counts`` takes "dp4a" also
-    where one sequence's tensor-core tile would not fit."""
-    return "mma" if mma_depth(g * alpha) <= MMA_DEPTH_FASTER else "dp4a"
-
-
-def prmt_table(g: int, k: int):
-    """``(tlo, thi)``, C(1..8, k) as the bytes of two 32-bit words, where
-    the prmt lookup of the tensor-core body applies (g <= 8 and k >= 2, so
-    every C(m, k) < 128 and C(1, k) = 0); else None."""
-    if g > 8 or k < 2:
-        return None
-    b = [math.comb(m, k) if m <= g else 0 for m in range(1, 9)]
-    word = lambda q: sum(v << (8 * i) for i, v in enumerate(q))  # noqa: E731
-    return word(b[:4]), word(b[4:])
-
-
-# which C(d, k) lookup the tensor-core body uses where prmt applies:
-# chip_smoke.py's phase 3 times both at KAT2B (the faster is the default)
-MMA_LOOKUP = "prmt"
+def pairs_body(n_pad: int, p_pad: int, f: int) -> str:
+    """Kernel A's body for ``n_pad`` sequences of ``p_pad`` windows of
+    ``f`` one-hot bytes: "mma" (the int8 tensor-core product of one-hot
+    rows) wherever its tile fits, else "dp4a". The tensor-core body beat
+    the dp4a body at every one-hot depth that chip_smoke.py's phase-3
+    sweep times (64 to 448 bytes, the deepest whose tile fits at p_pad =
+    200; NVIDIA H100 80GB HBM3, 700 W)."""
+    return "mma" if mma_tile_sequences(n_pad, p_pad, mma_depth(f)) >= 1 else "dp4a"
 
 
 def _check_x(x: torch.Tensor, g: int, k: int, p_pad: int) -> None:
@@ -143,56 +108,41 @@ def _launch(fn, name: str, x: torch.Tensor, p_pad: int, k: int, *extra):
     return out
 
 
-def _launch_mma(x: torch.Tensor, g: int, k: int, p_pad: int, lookup, variant: int):
+def _launch_mma(x: torch.Tensor, p_pad: int, k: int, variant: int):
     """Pad ``x`` to its tensor-core depth and launch the body's ``variant``
     (0: the counts); returns the ``[n_pad, n_pad]`` int32 output."""
     depth = mma_depth(x.shape[1])
     n_pad = x.shape[0] // p_pad
-    s = mma_tile_sequences(n_pad, p_pad, depth)
-    if s < 1:
+    if mma_tile_sequences(n_pad, p_pad, depth) < 1:
         raise ValueError(
             f"one sequence's windows ({p_pad} x {depth} B) exceed the tensor-core tile"
         )
-    lookup = MMA_LOOKUP if lookup is None else lookup
-    if lookup not in ("table", "prmt"):
-        raise ValueError(f"lookup must be 'table' or 'prmt'; got {lookup!r}")
-    prmt = prmt_table(g, k)
-    if lookup == "prmt" and prmt is None:
-        lookup = "table"  # C(m, k) would not fit a byte
-    tlo, thi = prmt or (0, 0)
     if depth != x.shape[1]:
         x = torch.nn.functional.pad(x, (0, depth - x.shape[1]))
     out = torch.empty((n_pad, n_pad), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _build.kernels().pairs_mma_launch(
-            x.data_ptr(), out.data_ptr(), n_pad, p_pad, depth, k, s,
-            int(lookup == "prmt"), variant, tlo, thi, stream,
+            x.data_ptr(), out.data_ptr(), n_pad, p_pad, depth, k, variant, stream
         )
     _build.check_launch(status, "pairs_counts")
     return out
 
 
-def pairs_counts(
-    x: torch.Tensor, *, g: int, k: int, p_pad: int, body=None, lookup=None
-) -> torch.Tensor:
+def pairs_counts(x: torch.Tensor, *, g: int, k: int, p_pad: int, body=None) -> torch.Tensor:
     """Full symmetric exact count matrix ``[n_pad, n_pad]`` int32 from
     sequence-aligned one-hot windows ``x [n_pad * p_pad, F]`` int8
     (``F = g * alpha``). ``body`` ("mma" or "dp4a") overrides
-    ``pairs_body``'s choice; ``lookup`` ("table" or "prmt") the tensor-core
-    body's C(d, k) lookup (``MMA_LOOKUP`` where prmt applies)."""
+    ``pairs_body``'s choice."""
     _check_x(x, g, k, p_pad)
-    if body is None:
-        body = pairs_body(g, x.shape[1] // g)
-        n_pad = x.shape[0] // p_pad
-        if body == "mma" and mma_tile_sequences(n_pad, p_pad, mma_depth(x.shape[1])) < 1:
-            body = "dp4a"
-    if body not in ("mma", "dp4a"):
+    if body not in (None, "mma", "dp4a"):
         raise ValueError(f"body must be 'mma' or 'dp4a'; got {body!r}")
     if x.device.type == "cpu":
         return pairs_counts_plain(x, k=k, p_pad=p_pad)
+    if body is None:
+        body = pairs_body(x.shape[0] // p_pad, p_pad, x.shape[1])
     if body == "mma":
-        out = _launch_mma(x, g, k, p_pad, lookup, 0)
+        out = _launch_mma(x, p_pad, k, 0)
     else:
         out = _launch(_build.kernels().pairs_counts_launch, "pairs_counts", x, p_pad, k)
     pairs_counts.launches += 1
@@ -204,7 +154,7 @@ MMA_PARTS = ("current", "no_epilogue", "no_mma", "loads")
 
 
 def pairs_mma_parts(
-    x: torch.Tensor, *, g: int, k: int, p_pad: int, variant: str, lookup=None
+    x: torch.Tensor, *, g: int, k: int, p_pad: int, variant: str
 ) -> torch.Tensor:
     """One launch of a variant of kernel A's tensor-core body on the card,
     to time its parts (``MMA_PARTS``: the body itself; without the
@@ -215,7 +165,7 @@ def pairs_mma_parts(
         raise ValueError(f"unknown part {variant!r}; one of {MMA_PARTS}")
     if x.device.type != "cuda":
         raise ValueError("the tensor-core body's parts are timed on the card only")
-    return _launch_mma(x, g, k, p_pad, lookup, MMA_PARTS.index(variant))
+    return _launch_mma(x, p_pad, k, MMA_PARTS.index(variant))
 
 
 PROBE_WIDTHS = (10, 16)  # kernel H's instances, in 32-bit words

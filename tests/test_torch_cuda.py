@@ -46,10 +46,9 @@ def test_kernel_a_matches_plain_and_oracle(cuda, g, m, n, length, alpha):
     x = eng._build_x()
     want = pairs.pairs_counts_plain(x, k=g - m, p_pad=eng.p_pad)
     oracle_counts = oracle.exact_counts(X, g, m)
-    # both bodies, and the tensor-core body with both C(d, k) lookups
-    for body, lookup in (("dp4a", None), ("mma", "table"), ("mma", "prmt")):
+    for body in ("dp4a", "mma"):
         before = pairs_cuda.pairs_counts.launches, dict(pairs_cuda.pairs_counts.bodies)
-        got = pairs_cuda.pairs_counts(x, g=g, k=g - m, p_pad=eng.p_pad, body=body, lookup=lookup)
+        got = pairs_cuda.pairs_counts(x, g=g, k=g - m, p_pad=eng.p_pad, body=body)
         torch.cuda.synchronize()
         assert pairs_cuda.pairs_counts.launches == before[0] + 1
         assert pairs_cuda.pairs_counts.bodies[body] == before[1][body] + 1
@@ -58,23 +57,50 @@ def test_kernel_a_matches_plain_and_oracle(cuda, g, m, n, length, alpha):
 
 
 # one-hot depths that take each body by default: 40 B (pads to 64, mma),
-# 320 B (mma, one block an SM) and 420 B (dp4a); a tile of several 128-row
-# chunks (p_pad = 200, four sequences a side) and sequences that end
-# inside a chunk
+# 320 B (mma, one block an SM), 420 B (448, mma, short sequences: a run
+# per column sequence) and 512 B at p_pad = 200 (past the tensor-core
+# tile: dp4a); a tile of several 128-row chunks (p_pad = 200, four
+# sequences a side) and sequences that end inside a chunk
 @pytest.mark.parametrize(
     "g,m,alpha,n,length,body",
-    [(8, 4, 5, 21, 200, "mma"), (8, 4, 40, 9, 60, "mma"), (6, 3, 70, 9, 40, "dp4a")],
+    [
+        (8, 4, 5, 21, 200, "mma"),
+        (8, 4, 40, 9, 60, "mma"),
+        (6, 3, 70, 9, 40, "mma"),
+        (8, 4, 64, 5, 200, "dp4a"),
+    ],
 )
 def test_kernel_a_default_body_by_depth(cuda, g, m, alpha, n, length, body):
     rng = np.random.default_rng(alpha * 10 + n)
     X = [rng.integers(1, alpha + 1, size=length).tolist() for _ in range(n)]
     X[0] = list(range(1, alpha + 1)) + X[0][alpha:]  # every code, so the alphabet is alpha
     eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
-    assert eng.alpha == alpha and pairs_cuda.pairs_body(g, alpha) == body
+    assert eng.alpha == alpha
+    assert pairs_cuda.pairs_body(eng.n_pad, eng.p_pad, g * alpha) == body
     before = dict(pairs_cuda.pairs_counts.bodies)
     got = eng.exact()
     assert pairs_cuda.pairs_counts.bodies[body] == before[body] + 1
     np.testing.assert_array_equal(got, oracle.exact_counts(X, g, m))
+
+
+@pytest.mark.parametrize(
+    "n_pad,p_pad,depth,tile",
+    [
+        (7024, 200, 64, 4),   # KAT2B: 8 sequences would leave one block an SM
+        (7232, 192, 64, 8),   # 7230 x 200 DNA, g=16
+        (24, 96, 64, 8),
+        (12, 8, 64, 4),
+        (8, 200, 192, 1),
+        (8, 200, 320, 1),     # one block an SM
+        (8, 200, 448, 1),     # the deepest tile at p_pad = 200
+        (8, 200, 512, 0),     # one sequence's tile does not fit: the dp4a body
+        (8, 904, 320, 0),
+    ],
+)
+def test_kernel_a_mma_tiling(cuda, n_pad, p_pad, depth, tile):
+    s = pairs_cuda.mma_tile_sequences(n_pad, p_pad, depth)
+    assert s == tile and (s == 0 or n_pad % s == 0)
+    assert pairs_cuda.pairs_body(n_pad, p_pad, depth) == ("mma" if tile else "dp4a")
 
 
 def _c_svc_problem(n, seed=3):

@@ -161,73 +161,51 @@ def test_kernel_a_tiling(n_pad, p_pad, f, width, tile):
 
 
 @pytest.mark.parametrize(
-    "g,alpha,depth,body",
+    "g,alpha,depth",
     [
-        (8, 5, 64, "mma"),     # KAT2B: 40 one-hot bytes pad to 64
-        (16, 4, 64, "mma"),    # 7230 x 200 DNA, g=16
-        (8, 16, 128, "mma"),
-        (8, 24, 192, "mma"),
-        (8, 40, 320, "mma"),
-        (8, 41, 384, "dp4a"),  # past the measured depth
-        (10, 40, 448, "dp4a"),
+        (8, 5, 64),     # KAT2B: 40 one-hot bytes pad to 64
+        (16, 4, 64),    # 7230 x 200 DNA, g=16
+        (8, 16, 128),
+        (8, 24, 192),
+        (8, 40, 320),
+        (8, 41, 384),
+        (8, 56, 448),   # the deepest tensor-core tile at p_pad = 200
+        (10, 40, 448),
+        (6, 3, 64),
     ],
 )
-def test_kernel_a_body_and_depth(g, alpha, depth, body):
+def test_kernel_a_mma_depth_padding(rng, g, alpha, depth):
+    """The tensor-core body's depth: g * alpha rounded up to 64 bytes; the
+    zero bytes it pads with add no matches."""
     assert pairs_cuda.mma_depth(g * alpha) == depth
     assert depth % 64 == 0 and depth - 64 < g * alpha <= depth
-    assert pairs_cuda.pairs_body(g, alpha) == body
+    X = [rng.integers(1, alpha + 1, size=g + 5).tolist() for _ in range(4)]
+    X[0][: min(alpha, g + 5)] = list(range(1, min(alpha, g + 5) + 1))
+    eng = PairsGkmEngine(encode_sequences(X), g, g // 2, CPU)
+    x = eng._build_x()
+    padded = torch.nn.functional.pad(x, (0, depth - x.shape[1]))
+    k = g - g // 2
+    np.testing.assert_array_equal(
+        pairs.pairs_counts_plain(padded, k=k, p_pad=eng.p_pad).numpy(),
+        pairs.pairs_counts_plain(x, k=k, p_pad=eng.p_pad).numpy(),
+    )
 
 
-@pytest.mark.parametrize(
-    "n_pad,p_pad,depth,tile",
-    [
-        (7024, 200, 64, 4),   # KAT2B: 8 sequences would leave one block an SM
-        (7232, 192, 64, 8),   # 7230 x 200 DNA, g=16
-        (24, 96, 64, 8),
-        (12, 8, 64, 4),
-        (8, 200, 192, 1),
-        (8, 200, 320, 1),     # one block an SM
-        (8, 904, 320, 0),     # one sequence's tile does not fit: the dp4a body
-    ],
-)
-def test_kernel_a_mma_tiling(n_pad, p_pad, depth, tile):
-    s = pairs_cuda.mma_tile_sequences(n_pad, p_pad, depth)
-    assert s == tile
-    if s:
-        blocks = 2 if depth < 320 else 1  # blocks an SM holds
-        assert n_pad % s == 0
-        assert blocks * (pairs_cuda.mma_smem_bytes(s, p_pad, depth) + 1024) <= 228 * 1024
-
-
-def _prmt(lo, hi, sel):
-    """PTX prmt.b32 in its default mode: result byte n is byte (nibble n
-    of sel) & 7 of hi:lo, or that byte's sign bit replicated where the
-    nibble's bit 3 is set."""
-    src = (hi << 32) | lo
-    out = 0
-    for n in range(4):
-        nib = (sel >> (4 * n)) & 0xF
-        b = (src >> (8 * (nib & 7))) & 0xFF
-        if nib & 8:
-            b = 0xFF if b & 0x80 else 0
-        out |= b << (8 * n)
-    return out
-
-
-@pytest.mark.parametrize("g,k", [(8, 4), (8, 2), (8, 7), (6, 2), (5, 3), (8, 8)])
-def test_kernel_a_prmt_lookup_is_binomial(g, k):
-    """The tensor-core body's register lookup, prmt with selector M - 1,
-    gives C(M, k) for every match count 0 <= M <= g (M = 0 selects byte 7
-    sign-replicated, which is 0)."""
-    lo, hi = pairs_cuda.prmt_table(g, k)
-    for m in range(g + 1):
-        assert _prmt(lo, hi, (m - 1) & 0xFFFFFFFF) == math.comb(m, k), m
-
-
-def test_kernel_a_prmt_lookup_needs_small_binomials():
-    assert pairs_cuda.prmt_table(9, 4) is None   # C(9, 4) past a byte's table
-    assert pairs_cuda.prmt_table(8, 1) is None   # C(1, 1) = 1 would fill the upper bytes
-    assert pairs_cuda.prmt_table(16, 6) is None
+# the alphabets of chip_smoke.py's phase-3 depth sweep (one-hot depths
+# 128 to 448 bytes at g=8) and 64 letters (512 bytes, past the
+# tensor-core tile at p_pad = 200), on uniform and ragged lengths
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("alpha", [16, 24, 40, 48, 56, 64])
+def test_counts_match_jax_at_sweep_alphabets(rng, alpha, ragged):
+    X = (
+        random_ragged_seqs(rng, 5, 9, 16, alphabet=alpha)
+        if ragged
+        else [rng.integers(1, alpha + 1, size=14).tolist() for _ in range(5)]
+    )
+    enc = encode_sequences(X)
+    got = PairsGkmEngine(enc, 8, 4, CPU).exact()
+    np.testing.assert_array_equal(got, oracle.exact_counts(X, 8, 4))
+    np.testing.assert_array_equal(got, JPairsGkmEngine(enc, 8, 4).exact())
 
 
 def test_kernel_a_body_argument_checked_and_cpu_plain():
