@@ -9,7 +9,8 @@ raises and the exit code is non-zero:
 1. env    torch / CUDA / card / nvcc / triton facts; refuses to run
           without a CUDA device.
 2. build  compiles kernels A, H (csrc/pairs.cu), B, C (csrc/smo.cu) and
-          D, E, F, G (csrc/pairs_packed.cu; A and D share csrc/hopper.cuh)
+          D, E, F, G (csrc/pairs_packed.cu; A, D, F and G share
+          csrc/hopper.cuh)
           from the checkout, one nvcc per source in parallel; prints the
           seconds and the kernels whose wgmma ptxas serializes.
 3. pairs  kernel A's two bodies (the int8 tensor-core one and the dp4a
@@ -39,7 +40,8 @@ raises and the exit code is non-zero:
           card: the f64 kernel equals ep_sl_g6m2.txt bit for bit.
 7. packed kernels D (its tensor-core body, and its byte-code body on the
           same rows), E and G (the packed engine's band, pair-list and
-          grouped routes) against the plain version: a small seeded
+          grouped routes; G one launch a strip) against the plain
+          version: a small seeded
           ragged set whose sequences straddle 2048-row strips (also
           against inline numpy counts) and a medium one (400 sequences,
           lengths 16-905, alphabet 24, g=8, m=4). Integers must be equal.
@@ -49,7 +51,8 @@ raises and the exit code is non-zero:
 8. packed-full  the shape of protein 2.19 (2564 sequences, lengths
           16-905, alphabet 24, g=8, m=4): D, E and G equal each other and
           the plain version, and D equals kernel A run on the same set in
-          the padded sequence-aligned layout.
+          the padded sequence-aligned layout; G's route launches its
+          tensor-core body once a strip.
 9. ragged-slice  that set, 80/20 split, positives carrying a seeded motif,
           through FastSK(8, 4).compute_kernel (device_resident=True) ->
           fit(C=0.01) -> score("auc") with the counters zeroed just
@@ -95,22 +98,33 @@ raises and the exit code is non-zero:
           then -s nu_svc -r fastsk with a LIBSVM model and the kernel saved,
           and `python -m fastsk_tpu_torch.predict_cli` on them: its accuracy
           within 0.05 points (one row of 2000) of the CLI's.
-14. packed-s1  kernel F (csrc/pairs_packed.cu, the mesh paths' stage 1)
-          against its plain version at phase 7's medium set (g=8, m=4) and
-          at a seeded ragged DNA set at g=12, m=6 (two digit planes in the
-          JAX package): strip 0 against every strip, and a middle strip
-          against every later one (a == b, a < b, sequences straddling the
-          strips). Integers must be equal.
-15. mesh    the 2.19 shape's ragged slice through FastSK.compute_kernel
-          under make_mesh(1, 1) and make_mesh(2, 2) over the card named
-          four times, each with mesh_state "sharded" (the ring) and
+14. packed-block  kernel F (csrc/pairs_packed.cu packed_block, stage 1,
+          stage 2 and the landing in one launch) against its plain
+          composite (ops/pairs_packed.py:packed_block_plain) at phase 7's
+          medium set (g=8, m=4) and at a seeded ragged DNA set at g=12,
+          m=6 (two digit planes in the JAX package), both bodies: the
+          rectangle of the later half of the row strips against every
+          strip but the first, landed with a row offset (the ring's walk),
+          and the triangles of strip 0 and of a middle strip (the
+          round-robin's); then F's stage-1 kernel alone (packed_s1): strip
+          0 against every strip, and a middle strip against every later
+          one (a == b, a < b, sequences straddling the strips). Integers
+          must be equal.
+15. mesh    kernel F at the 2.19 shape timed against D on the same rows:
+          the ring's whole rectangle in one launch, and the round-robin's
+          triangles, one launch a strip, both equal to D. Then the 2.19
+          shape's ragged slice through FastSK.compute_kernel under
+          make_mesh(1, 1) and make_mesh(2, 2) over the card named four
+          times, each with mesh_state "sharded" (the ring) and
           "replicated" (round-robin strips), the counters zeroed before
-          each: counts integer-equal to kernel D's single-device counts,
-          kernel F launched, its plain version never called, no other
-          count kernel launched. The 2x2 ring run then fits (C=0.01) and
-          scores: AUC equal to the single-device host path's within 1e-9
-          and >= 0.9. With two or more cards a mesh over distinct cards
-          runs too; on one card a line says it was skipped.
+          each: counts integer-equal to kernel D's single-device counts;
+          kernel F launched once a (device, ring step) or a strip, the
+          stage-1 kernel never, the plain composite, stage 2 and the torch
+          landing never called, no other count kernel launched. The 2x2
+          ring run then fits (C=0.01) and scores: AUC equal to the
+          single-device host path's within 1e-9 and >= 0.9. With two or
+          more cards a mesh over distinct cards runs too; on one card a
+          line says it was skipped.
 16. probe   kernel H (csrc/pairs.cu, the variants of kernel A's body) at
           KAT2B and at the 7230 x 200 g=16 m=10 shape of phase 3, best of
           3 each, the counters zeroed before: every variant equal to its
@@ -566,16 +580,27 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         )
         return band, grouped
 
-    def route_counts(band, grouped):
+    def route_counts(band, grouped, launches=None):
         """{route: (int64 counts in the input order, ms)}; each route runs
-        once to warm up, then once timed with CUDA events."""
+        once to warm up, then once timed with CUDA events, its kernel's
+        launches in that run (and G's bodies) into ``launches``."""
         out = {}
-        for name, eng, route in (
-            ("D", band, "band"), ("E", band, "pairlist"), ("G", grouped, "grouped"),
+        for name, eng, route, fn in (
+            ("D", band, "band", pairs_packed_cuda.packed_band),
+            ("E", band, "pairlist", pairs_packed_cuda.packed_pairlist),
+            ("G", grouped, "grouped", pairs_packed_cuda.packed_grouped),
         ):
             eng.route = route
             eng._counts()
+            fn.launches = 0
+            bodies = dict(pairs_packed_cuda.packed_grouped.bodies)
             out[name] = cuda_ms(eng._counts)
+            if launches is not None:
+                launches[name] = fn.launches
+                if name == "G":
+                    launches["G_bodies"] = {
+                        b: n - bodies[b] for b, n in pairs_packed_cuda.packed_grouped.bodies.items()
+                    }
         band.route = "band"
         return out
 
@@ -624,7 +649,8 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
     # ------------------------------- the 2.19 shape: D = E = G = kernel A
     X219, _, r_tr, r_te, ry_tr, ry_te = slice_219(full)
     band, grouped = packed_engines(X219, 8, 4)
-    res = route_counts(band, grouped)
+    full_launches = {}
+    res = route_counts(band, grouped, full_launches)
     res["D-bytes"] = bytes_body_counts(band, band.rows())
     d_counts = res["D"][0]
     eng_a = PairsGkmEngine(encode_sequences(X219), 8, 4, KernelConfig(device=dev))
@@ -651,9 +677,14 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         window_pairs_upper=windows * (windows + 1) // 2, p_pad_a=eng_a.p_pad,
         width_a=x_a.shape[1], kernel_ms={name: ms for name, (_, ms) in res.items()},
         kernel_a_ms=a_ms, plain_ms=full_plain_ms, max_abs_err_vs_d=errs,
-        checksum=int(d_counts.sum()),
+        checksum=int(d_counts.sum()), launches=full_launches, g_strips=grouped.n_strips,
     )
     require(all(e == 0 for e in errs.values()), f"D, E, G, A and plain disagree at the 2.19 shape: {errs}")
+    require(
+        full_launches["G"] == grouped.n_strips
+        and full_launches["G_bodies"] == {"mma": grouped.n_strips, "bytes": 0},
+        f"G's route did not launch its tensor-core body once a strip: {full_launches}",
+    )
     full_times = {name: ms for name, (_, ms) in res.items()}
     del band, grouped, res, d_counts, x_a, a_full, a_counts
     torch.cuda.empty_cache()
@@ -758,7 +789,9 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
             "plain_ms": packed_times["medium"][key][1],
             "ms_2_19": full_times[key], "plain_ms_2_19": full_plain_ms,
             **medium_bound, "library_ms": None, "bound_ms_2_19": full_bound["bound_ms"],
+            "launches_2_19_route": full_launches[key],
             **(d_extra if key == "D" else {}),
+            **({"bodies_2_19_route": full_launches["G_bodies"]} if key == "G" else {}),
         }
         for key, fn, line in (
             ("D", pairs_packed_cuda.packed_band, 605),
@@ -1119,10 +1152,13 @@ def cli_phase(tmpdir: str, device: str = "cuda", prefix: str = EP300) -> dict:
 
 
 def s1_phase(dev, medium=(400, 16, 905), dna=(300, 16, 905)) -> dict:
-    """Phase 14: kernel F against its plain version at ``medium`` (phase
-    7's set, g=8 m=4) and at a seeded ragged DNA set of ``dna`` at g=12
-    m=6. Returns {shape: fields} of the timed launch (strip 0 against
-    every strip)."""
+    """Phase 14: kernel F (``packed_block``) against its plain composite
+    at ``medium`` (phase 7's set, g=8 m=4) and at a seeded ragged DNA set
+    of ``dna`` at g=12 m=6, both walks and both bodies, each warmed up and
+    timed; then F's stage-1 kernel (``packed_s1``) against its plain
+    version. Returns {shape: fields}: the rectangle's with the default
+    body at the top, every case's under "cases", the stage-1 kernel's
+    under "s1"."""
     from fastsk_tpu_torch import KernelConfig
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
     from fastsk_tpu_torch.ops import pairs_packed, pairs_packed_cuda
@@ -1138,7 +1174,50 @@ def s1_phase(dev, medium=(400, 16, 905), dna=(300, 16, 905)) -> dict:
         tile, ns, k = eng.tile, eng.n_strips, g - m
         mid = ns // 2
         valid = (rows.seq_of >= 0).view(ns, tile).sum(1).tolist()
-        errs, fields = [], None
+        fs = rows.first_seq.tolist()
+        words = rows.words.shape[1]
+        n_pad = eng.n + eng.c_pad
+        default = pairs_packed_cuda.band_body(g, eng.alpha)
+
+        # the ring's steps with a row offset (a rectangle against other
+        # strips; the triangle of a device's own strips with its mirror),
+        # the round-robin's triangles: (rows, kwargs, out rows, column
+        # windows, window pairs)
+        blk = fs[ns - 1] + eng.c_max - fs[mid]
+        w_mid = sum(valid[mid:])
+        cases = {
+            "rectangle": ((mid, ns), dict(rows_j=rows, strips_j=(1, ns), row_off=fs[mid]),
+                          blk, sum(valid[1:]), w_mid * sum(valid[1:])),
+            "ring_diagonal": ((mid, ns), dict(strips_j=(mid, ns), row_off=fs[mid]),
+                              blk, w_mid, w_mid * (w_mid + 1) // 2),
+            "triangle_0": ((0, 1), {}, n_pad, sum(valid), valid[0] * sum(valid)),
+            "triangle_mid": ((mid, mid + 1), {}, n_pad, w_mid, valid[mid] * w_mid),
+        }
+        fields, errs = {}, {}
+        for name, (strips_i, kw, m_rows, cols, pairs) in cases.items():
+            zeros = lambda: torch.zeros((m_rows, n_pad), dtype=torch.int64, device=dev)  # noqa: E731
+            want, plain_ms = cuda_ms(pairs_packed.packed_block_plain, zeros(), rows, strips_i, k=k, **kw)
+            ops_bytes = (
+                2.0 * g * eng.alpha * pairs,
+                (tile * (strips_i[1] - strips_i[0]) + cols) * (4 * words + 4) + want.numel() * 8,
+            )
+            for body in ("mma", "bytes"):
+                pairs_packed_cuda.packed_block(zeros(), rows, strips_i, k=k, body=body, **kw)
+                got, ms = cuda_ms(
+                    pairs_packed_cuda.packed_block, zeros(), rows, strips_i, k=k, body=body, **kw
+                )
+                errs[f"{name}/{body}"] = int((got - want).abs().max())
+                fields[f"{name}/{body}"] = dict(
+                    ms=ms, plain_ms=plain_ms, strips_i=list(strips_i), window_pairs=pairs,
+                    **bound(*ops_bytes, PEAK_INT8_OPS),
+                )
+                del got
+            del want
+        top = dict(fields[f"rectangle/{default}"], body=default, max_abs_err=max(errs.values()))
+
+        # F's stage-1 kernel alone: strip 0 against every strip, a middle
+        # strip against every later one
+        s1_errs, s1 = [], None
         for a, b0, n_b in ((0, 0, ns), (mid, mid, ns - mid)):
             args = (rows, a, rows, b0, n_b)
             pairs_packed_cuda.packed_s1(*args, k=k)  # warm-up launch
@@ -1150,40 +1229,129 @@ def s1_phase(dev, medium=(400, 16, 905), dna=(300, 16, 905)) -> dict:
             want, plain_ms = cuda_ms(
                 pairs_packed.packed_s1_plain, *plain_args, k=k, tile=tile, c_pad=eng.c_pad
             )
-            errs.append(int((got.long() - want.long()).abs().max()))
-            if fields is None:
-                pairs = valid[a] * sum(valid[b0 : b0 + n_b])
-                words = rows.words.shape[1]
-                fields = dict(
+            s1_errs.append(int((got.long() - want.long()).abs().max()))
+            if s1 is None:
+                s1 = dict(
                     ms=ms, plain_ms=plain_ms, launch=dict(a=a, b0=b0, n_b=n_b),
                     **bound(
-                        2.0 * g * eng.alpha * pairs,
+                        2.0 * g * eng.alpha * valid[a] * sum(valid[b0 : b0 + n_b]),
                         (1 + n_b) * tile * (4 * words + 4) + got.numel() * 4,
                         PEAK_INT8_OPS,
                     ),
                 )
             del got, want
-        fields["max_abs_err"] = max(errs)
+        s1["max_abs_err"] = max(s1_errs)
         emit(
-            "packed-s1", shape=shape, g=g, m=m, n=eng.n, strips=ns, tile=tile,
-            c_max=eng.c_max, c_pad=eng.c_pad, straddling=straddling(eng),
-            max_abs_err_per_launch=errs, **fields,
+            "packed-block", shape=shape, g=g, m=m, n=eng.n, strips=ns, tile=tile,
+            c_max=eng.c_max, c_pad=eng.c_pad, depth=pairs_packed_cuda.onehot_depth(g, eng.alpha),
+            default_body=default, straddling=straddling(eng), max_abs_err=errs, cases=fields,
+            s1=dict(s1, max_abs_err_per_launch=s1_errs),
         )
         require(straddling(eng) > 0, f"no sequence straddles a strip on {shape}")
-        require(fields["max_abs_err"] == 0, f"kernel F differs from its plain version on {shape}: {errs}")
-        out[shape] = fields
+        require(all(e == 0 for e in errs.values()), f"kernel F differs from its plain composite on {shape}: {errs}")
+        require(s1["max_abs_err"] == 0, f"kernel F's stage 1 differs from its plain version on {shape}: {s1_errs}")
+        out[shape] = dict(top, cases=fields, s1=s1)
         del eng, rows
     torch.cuda.empty_cache()
     return out
 
 
+def f_at_full(dev, r_tr, r_te, d_counts) -> dict:
+    """Part of phase 15: kernel F at the ragged slice's rows (``r_tr`` then
+    ``r_te``, g=8 m=4), timed against kernel D on the same rows
+    (``d_counts``, D's counts in the input order): the 1x1 ring's one
+    launch (its only step is the diagonal one: the triangle over every
+    strip, with its mirror) and the round-robin's triangles, one launch a
+    strip; both equal to D, both bounded by the upper triangle, and the
+    launches of each timed call counted from zero. Also returns each
+    strip's windows, for the mesh runs' bounds. The launches here are not
+    the main path's."""
+    from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_tpu_torch.ops import pairs_packed_cuda
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    eng = PackedPairsEngine(encode_sequences(r_tr, r_te), 8, 4, KernelConfig(device=dev))
+    rows, ns, n = eng.rows(), eng.n_strips, eng.n
+    d_sorted = torch.from_numpy(d_counts[np.ix_(eng.order, eng.order)]).to(dev)
+    out = torch.zeros((n + eng.c_pad,) * 2, dtype=torch.int64, device=dev)
+    block = pairs_packed_cuda.packed_block
+
+    def ring_1x1():
+        block(out, rows, (0, ns), k=4, strips_j=(0, ns))
+
+    def round_robin():
+        for a in range(ns):
+            block(out, rows, (a, a + 1), k=4)
+
+    windows = int(eng.pack["p"].sum())
+    in_bytes = eng.total_rows * 12  # 8 code bytes and a 4-byte seq_of a row
+    res = {}
+    for name, fn in (("ring_1x1", ring_1x1), ("round_robin", round_robin)):
+        fn()  # warm-up
+        out.zero_()
+        block.launches = 0
+        _, ms = cuda_ms(fn)
+        res[name] = dict(
+            ms=ms, launches=block.launches,
+            max_abs_err_vs_d=int((out[:n, :n] - d_sorted).abs().max()),
+            **count_bound(windows, 8 * eng.alpha, in_bytes + n * n * 8),
+        )
+    _, res["d_ms"] = cuda_ms(pairs_packed_cuda.packed_band, rows, k=4, n_out=n)
+    res.update(
+        strips=ns, windows=windows, body=pairs_packed_cuda.band_body(8, eng.alpha),
+        width=8 * eng.alpha, nbytes=in_bytes + n * n * 8,
+        strip_windows=(rows.seq_of >= 0).view(ns, eng.tile).sum(1).tolist(),
+    )
+    emit("packed-block-full", shape="2.19", **{key: v for key, v in res.items() if key != "strip_windows"})
+    require(
+        all(res[w]["max_abs_err_vs_d"] == 0 for w in ("ring_1x1", "round_robin")),
+        f"kernel F differs from kernel D at the 2.19 shape: {res}",
+    )
+    require(res["ring_1x1"]["launches"] == 1 and res["round_robin"]["launches"] == ns,
+            f"kernel F's launches at the 2.19 shape: "
+            f"{[res[w]['launches'] for w in ('ring_1x1', 'round_robin')]} for {ns} strips")
+    del eng, rows, out, d_sorted
+    torch.cuda.empty_cache()
+    return res
+
+
+def route_bound(f_full: dict, n_dev: int, state: str) -> dict:
+    """Bound of one mesh run's kernel-F launches at the slice: the
+    round-robin's upper triangle (every unordered window pair once), or
+    the ring's diagonal steps (the unordered pairs of each device's own
+    windows) and its other steps (every ordered pair of two devices'
+    windows: each device fills its own rows)."""
+    sw = f_full["strip_windows"]
+    if state == "replicated":
+        w = sum(sw)
+        pairs = w * (w + 1) / 2
+    else:
+        spd = -(-len(sw) // n_dev)
+        ws = [sum(sw[d * spd : (d + 1) * spd]) for d in range(n_dev)]
+        pairs = sum(w * (w + 1) / 2 + w * (sum(ws) - w) for w in ws)
+    return bound(2.0 * f_full["width"] * pairs, f_full["nbytes"], PEAK_INT8_OPS)
+
+
+def mesh_launches(n_strips: int, n_dev: int, state: str) -> int:
+    """Kernel F's launches in one mesh run: the ring's one a (device,
+    step) whose own and visiting shards both hold live strips, or one a
+    round-robin strip."""
+    if state == "replicated":
+        return n_strips
+    spd = -(-n_strips // n_dev)
+    return sum(d * spd < n_strips for d in range(n_dev)) ** 2
+
+
 def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
-    """Phase 15: the ragged slice of ``full`` through FastSK under four
-    meshes over this card (and one over distinct cards where there are
-    several), each held to kernel D's single-device counts; the 2x2 ring
-    run fits and scores. Returns the main run's fields."""
+    """Phase 15: kernel F at the ragged slice of ``full`` against D, then
+    that slice through FastSK under four meshes over this card (and one
+    over distinct cards where there are several), each held to kernel D's
+    single-device counts; the 2x2 ring run fits and scores. Returns the
+    main run's fields, with kernel F's timing at the slice and every mesh
+    run's counted launches, times and bound under "runs"."""
     from fastsk_tpu_torch import FastSK, KernelConfig
-    from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed_cuda
+    from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed, pairs_packed_cuda
     from fastsk_tpu_torch.parallel import make_mesh
     from fastsk_tpu_torch.parallel import sharding as shd
     from fastsk_tpu_torch.svm import smo_cuda
@@ -1196,27 +1364,37 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
     d_counts = hfsk.kernel_counts
     del hfsk
     torch.cuda.empty_cache()
+    f_full = f_at_full(dev, r_tr, r_te, d_counts)
 
     counters = (
         pairs_cuda.pairs_counts, pairs_packed_cuda.packed_band,
         pairs_packed_cuda.packed_pairlist, pairs_packed_cuda.packed_grouped,
-        pairs_packed_cuda.packed_s1, smo_cuda.smo_solve,
+        pairs_packed_cuda.packed_s1, pairs_packed_cuda.packed_block, smo_cuda.smo_solve,
     )
     seen = {}
     spied = (shd.packed_ring_rowsharded, shd.packed_round_sharded)
 
     def spy(fn):
         def call(state, *args, **kwargs):
-            seen["state"] = sorted({tuple(t.shape) for t in state})
-            return fn(state, *args, **kwargs)
+            seen.setdefault("state", sorted({tuple(t.shape) for t in state}))
+            out, ms = cuda_ms(fn, state, *args, **kwargs)  # the route's launches
+            seen["route_ms"] = seen.get("route_ms", 0.0) + ms
+            return out
         return call
 
-    plain_calls = [0]
-    plain = pairs_packed_cuda.packed_s1_plain
+    # the plain composite, its stage 2 and the torch landing: never on the card
+    patched = [
+        (pairs_packed_cuda, "packed_s1_plain"), (pairs_packed_cuda, "packed_block_plain"),
+        (pairs_packed, "parts_from_s1"), (pairs_packed, "add_blocks"),
+    ]
+    originals = [getattr(mod, name) for mod, name in patched]
+    plain_calls = {name: 0 for _, name in patched}
 
-    def counted_plain(*args, **kwargs):
-        plain_calls[0] += 1
-        return plain(*args, **kwargs)
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            plain_calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
 
     n_cards = torch.cuda.device_count()
     runs = [((1, 1), state, [dev]) for state in ("sharded", "replicated")]
@@ -1229,47 +1407,60 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
             FastSK(g=8, m=4, config=KernelConfig(
                 device=dev, mesh=make_mesh(1, len(cards), devices=cards), mesh_state=state,
             )).compute_kernel(r_tr[:200], r_te[:50])
-    main = None
+    main, per_run = None, {}
     shd.packed_ring_rowsharded, shd.packed_round_sharded = map(spy, spied)
-    pairs_packed_cuda.packed_s1_plain = counted_plain
+    for (mod, name), fn in zip(patched, originals):
+        setattr(mod, name, counted(name, fn))
     try:
         for shape, state, devices in runs:
             mesh = make_mesh(*shape, devices=devices)
             for c in counters:
                 c.launches = 0
-            plain_calls[0] = 0
+            plain_calls.update({name: 0 for name in plain_calls})
             base = {}
             for d in set(mesh.devices):
                 torch.cuda.reset_peak_memory_stats(d)
                 base[d] = torch.cuda.memory_allocated(d)
             fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, mesh=mesh, mesh_state=state))
             _, kernel_s = wall(fsk.compute_kernel, r_tr, r_te, ry_tr, ry_te)
+            one_card = len(set(mesh.devices)) == 1
             fields = dict(
                 mesh=list(shape), devices=[str(d) for d in mesh.devices],
                 mesh_state=state, kernel_s=kernel_s, kernel_s_d=d_kernel_s,
                 state_shape_per_device=seen.pop("state"),
+                # CUDA events on the first card around the route's launches
+                route_ms=seen.pop("route_ms") if one_card else None,
                 # above what the card held before the run, all entries of it
                 peak_mem_added_bytes={
                     str(d): torch.cuda.max_memory_allocated(d) - b for d, b in base.items()
                 },
                 counts_equal_d=bool(np.array_equal(fsk.kernel_counts, d_counts)),
             )
+            seen.pop("route_ms", None)
             if shape == (2, 2) and state == "sharded":  # the path's main run
                 _, fit_s = wall(fsk.fit, C=0.01)
                 auc, score_s = wall(fsk.score, "auc")
                 fields.update(fit_s=fit_s, score_s=score_s, auc=auc, auc_host_path=h_auc)
                 main = fields
+            launches = {c.__name__: c.launches for c in counters}
+            want = mesh_launches(f_full["strips"], mesh.size, state)
             fields.update(
-                launches={c.__name__: c.launches for c in counters},
-                plain_s1_calls=plain_calls[0],
+                launches=launches, plain_calls=dict(plain_calls),
+                route_bound=route_bound(f_full, mesh.size, state),
             )
             emit("mesh", **fields)
-            launches = fields["launches"]
+            per_run[f"{shape[0]}x{shape[1]} {state}"] = dict(
+                kernel_s=kernel_s, route_ms=fields["route_ms"],
+                launches=launches["packed_block"], **fields["route_bound"],
+            )
             require(fields["counts_equal_d"], f"mesh {shape} {state}: counts differ from kernel D's")
-            require(launches["packed_s1"] > 0, f"mesh {shape} {state}: kernel F did not launch")
-            require(plain_calls[0] == 0, f"mesh {shape} {state}: kernel F's plain version ran")
+            require(launches["packed_block"] == want,
+                    f"mesh {shape} {state}: kernel F launched {launches['packed_block']} times, not {want}")
+            require(launches["packed_s1"] == 0, f"mesh {shape} {state}: F's stage-1 kernel launched")
+            require(not any(plain_calls.values()),
+                    f"mesh {shape} {state}: the plain composite or torch stage 2 ran: {plain_calls}")
             require(
-                all(launches[c.__name__] == 0 for c in counters[:4]),
+                all(launches[c.__name__] == 0 for c in counters[:5]),
                 f"mesh {shape} {state}: another count kernel launched: {launches}",
             )
             if "auc" in fields:
@@ -1280,10 +1471,11 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
             torch.cuda.empty_cache()
     finally:
         shd.packed_ring_rowsharded, shd.packed_round_sharded = spied
-        pairs_packed_cuda.packed_s1_plain = plain
+        for (mod, name), fn in zip(patched, originals):
+            setattr(mod, name, fn)
     if n_cards < 2:
         emit("mesh", distinct_cards="skipped", reason=f"{n_cards} CUDA device visible")
-    return main
+    return dict(main, f_full=f_full, runs=per_run)
 
 
 def probe_phase(cases: dict, reps: int = 3) -> dict:
@@ -1599,16 +1791,34 @@ def main() -> None:
                 "iters_2_19": nu_219["iters_kernel"],
             },
             {
-                "name": "packed_s1", "route": "cuda",
+                # the top-level numbers are the medium set's rectangle (the
+                # walk of the ring's other steps) with the default body,
+                # against the plain composite; launches are the 2x2 ring
+                # run's (the main run); *_2_19_* the slice's rows (phase
+                # 15), each timed call's launches counted; mesh_runs each
+                # mesh run's launches, route ms and bound; s1_* F's
+                # stage-1 kernel alone at the medium set
+                "name": "packed_block", "route": "cuda",
                 "source": "fastsk_tpu_torch/csrc/pairs_packed.cu",
                 "replaces": "fastsk_tpu/ops/pairs_packed_pallas.py:130",
-                "launches": mesh["launches"]["packed_s1"],
-                **s1["medium"], "library_ms": None,
+                "launches": mesh["launches"]["packed_block"],
+                **{key: s1["medium"][key] for key in (
+                    "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "body")},
+                "library_ms": None,
+                "cases": s1["medium"]["cases"],
                 "ms_dna_g12m6": s1["dna-g12m6"]["ms"],
                 "plain_ms_dna_g12m6": s1["dna-g12m6"]["plain_ms"],
                 "max_abs_err_dna_g12m6": s1["dna-g12m6"]["max_abs_err"],
                 "bound_ms_dna_g12m6": s1["dna-g12m6"]["bound_ms"],
-                "mesh_kernel_s": mesh["kernel_s"],
+                "cases_dna_g12m6": s1["dna-g12m6"]["cases"],
+                **{f"{key}_2_19_{route}": mesh["f_full"][route][key]
+                   for route in ("ring_1x1", "round_robin")
+                   for key in ("ms", "launches", "bound_ms")},
+                "d_ms_2_19": mesh["f_full"]["d_ms"],
+                "mesh_runs": mesh["runs"],
+                **{f"s1_{key}": s1["medium"]["s1"][key] for key in (
+                    "ms", "plain_ms", "max_abs_err", "bound_ms")},
+                "s1_launches": mesh["launches"]["packed_s1"],
             },
             {
                 # the top-level numbers are the `current` variant's at KAT2B;

@@ -134,20 +134,23 @@ def kernels() -> ctypes.CDLL:
         for fn in (lib.smo_solve_launch, lib.smo_nu_solve_launch, lib.smo_solve_smem):
             fn.restype = ci
         ll = ctypes.c_longlong
-        lib.packed_band_launch.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ci, ci, vp]
-        lib.packed_band_mma_launch.argtypes = [
-            vp, vp, vp, vp, ll, ll, ci, ci, ci, ci, ci, ci, ci, vp
+        lib.packed_band_launch.argtypes = [
+            vp, vp, vp, vp, ll, ll, ci, ci, ci, ci, ci, ci, ci, ci, vp
+        ]
+        lib.packed_block_launch.argtypes = [
+            vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, ci, vp, ll, ll,
+            ci, ci, ci, ci, ci, ci, ci, vp,
         ]
         lib.packed_pairlist_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp
         ]
         lib.packed_grouped_launch.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, ci, ci, ci, ci, vp
+            vp, vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp
         ]
         lib.packed_s1_launch.argtypes = [
             vp, vp, vp, ci, ci, vp, vp, ll, ci, ci, ci, ci, vp, vp
         ]
-        for fn in (lib.packed_band_launch, lib.packed_band_mma_launch, lib.packed_pairlist_launch,
+        for fn in (lib.packed_band_launch, lib.packed_block_launch, lib.packed_pairlist_launch,
                    lib.packed_grouped_launch, lib.packed_s1_launch):
             fn.restype = ci
         _KERNELS = lib

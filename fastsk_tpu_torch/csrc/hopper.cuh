@@ -1,4 +1,4 @@
-// Hopper building blocks shared by kernels A (pairs.cu) and D
+// Hopper building blocks shared by kernels A (pairs.cu) and D, F and G
 // (pairs_packed.cu): one-hot tiles in wgmma's K-major core-matrix layout,
 // shared-memory matrix descriptors, cp.async and the int8 wgmma.
 #pragma once
@@ -96,7 +96,7 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Tile pairs before row tile ti in row-tile-major order of the upper
 // triangle of nt tiles.
-__device__ __forceinline__ int64_t pairs_before(int64_t ti, int64_t nt) {
+__host__ __device__ __forceinline__ int64_t pairs_before(int64_t ti, int64_t nt) {
   return ti * nt - ti * (ti - 1) / 2;
 }
 

@@ -4,7 +4,8 @@ Builds the packed window table of a seeded ragged set of the protein 2.19
 shape (``profile_mesh.ragged_split``: 2564 sequences, lengths 16-905, 24
 letters) at g=8, m=4, then times, best of ``--reps`` with CUDA events:
 
-- ``mma``: D's tensor-core body (``packed_band_mma_kernel<0>``);
+- ``mma``: D's tensor-core body (``packed_block_mma_kernel<0, ...>``, the
+  walk that kernels F and G share);
 - ``no_epilogue``: the same without the weight lookup and bin sums;
 - ``no_mma``: without the tensor-core products (every count 0);
 - ``no_expand``: without expanding the column tiles' codes to one-hot
@@ -68,10 +69,10 @@ def main(argv=None) -> int:
     def variant(v):
         def run():
             out.zero_()
-            status = lib.packed_band_mma_launch(
+            status = lib.packed_band_launch(
                 words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
                 out.data_ptr(), words.shape[0] // ROW_TILE, eng.n, words.shape[1], rows.g,
-                rows.alpha, onehot_depth(rows.g, rows.alpha), meta.cb, eng.k, v,
+                rows.alpha, onehot_depth(rows.g, rows.alpha), meta.cb, eng.k, 0, v,
                 torch.cuda.current_stream().cuda_stream,
             )
             _build.check_launch(status, "packed_band_mma probe")

@@ -2,9 +2,10 @@
 
 Runs ``FastSK.compute_kernel`` on a seeded ragged set of the protein 2.19
 shape (``chip_smoke.py``'s ragged slice) once to warm up, then once under
-``torch.profiler``, and prints one JSON line: the host wall, the top
-operators by host time and by device time, and the calls that make the
-host wait on the device::
+``torch.profiler``, and prints one JSON line: the host wall, the kernel
+launches the host made (torch's and the port's own, counted from the
+CUDA runtime's launch calls), the top operators by host time and by
+device time, and the calls that make the host wait on the device::
 
     python -m fastsk_tpu_torch.experiments.profile_mesh --mesh 2,2 --state sharded
     python -m fastsk_tpu_torch.experiments.profile_mesh --mesh 1,4 --cards   # distinct cards
@@ -26,6 +27,7 @@ import torch
 from .. import FastSK, KernelConfig
 from ..parallel import make_mesh
 
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy", "aten::item",
          "aten::_local_scalar_dense", "cudaEventSynchronize")
 
@@ -80,6 +82,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "mesh": [r, t], "devices": [str(d) for d in devices], "mesh_state": args.state,
         "device_name": torch.cuda.get_device_name(0), "wall_s": wall,
+        "launches": sum(e.count for e in events if e.key in LAUNCHES),
         "host_ms_total": sum(e.self_cpu_time_total for e in events) / 1e3,
         "device_ms_total": sum(e.self_device_time_total for e in events) / 1e3,
         "top_host": top("self_cpu_time_total"), "top_device": top("self_device_time_total"),

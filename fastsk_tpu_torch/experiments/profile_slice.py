@@ -3,13 +3,16 @@
 ``kat2b`` runs the KAT2B C-SVC slice (g=8, m=4, C=1, device-resident):
 ``compute_kernel``, ``fit`` (the main solve and the Platt folds) and
 ``score("auc")``; ``ragged`` runs ``compute_kernel`` on a seeded ragged
-set of the protein 2.19 shape (``profile_mesh.ragged_split``). Each slice
+set of the protein 2.19 shape (``profile_mesh.ragged_split``), through
+the packed engine's default route (kernel D) or, with ``--backend
+pallas_grouped``, its grouped route (kernel G and its landing). Each slice
 runs once to warm up, then once under ``torch.profiler``; one JSON line
 gives the host walls of the steps, the device busy time and idle share of
 the profiled window, and the device time of the top kernels::
 
     python -m fastsk_tpu_torch.experiments.profile_slice --slice kat2b
     python -m fastsk_tpu_torch.experiments.profile_slice --slice ragged
+    python -m fastsk_tpu_torch.experiments.profile_slice --slice ragged --backend pallas_grouped
 
 Needs a CUDA device.
 """
@@ -54,9 +57,9 @@ def read_splits(prefix: str):
     return out
 
 
-def run(slice_: str, data: str) -> dict:
+def run(slice_: str, data: str, backend: str = "auto") -> dict:
     """Host seconds of each step of one run of the slice."""
-    cfg = KernelConfig(device="cuda", device_resident=True)
+    cfg = KernelConfig(device="cuda", device_resident=True, pairs_backend=backend)
     fsk = FastSK(g=8, m=4, config=cfg)
     steps = {}
 
@@ -83,16 +86,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slice", default="kat2b", choices=("kat2b", "ragged"))
     ap.add_argument("--data", default=KAT2B, help="prefix of the KAT2B split files")
+    ap.add_argument("--backend", default="auto", choices=("auto", "pallas_grouped"),
+                    help="the packed engine's route (KernelConfig.pairs_backend)")
     ap.add_argument("--top", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    run(args.slice, args.data)  # warm-up: the build, the context, caches
+    run(args.slice, args.data, args.backend)  # warm-up: the build, the context, caches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        steps = run(args.slice, args.data)
+        steps = run(args.slice, args.data, args.backend)
         wall = time.perf_counter() - t0
     # device kernels only (their names carry no aten:: prefix): the sum of
     # their self times is the device's busy time, as kernels of one stream
@@ -105,7 +110,8 @@ def main(argv=None) -> int:
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[: args.top]
     print(json.dumps({
-        "slice": args.slice, "device_name": torch.cuda.get_device_name(0),
+        "slice": args.slice, "backend": args.backend,
+        "device_name": torch.cuda.get_device_name(0),
         "wall_s": wall, "steps": steps, "device_busy_s": busy,
         "device_idle_share": max(0.0, 1.0 - busy / wall),
         "top_device": [

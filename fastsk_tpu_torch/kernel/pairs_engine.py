@@ -142,13 +142,14 @@ class PackedPairsEngine:
     ``FASTSK_PACKED_PAIRLIST=1`` or where D's byte-code body (wide
     alphabets, ``band_body``) would pass its 1-D grid;
     kernel G (``packed_grouped``) with ``pairs_backend="pallas_grouped"``.
-    Under a mesh, kernel F (``packed_s1``) in the ring ("ring") or in
-    round-robin strips ("round-robin"), by ``mesh_state``.
+    Under a mesh, kernel F (``packed_block``) in the ring ("ring": one
+    launch a device and ring step) or in round-robin strips ("round-robin":
+    one launch a strip), by ``mesh_state``.
     """
 
     TILE = 2048
     GROUP = 8  # b strips per kernel G launch
-    SLAB_BYTES = 128 << 20  # kernel E's part blocks / F's s1 per launch
+    SLAB_BYTES = pairs_packed.SLAB_BYTES  # kernel E's and G's part blocks per launch
 
     def __init__(
         self,
@@ -244,12 +245,15 @@ class PackedPairsEngine:
                 parts = packed_pairlist(rows, a, b, k=self.k)
                 pairs_packed.land_parts(mat, parts, fs[a.long()], fs[b.long()], b > a)
         else:  # grouped: strip a against the groups of strips b >= a
-            group = self.group
+            group, n_groups = self.group, ns // self.group
+            per = max(1, self.SLAB_BYTES // (group * self.c_pad**2 * 8))
             for a in range(ns):
                 g0 = a // group
                 parts = torch.cat([
-                    packed_grouped(rows, a, gi, k=self.k, group=group)
-                    for gi in range(g0, ns // group)
+                    packed_grouped(
+                        rows, a, gi, k=self.k, group=group, n_groups=min(per, n_groups - gi)
+                    )
+                    for gi in range(g0, n_groups, per)
                 ])[a - g0 * group :]
                 b = torch.arange(a, ns, device=dev)
                 pairs_packed.land_parts(
@@ -308,11 +312,6 @@ class PackedPairsEngine:
         pos[self.order] = np.arange(self.n)
         return k_sorted[np.ix_(pos, pos)]
 
-    def _mesh_slab(self) -> int:
-        """b strips per kernel-F launch: its [slab, c_pad, tile] int32
-        output within ``SLAB_BYTES``."""
-        return max(1, self.SLAB_BYTES // (self.c_pad * self.tile * 4))
-
     def _per_device(self, make) -> list:
         """``make(device)`` for each mesh device, made once per distinct
         device (a repeated device shares its tensors, as JAX's replicated
@@ -366,15 +365,11 @@ class PackedPairsEngine:
             )
             for d, dev in enumerate(mesh.devices)
         ]
-        bounds = self._per_device(
-            lambda dev: torch.from_numpy(self.pack["bounds"]).to(dev)
-        )
         blocks = [torch.zeros((blk, n_pad), dtype=torch.int64, device=dev)
                   for dev in mesh.devices]
         blocks = shd.packed_ring_rowsharded(
-            blocks, shards, bounds, [int(r) for r in row0], mesh=mesh,
-            spd=spd, k=self.k, c_max=self.c_max, n_strips=self.n_strips,
-            slab=self._mesh_slab(),
+            blocks, shards, [int(r) for r in row0], mesh=mesh, spd=spd, k=self.k,
+            n_strips=self.n_strips,
         )
         blocks_host = shd.host_gather(blocks)
         rows_total = max(int(row0.max()) + blk, n_pad)
@@ -391,14 +386,10 @@ class PackedPairsEngine:
         mesh = self.mesh
         n_pad = self.n + self.c_pad
         rows = self._per_device(self.rows)
-        bounds = self._per_device(
-            lambda dev: torch.from_numpy(self.pack["bounds"]).to(dev)
-        )
         mats = [torch.zeros((n_pad, n_pad), dtype=torch.int64, device=dev)
                 for dev in mesh.devices]
         for ridx in range(-(-self.n_strips // mesh.size)):
             mats = shd.packed_round_sharded(
-                mats, rows, bounds, ridx, mesh=mesh, k=self.k,
-                c_max=self.c_max, n_strips=self.n_strips, slab=self._mesh_slab(),
+                mats, rows, ridx, mesh=mesh, k=self.k, n_strips=self.n_strips,
             )
         return shd.host_gather(mats).sum(axis=0)[: self.n, : self.n]

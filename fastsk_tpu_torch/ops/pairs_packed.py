@@ -19,16 +19,17 @@ counted exactly once, sequences straddling strips included, and the
 result is the full symmetric matrix.
 
 The plain versions here (``packed_pair_parts_plain``,
-``packed_counts_plain``, ``packed_s1_plain``) are what kernels D, E, G and
-F (``ops/pairs_packed_cuda.py``) compute. They sum exact integers: the
-JAX package's base-128/256 digit planes only kept bf16/int8 MXU operands
-exact and are not part of the function.
+``packed_counts_plain``, ``packed_block_plain``, ``packed_s1_plain``) are
+what kernels D, E, G and F (``ops/pairs_packed_cuda.py``) compute. They
+sum exact integers: the JAX package's base-128/256 digit planes only kept
+bf16/int8 MXU operands exact and are not part of the function.
 
-The mesh paths (``parallel/sharding.py``) split a part block in two
-stages, as the JAX package's ``_pair_parts`` does: kernel F's stage 1
-(rows -> i sequences, ``s1 [n_b, c_pad, tile]``), then ``parts_from_s1``
-(columns -> j sequences: a cumsum gathered at the strip's sequence
-boundaries), in torch ops on every device.
+The JAX mesh paths split a part block in two stages (``_pair_parts``):
+kernel F's stage 1 (rows -> i sequences, ``s1 [n_b, c_pad, tile]``), then
+stage 2 (columns -> j sequences: a cumsum gathered at the strip's
+sequence boundaries), then land it. ``packed_block_plain`` is that
+composite (``packed_s1_plain``, ``parts_from_s1``, ``add_blocks``); on the
+card kernel F does all three in one launch.
 """
 
 from __future__ import annotations
@@ -285,72 +286,84 @@ def parts_from_s1(
     return at - torch.nn.functional.pad(at[:, :, :-1], (1, 0))
 
 
-def pair_parts(rows_a, a: int, rows_b, b0: int, n_b: int, bounds, *, k: int, c_max: int):
-    """Part blocks ``[n_b, c_max, c_max]`` int64 of strip ``a`` of
-    ``rows_a`` against strips ``b0 .. b0 + n_b - 1`` of ``rows_b``
-    (``PackedRows`` on one device; ``bounds`` their ``[n_b, c_max]``
-    rows): kernel F, then stage 2."""
-    from .pairs_packed_cuda import packed_s1
-
-    s1 = packed_s1(rows_a, a, rows_b, b0, n_b, k=k)
-    return parts_from_s1(s1, bounds, c_max=c_max)
+# the plain composite's stage-1 sums per step; kernel E's and G's part
+# blocks per launch (kernel/pairs_engine.py)
+SLAB_BYTES = 128 << 20
 
 
-def strip_planes_update(
-    mat: torch.Tensor,  # [Np, Np] int64, Np >= max(first_seq) + c_max
-    rows,  # PackedRows: the whole table, on mat's device
-    a: int,
-    bounds: torch.Tensor,  # [n_strips, c_max] int32 on mat's device
+def strip_span(seq_of: torch.Tensor, first_seq: torch.Tensor, tile: int) -> int:
+    """The largest number of sequences any ``tile``-row strip holds part
+    of (at least 1)."""
+    s = seq_of.view(-1, tile).long()
+    local = torch.where(s >= 0, s - first_seq.long()[:, None], -1)
+    return max(int(local.max()) + 1, 1)
+
+
+def strip_bounds(
+    seq_of: torch.Tensor, first_seq: torch.Tensor, tile: int, c: int
+) -> torch.Tensor:
+    """``pack_windows``'s ``bounds`` of a table's strips at width ``c``
+    (``[n_strips, c]`` int32): 1 + the last row (within the strip) of each
+    local sequence, carried forward past the strip's last one."""
+    s = seq_of.view(-1, tile).long()
+    valid = s >= 0
+    local = torch.where(valid, s - first_seq.long()[:, None], 0)
+    end = torch.arange(1, tile + 1, device=s.device).expand_as(s) * valid
+    last = torch.zeros((s.shape[0], c), dtype=torch.int64, device=s.device)
+    last.scatter_reduce_(1, local, end, "amax")
+    return torch.cummax(last, dim=1).values.to(torch.int32)
+
+
+def packed_block_plain(
+    out: torch.Tensor,  # [M, ld] int64
+    rows_i,  # PackedRows
+    strips_i,  # (a0, a1)
     *,
     k: int,
-    c_max: int,
-    n_strips: int,
-    slab: int,
-) -> None:
-    """Add strip a against every strip b >= a into ``mat``, ``slab`` b
-    strips per kernel-F launch: P at (fa, fb), and for b > a also P^T at
-    (fb, fa), so every ordered row pair counts exactly once (straddling
-    sequences included)."""
-    fs = rows.first_seq
-    for b0 in range(a, n_strips, slab):
-        n_b = min(slab, n_strips - b0)
-        parts = pair_parts(
-            rows, a, rows, b0, n_b, bounds[b0 : b0 + n_b], k=k, c_max=c_max
-        )
-        fa = fs[a].expand(n_b)
-        fb = fs[b0 : b0 + n_b]
-        add_blocks(mat, parts, fa, fb)
-        skip = 1 if b0 == a else 0  # the diagonal pair lands once
-        add_blocks(mat, parts[skip:].transpose(1, 2), fb[skip:], fa[skip:])
+    rows_j=None,  # PackedRows: the rectangle's column table
+    strips_j=None,  # (b0, b1); the triangle's (a0, b1), to the table's end by default
+    row_off: int = 0,
+) -> torch.Tensor:
+    """Kernel F's plain version (``ops/pairs_packed_cuda.py:packed_block``),
+    the JAX mesh paths' composite: per row strip a and run of column strips,
+    stage 1 (``packed_s1_plain``), stage 2 (``parts_from_s1``) and the
+    landing (``add_blocks``), into ``out`` in place.
 
-
-def strip_block_shard_update(
-    block: torch.Tensor,  # [blk, Np] int64: this device's kernel rows
-    own,  # PackedRows: this device's strips (first_seq global ids)
-    visit,  # PackedRows: the visiting shard, on block's device
-    a_base: int,  # global id of own strip 0
-    b_base: int,  # global id of visiting strip 0
-    row0: int,  # global kernel row of block[0]
-    bounds: torch.Tensor,  # [n_strips, c_max] int32 on block's device
-    *,
-    k: int,
-    c_max: int,
-    n_strips: int,
-    slab: int,
-) -> None:
-    """Ring-step unit of the row-sharded sweep: every own strip a against
-    every strip b of the visiting shard (ordered pairs), landing only
-    rows ``fa - row0`` of the caller's block (P at (fa - row0, fb)).
-    Dead strips (global id >= n_strips) are skipped."""
-    n_b_live = min(visit.n_strips, n_strips - b_base)
-    for ai in range(min(own.n_strips, n_strips - a_base)):
-        fa = own.first_seq[ai]
-        for c0 in range(0, n_b_live, slab):
-            n_b = min(slab, n_b_live - c0)
-            b = b_base + c0
-            parts = pair_parts(
-                own, ai, visit, c0, n_b, bounds[b : b + n_b], k=k, c_max=c_max
+    Rectangle (``rows_j``, ``strips_j`` given; ``strip_block_shard_update``
+    in the JAX package): strips a0 .. a1 - 1 of ``rows_i`` against strips
+    b0 .. b1 - 1 of ``rows_j``, P at (fa - row_off, fb). Triangle (no
+    ``rows_j``; ``strip_planes_update``): each strip a against every strip
+    b >= a of ``rows_i`` below b1, P at (fa - row_off, fb) and for b > a
+    also P^T at (fb - row_off, fa)."""
+    tri = rows_j is None
+    rows_j = rows_i if tri else rows_j
+    tile, c_pad = rows_i.tile, rows_i.c_pad
+    c = max(
+        strip_span(rows_i.seq_of, rows_i.first_seq, tile),
+        strip_span(rows_j.seq_of, rows_j.first_seq, tile),
+    )
+    bounds = strip_bounds(rows_j.seq_of, rows_j.first_seq, tile, c)
+    fs_i, fs_j = rows_i.first_seq.long(), rows_j.first_seq.long()
+    step = max(1, SLAB_BYTES // (c_pad * tile * 4))
+    for a in range(*strips_i):
+        fa = fs_i[a]
+        if tri:
+            lo, hi = a, rows_j.n_strips if strips_j is None else strips_j[1]
+        else:
+            lo, hi = strips_j
+        for b0 in range(lo, hi, step):
+            n_b = min(step, hi - b0)
+            s1 = packed_s1_plain(
+                rows_i.onehot[a * tile : (a + 1) * tile],
+                rows_i.seq_of[a * tile : (a + 1) * tile], fa,
+                rows_j.onehot[b0 * tile : (b0 + n_b) * tile], k=k, tile=tile, c_pad=c_pad,
             )
-            add_blocks(
-                block, parts, (fa - row0).expand(n_b), visit.first_seq[c0 : c0 + n_b]
-            )
+            parts = parts_from_s1(s1, bounds[b0 : b0 + n_b], c_max=c)
+            fb = fs_j[b0 : b0 + n_b]
+            add_blocks(out, parts, (fa - row_off).expand(n_b), fb)
+            if tri:
+                skip = 1 if b0 == a else 0  # the diagonal pair lands once
+                add_blocks(
+                    out, parts[skip:].transpose(1, 2), fb[skip:] - row_off, fa.expand(n_b - skip)
+                )
+    return out

@@ -1,4 +1,4 @@
-"""Wrappers of kernels D, E, G and F (``csrc/pairs_packed.cu``).
+"""Wrappers of kernels D, F, G and E (``csrc/pairs_packed.cu``).
 
 Counterparts of ``fastsk_tpu/ops/pairs_packed_pallas.py``:
 
@@ -6,13 +6,15 @@ Counterparts of ``fastsk_tpu/ops/pairs_packed_pallas.py``:
   upper-triangle row-pair tile at once, landed straight into the full
   symmetric count matrix; the int8 tensor-core product of one-hot rows
   up to ``band_body``'s depth, the byte-code body above it;
+- ``packed_block``    (kernel F, ``packed_s1_pallas`` with the mesh
+  paths' stage 2 and landing folded in): one block of the count matrix,
+  a strip's triangle or a rectangle of strips, added into the caller's
+  matrix or row block, on the same two bodies;
+- ``packed_grouped``  (kernel G, ``packed_part_pallas``): part blocks of
+  strip a against one or more groups of b strips, on the same two bodies;
 - ``packed_pairlist`` (kernel E, ``packed_pairlist_pallas``): part blocks
   of a list of strip pairs, for ``ops/pairs_packed.py:land_parts``;
-- ``packed_grouped``  (kernel G, ``packed_part_pallas``): part blocks of
-  strip a against one group of b strips;
-- ``packed_s1``       (kernel F, ``packed_s1_pallas``): stage 1 of strip a
-  against a run of b strips, for the mesh paths
-  (``ops/pairs_packed.py:pair_parts``).
+- ``packed_s1``       (F's stage 1 alone, the TPU kernel's own output).
 
 Each takes a ``PackedRows`` (the packed window codes and their layout).
 On a CPU tensor it runs the plain version (``ops/pairs_packed.py``); on a
@@ -31,7 +33,8 @@ import torch
 
 from .. import _build
 from .pairs_packed import (
-    onehot_rows, packed_counts_plain, packed_pair_parts_plain, packed_s1_plain,
+    onehot_rows, packed_block_plain, packed_counts_plain, packed_pair_parts_plain,
+    packed_s1_plain,
 )
 
 ROW_TILE = 128  # rows a side of the kernels' tile pair (= threads a block)
@@ -122,6 +125,8 @@ class PackedRows:
         for name in ("words", "seq_padded"):
             if name in self.__dict__:
                 moved.__dict__[name] = self.__dict__[name].to(device, non_blocking=True)
+        for tr, m in self._meta.items():  # no host sync to recompute them
+            moved._meta[tr] = TileMeta(m.tile_first.to(device, non_blocking=True), m.cb)
         return moved
 
     def meta(self, tr: int) -> TileMeta:
@@ -159,8 +164,9 @@ def _check_k(rows: PackedRows, k: int) -> None:
         raise ValueError(f"kernels D to G run on CUDA or CPU tensors, not {rows.device}")
 
 
-# kernel D's tensor-core body holds two 128-row one-hot tiles of up to
-# this many bytes a row in shared memory (csrc/pairs_packed.cu:kMmaDepthMax)
+# the tensor-core body of kernels D, F and G holds two 128-row one-hot
+# tiles of up to this many bytes a row in shared memory
+# (csrc/pairs_packed.cu:kMmaDepthMax)
 MMA_DEPTH_MAX = 768
 # ... and beats the byte-code body up to this depth: chip_smoke.py's sweep
 # of both bodies over medium ragged sets at g=8 (NVIDIA H100 80GB HBM3,
@@ -177,10 +183,10 @@ def onehot_depth(g: int, alpha: int) -> int:
 
 
 def band_body(g: int, alpha: int) -> str:
-    """Kernel D's body for g codes over ``alpha`` letters: "mma" (the int8
-    tensor-core product of one-hot rows) up to the measured depth
-    ``MMA_DEPTH_FASTER``, else "bytes" (the byte-code body, whose cost
-    does not grow with the alphabet)."""
+    """The body of kernels D, F and G for g codes over ``alpha`` letters:
+    "mma" (the int8 tensor-core product of one-hot rows) up to the
+    measured depth ``MMA_DEPTH_FASTER``, else "bytes" (the byte-code body,
+    whose cost does not grow with the alphabet)."""
     return "mma" if onehot_depth(g, alpha) <= MMA_DEPTH_FASTER else "bytes"
 
 
@@ -205,6 +211,22 @@ def _launch(fn, name: str, rows: PackedRows, *args) -> None:
     _build.check_launch(status, name)
 
 
+_BODY_CODE = {"mma": 0, "bytes": 1}  # the C entry points' `body`
+
+
+def _body(rows: PackedRows, body) -> str:
+    """``band_body``'s choice for these rows, or ``body`` checked."""
+    body = band_body(rows.g, rows.alpha) if body is None else body
+    if body not in _BODY_CODE:
+        raise ValueError(f"body must be 'mma' or 'bytes'; got {body!r}")
+    if body == "mma" and onehot_depth(rows.g, rows.alpha) > MMA_DEPTH_MAX:
+        raise ValueError(
+            f"one-hot rows of {onehot_depth(rows.g, rows.alpha)} bytes exceed "
+            f"the tensor-core body's {MMA_DEPTH_MAX}"
+        )
+    return body
+
+
 def packed_band(rows: PackedRows, *, k: int, n_out: int, body=None) -> torch.Tensor:
     """Kernel D: the full symmetric count matrix ``[n_out, n_out]`` int64
     in packed (length-sorted) sequence order; ``n_out`` is at least the
@@ -212,14 +234,7 @@ def packed_band(rows: PackedRows, *, k: int, n_out: int, body=None) -> torch.Ten
     ``band_body``'s choice; ``packed_band.bodies`` counts the launches of
     each."""
     _check_k(rows, k)
-    body = band_body(rows.g, rows.alpha) if body is None else body
-    if body not in ("mma", "bytes"):
-        raise ValueError(f"body must be 'mma' or 'bytes'; got {body!r}")
-    if body == "mma" and onehot_depth(rows.g, rows.alpha) > MMA_DEPTH_MAX:
-        raise ValueError(
-            f"one-hot rows of {onehot_depth(rows.g, rows.alpha)} bytes exceed "
-            f"the tensor-core body's {MMA_DEPTH_MAX}"
-        )
+    body = _body(rows, body)
     if rows.device.type == "cpu":
         return packed_counts_plain(
             rows.onehot, rows.seq_of, rows.first_seq,
@@ -230,21 +245,173 @@ def packed_band(rows: PackedRows, *, k: int, n_out: int, body=None) -> torch.Ten
         raise ValueError(f"{words.shape[0]} rows exceed the byte-code body's 1-D grid")
     meta = rows.meta(ROW_TILE)
     out = torch.zeros((n_out, n_out), dtype=torch.int64, device=rows.device)
-    lib = _build.kernels()
-    common = (words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
-              out.data_ptr(), words.shape[0] // ROW_TILE, n_out, words.shape[1])
-    if body == "mma":
-        _launch(
-            lib.packed_band_mma_launch, "packed_band", rows, *common,
-            rows.g, rows.alpha, onehot_depth(rows.g, rows.alpha), meta.cb, k, 0,
-        )
-    else:
-        _launch(
-            lib.packed_band_launch, "packed_band", rows, *common,
-            meta.cb, k, 4 * words.shape[1] - rows.g,
-        )
+    _launch(
+        _build.kernels().packed_band_launch, "packed_band", rows,
+        words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+        out.data_ptr(), words.shape[0] // ROW_TILE, n_out, words.shape[1], rows.g,
+        rows.alpha, onehot_depth(rows.g, rows.alpha), meta.cb, k, _BODY_CODE[body], 0,
+    )
     packed_band.launches += 1
     packed_band.bodies[body] += 1
+    return out
+
+
+def block_tile_pairs(r_lo: int, r_hi: int, c_lo: int, c_hi: int, tri: bool) -> int:
+    """Pairs of 128-row tiles that kernel F walks for rows [r_lo, r_hi)
+    against rows [c_lo, c_hi) (the rectangle), or, with ``tri``, against
+    every tile from their own on that holds rows below ``c_hi`` (the
+    triangle)."""
+    ti0, ti1, tj1 = r_lo // ROW_TILE, -(-r_hi // ROW_TILE), -(-c_hi // ROW_TILE)
+    if tri:
+        return sum(tj1 - ti for ti in range(ti0, ti1))
+    return (ti1 - ti0) * (tj1 - c_lo // ROW_TILE)
+
+
+def packed_block(
+    out: torch.Tensor,
+    rows_i: PackedRows,
+    strips_i,
+    *,
+    k: int,
+    rows_j: PackedRows = None,
+    strips_j=None,
+    row_off: int = 0,
+    body=None,
+) -> torch.Tensor:
+    """Kernel F: add one block of the count matrix into ``out`` (``[M,
+    ld]`` int64, in place; it must hold every landing) and return it.
+
+    - The rectangle (``rows_j`` and ``strips_j = (b0, b1)``; a ring step of
+      the mesh): every row of strips ``strips_i = (a0, a1)`` of ``rows_i``
+      against every row of strips b0 .. b1 - 1 of ``rows_j`` (ordered
+      pairs), ``C(matches, k)`` summed into ``out[si - row_off, sj]``.
+    - The triangle (no ``rows_j``; a round-robin strip of the mesh, or a
+      ring's diagonal step, a device's own strips against themselves): the
+      rows of strips a0 .. a1 - 1 against every row of their own 128-row
+      tile and of every later tile of ``rows_i`` up to strip b1 - 1
+      (``strips_j = (a0, b1)``, by default to the table's end), into
+      ``out[si - row_off, sj]`` and, across two tiles, also ``out[sj -
+      row_off, si]``: kernel D's rule on those rows. The calls over a
+      partition of the strips add up to kernel D's matrix. A call equals
+      its plain version (strip a against strips b >= a, mirrored for b >
+      a) where its rows start on a 128-row tile and end on one or at b1;
+      narrower strips share tiles, and only their sum does.
+
+    Sequence ids are global (shards of one table keep them). ``body``
+    ("mma" or "bytes") overrides ``band_body``'s choice;
+    ``packed_block.bodies`` counts the launches of each."""
+    _check_k(rows_i, k)
+    tri = rows_j is None
+    if tri:
+        rows_j = rows_i
+        strips_j = (strips_i[0], rows_i.n_strips) if strips_j is None else strips_j
+    elif strips_j is None:
+        raise ValueError("the rectangle's rows_j and strips_j come together")
+    elif rows_j.device != rows_i.device:
+        raise ValueError(f"strips on {rows_i.device} and {rows_j.device}")
+    if (rows_j.g, rows_j.tile, rows_j.c_pad, rows_j.alpha) != (
+        rows_i.g, rows_i.tile, rows_i.c_pad, rows_i.alpha
+    ):
+        raise ValueError("rows_i and rows_j must share g, tile, c_pad and alpha")
+    (a0, a1), (b0, b1) = strips_i, strips_j
+    if not (0 <= a0 < a1 <= rows_i.n_strips and 0 <= b0 < b1 <= rows_j.n_strips):
+        raise ValueError(
+            f"strips {a0}..{a1 - 1} of {rows_i.n_strips} or {b0}..{b1 - 1} of "
+            f"{rows_j.n_strips} out of range"
+        )
+    if tri and (b0 != a0 or b1 < a1):
+        raise ValueError(f"the triangle's columns {strips_j} must start at its rows {strips_i} and cover them")
+    if out.dtype != torch.int64 or out.dim() != 2 or not out.is_contiguous():
+        raise ValueError("out must be a contiguous 2-D int64 tensor")
+    if out.device != rows_i.device:
+        raise ValueError(f"out on {out.device}, strips on {rows_i.device}")
+    body = _body(rows_i, body)
+    if rows_i.device.type == "cpu":
+        return packed_block_plain(
+            out, rows_i, strips_i, k=k, rows_j=None if tri else rows_j,
+            strips_j=strips_j, row_off=row_off,
+        )
+    tile = rows_i.tile
+    wi, wj = rows_i.words, rows_j.words
+    if body == "bytes" and block_tile_pairs(a0 * tile, a1 * tile, b0 * tile, b1 * tile, tri) > _MAX_BLOCKS:
+        raise ValueError("the block's tile pairs exceed the byte-code body's 1-D grid")
+    mi, mj = rows_i.meta(ROW_TILE), rows_j.meta(ROW_TILE)
+    _launch(
+        _build.kernels().packed_block_launch, "packed_block", rows_i,
+        wi.data_ptr(), rows_i.seq_padded.data_ptr(), mi.tile_first.data_ptr(),
+        wj.data_ptr(), rows_j.seq_padded.data_ptr(), mj.tile_first.data_ptr(),
+        a0 * tile, a1 * tile, b0 * tile, b1 * tile, int(tri), out.data_ptr(),
+        out.shape[1], row_off, wi.shape[1], rows_i.g, rows_i.alpha,
+        onehot_depth(rows_i.g, rows_i.alpha), max(mi.cb, mj.cb), k, _BODY_CODE[body],
+    )
+    packed_block.launches += 1
+    packed_block.bodies[body] += 1
+    return out
+
+
+def grouped_body(rows: PackedRows) -> str:
+    """Kernel G's body: ``band_body``'s, but the byte-code one where the
+    strip tile is not a multiple of the 128-row tile (its part blocks land
+    per column strip, so a tile must lie in one; such strips, which only
+    tests make, run kernel E's byte-code tile pairs over (a, b))."""
+    return band_body(rows.g, rows.alpha) if rows.tile % ROW_TILE == 0 else "bytes"
+
+
+def packed_grouped(
+    rows: PackedRows, a: int, gidx: int, *, k: int, group: int, n_groups: int = 1,
+    body=None,
+) -> torch.Tensor:
+    """Kernel G: part blocks ``[n_groups * group, c_pad, c_pad]`` int64 of
+    strip ``a`` against strips ``gidx * group + u``, u < n_groups * group,
+    in one launch. ``body`` ("mma" or "bytes") overrides ``grouped_body``'s
+    choice; ``packed_grouped.bodies`` counts the launches of each. Both
+    bodies walk 128-row tile pairs; strips narrower than that take kernel
+    E's byte-code tile pairs, each strip pair (a, b) of the launch a slot."""
+    _check_k(rows, k)
+    n_b, b0 = n_groups * group, gidx * group
+    if not (0 <= a < rows.n_strips and 0 <= gidx and n_groups >= 1 and b0 + n_b <= rows.n_strips):
+        raise ValueError(
+            f"strip {a} or groups {gidx}..{gidx + n_groups - 1} x {group} outside "
+            f"{rows.n_strips} strips"
+        )
+    body = _body(rows, grouped_body(rows) if body is None else body)
+    if body == "mma" and rows.tile % ROW_TILE:
+        raise ValueError(f"the tensor-core body needs strips of a multiple of {ROW_TILE} rows")
+    if rows.device.type == "cpu":
+        return packed_pair_parts_plain(
+            rows.onehot, rows.seq_of, rows.first_seq, [a] * n_b, range(b0, b0 + n_b),
+            k=k, tile=rows.tile, c_pad=rows.c_pad,
+        )
+    if rows.first_seq.dtype != torch.int32 or not rows.first_seq.is_contiguous():
+        raise ValueError("first_seq must be a contiguous int32 tensor")
+    c = rows.c_pad
+    out = torch.zeros((n_b, c, c), dtype=torch.int64, device=rows.device)
+    words = rows.words
+    lib = _build.kernels()
+    tr = rows.sub_tile()
+    meta = rows.meta(tr)
+    tps = rows.tile // tr
+    if body == "bytes" and n_b * tps * tps > _MAX_BLOCKS:
+        raise ValueError(f"{n_b} strips exceed kernel G's 1-D grid")
+    if tr == ROW_TILE:
+        _launch(
+            lib.packed_grouped_launch, "packed_grouped", rows,
+            words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+            rows.first_seq.data_ptr(), a, b0, n_b, out.data_ptr(), tps, c,
+            words.shape[1], rows.g, rows.alpha, onehot_depth(rows.g, rows.alpha), meta.cb, k,
+            _BODY_CODE[body],
+        )
+    else:
+        pb = torch.arange(b0, b0 + n_b, dtype=torch.int32, device=rows.device)
+        pa = torch.full_like(pb, a)
+        _launch(
+            lib.packed_pairlist_launch, "packed_grouped", rows,
+            words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+            rows.first_seq.data_ptr(), pa.data_ptr(), pb.data_ptr(), out.data_ptr(),
+            n_b, words.shape[1], tr, tps, meta.cb, k, 4 * words.shape[1] - rows.g, c,
+        )
+    packed_grouped.launches += 1
+    packed_grouped.bodies[body] += 1
     return out
 
 
@@ -283,44 +450,12 @@ def packed_pairlist(
     return out
 
 
-def packed_grouped(
-    rows: PackedRows, a: int, gidx: int, *, k: int, group: int
-) -> torch.Tensor:
-    """Kernel G: part blocks ``[group, c_pad, c_pad]`` int64 of strip ``a``
-    against strips ``gidx * group + u``, u < group."""
-    _check_k(rows, k)
-    if not (0 <= a < rows.n_strips and 0 <= gidx and (gidx + 1) * group <= rows.n_strips):
-        raise ValueError(
-            f"strip {a} or group {gidx} x {group} outside {rows.n_strips} strips"
-        )
-    if rows.device.type == "cpu":
-        return packed_pair_parts_plain(
-            rows.onehot, rows.seq_of, rows.first_seq,
-            [a] * group, range(gidx * group, (gidx + 1) * group),
-            k=k, tile=rows.tile, c_pad=rows.c_pad,
-        )
-    tr = rows.sub_tile()
-    meta = rows.meta(tr)
-    tps = rows.tile // tr
-    c = rows.c_pad
-    out = torch.zeros((group, c, c), dtype=torch.int64, device=rows.device)
-    words = rows.words
-    lib = _build.kernels()
-    _launch(
-        lib.packed_grouped_launch, "packed_grouped", rows,
-        words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
-        rows.first_seq.data_ptr(), a, gidx, group, out.data_ptr(),
-        words.shape[1], tr, tps, meta.cb, k, 4 * words.shape[1] - rows.g, c,
-    )
-    packed_grouped.launches += 1
-    return out
-
-
 def packed_s1(
     rows_a: PackedRows, a: int, rows_b: PackedRows, b0: int, n_b: int, *, k: int
 ) -> torch.Tensor:
-    """Kernel F: stage 1 ``[n_b, c_pad, tile]`` int32 of strip ``a`` of
-    ``rows_a`` against strips ``b0 .. b0 + n_b - 1`` of ``rows_b`` (one
+    """Kernel F's stage 1 alone, the TPU kernel's own output (the mesh
+    paths run ``packed_block``): ``[n_b, c_pad, tile]`` int32 of strip
+    ``a`` of ``rows_a`` against strips ``b0 .. b0 + n_b - 1`` of ``rows_b`` (one
     table, or two shards of one, on one device): ``s1[b, li, c] = sum_{r
     in a, seq_of[r] = first_seq[a] + li} C(matches(r, c), k)``."""
     _check_k(rows_a, k)
@@ -366,6 +501,9 @@ def packed_s1(
 # kernel launches; the CPU path does not count
 packed_band.launches = 0
 packed_band.bodies = {"mma": 0, "bytes": 0}  # launches of each body
-packed_pairlist.launches = 0
+packed_block.launches = 0
+packed_block.bodies = {"mma": 0, "bytes": 0}
 packed_grouped.launches = 0
+packed_grouped.bodies = {"mma": 0, "bytes": 0}
+packed_pairlist.launches = 0
 packed_s1.launches = 0

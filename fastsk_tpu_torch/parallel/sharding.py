@@ -96,71 +96,71 @@ def pad_to_multiple(x: np.ndarray, axis: int, multiple: int) -> np.ndarray:
 def packed_round_sharded(
     mats: List[torch.Tensor],  # per device: [Np, Np] int64 private replica
     rows: List,  # per device: the whole PackedRows table
-    bounds: List[torch.Tensor],  # per device: [n_strips, c_max] int32
     round_idx: int,
     *,
     mesh: Mesh,
     k: int,
-    c_max: int,
     n_strips: int,
-    slab: int,
 ) -> List[torch.Tensor]:
     """One round-robin round of the packed (ragged) all-pairs engine.
 
     Device ``d`` runs strip ``a = round_idx * n_dev + d`` against all
-    strips b >= a (``ops/pairs_packed.py:strip_planes_update``, kernel F),
-    adding into its PRIVATE replica: every (a, b) pair is handled by
-    exactly one device, so the merge is a sum of the replicas (on the
-    host, by the engine). Round-robin assignment balances the triangular
-    b loop."""
-    from ..ops import pairs_packed
+    strips b >= a, one launch of kernel F's triangle
+    (``ops/pairs_packed_cuda.py:packed_block``), adding into its PRIVATE
+    replica: every row pair is handled by exactly one device, so the
+    merge is a sum of the replicas (on the host, by the engine).
+    Round-robin assignment balances the triangular b loop."""
+    from ..ops.pairs_packed_cuda import packed_block
 
     n_dev = mesh.size
     for d in range(n_dev):
         a = round_idx * n_dev + d
         if a < n_strips:
-            pairs_packed.strip_planes_update(
-                mats[d], rows[d], a, bounds[d], k=k, c_max=c_max,
-                n_strips=n_strips, slab=slab,
-            )
+            packed_block(mats[d], rows[d], (a, a + 1), k=k)
     return mats
 
 
 def packed_ring_rowsharded(
     blocks: List[torch.Tensor],  # per device: [blk, Np] int64 row block
     shards: List,  # per device: PackedRows of its own spd strips
-    bounds: List[torch.Tensor],  # per device: [n_strips, c_max] int32
     row0: Sequence[int],  # per device: global row of block[0]
     *,
     mesh: Mesh,
     spd: int,
     k: int,
-    c_max: int,
     n_strips: int,
-    slab: int,
 ) -> List[torch.Tensor]:
     """Operand-sharded packed sweep: the window table is strip-sharded to
     match each device's row block, and shards travel the ring once. At
-    step s device d holds the shard of device (d + s) mod D, sweeps ALL
-    its own strips against ALL visiting strips
-    (``ops/pairs_packed.py:strip_block_shard_update``, kernel F), then
-    takes its upper neighbour's shard with ``.to(device,
-    non_blocking=True)`` (JAX's ``ppermute``). Per-device memory is the
-    O(N^2 / D) row block plus two O(rows / D) shards. On a device named
-    twice the visiting shard is the owner's own tensor, so nothing here
-    writes into a shard."""
-    from ..ops import pairs_packed
+    step s device d holds the shard of device (d + s) mod D and sweeps ALL
+    its own live strips against ALL live visiting strips in one launch of
+    kernel F (``ops/pairs_packed_cuda.py:packed_block``, landing rows ``si
+    - row0`` of its block), then takes its upper neighbour's shard with
+    ``.to(device, non_blocking=True)`` (JAX's ``ppermute``). At step 0 the
+    shard is its own and the launch is F's triangle with its mirror, each
+    unordered row pair once; the other steps are rectangles, every ordered
+    pair. Dead strips (global id >= n_strips) are not launched.
+    Per-device memory is the O(N^2 / D) row block plus two O(rows / D)
+    shards. On a device named twice the visiting shard is the owner's own
+    tensor, so nothing here writes into a shard."""
+    from ..ops.pairs_packed_cuda import packed_block
 
     devices = mesh.devices
     n_dev = len(devices)
     visiting = list(shards)
     for s in range(n_dev):
         for d in range(n_dev):
-            pairs_packed.strip_block_shard_update(
-                blocks[d], shards[d], visiting[d], d * spd,
-                ((d + s) % n_dev) * spd, row0[d], bounds[d],
-                k=k, c_max=c_max, n_strips=n_strips, slab=slab,
-            )
+            n_a = min(spd, n_strips - d * spd)
+            n_b = min(spd, n_strips - ((d + s) % n_dev) * spd)
+            if n_a <= 0 or n_b <= 0:
+                continue
+            if s == 0:
+                packed_block(blocks[d], shards[d], (0, n_a), k=k, strips_j=(0, n_a), row_off=row0[d])
+            else:
+                packed_block(
+                    blocks[d], shards[d], (0, n_a), k=k, rows_j=visiting[d],
+                    strips_j=(0, n_b), row_off=row0[d],
+                )
         if s + 1 < n_dev:
             visiting = [visiting[(d + 1) % n_dev].to(devices[d]) for d in range(n_dev)]
     return blocks

@@ -1,5 +1,6 @@
 """Kernels A to H against their plain PyTorch versions, on the card
-(kernel A with both of its bodies, kernel C at every cluster size).
+(kernels A, D, F and G with both of their bodies, kernel C at every
+cluster size).
 
 Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
@@ -381,19 +382,122 @@ def test_kernel_f_matches_plain(cuda, monkeypatch, X, g, m, tile):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# kernel F's block at strips narrower than a tile (64), of two tiles (256)
+# and of the default 2048 rows; g=7 leaves a padding byte in the last
+# word; alphabets of 5 (one-hot depth 64 B, the tensor-core body by
+# default) and 48 (448 B, the byte-code body by default)
+@pytest.mark.parametrize("alpha", [5, 48])
+@pytest.mark.parametrize("tile,n,lmax", [(64, 9, 300), (256, 13, 400), (2048, 40, 400)])
+def test_kernel_f_block_matches_plain(cuda, monkeypatch, tile, n, lmax, alpha):
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = _ragged(30 + tile + alpha, n, 10, lmax, alpha)
+    X[0] = list(range(1, alpha + 1)) + X[0]  # every code, so the alphabet is alpha
+    eng = PackedPairsEngine(encode_sequences(X), 7, 3, KernelConfig(device=cuda))
+    assert eng.alpha == alpha and eng.n_strips >= 3
+    rows, ns, k = eng.rows(), eng.n_strips, 4
+    assert pairs_packed_cuda.band_body(7, alpha) == ("mma" if alpha == 5 else "bytes")
+    n_pad = eng.n + eng.c_pad
+    fs = rows.first_seq.cpu().numpy()
+    mid = ns // 2
+    row0 = int(fs[mid])
+    blk = int(fs[ns - 1]) + eng.c_max - row0
+    want_tri = torch.zeros((n_pad, n_pad), dtype=torch.int64, device=cuda)
+    for a in range(ns):
+        pairs_packed.packed_block_plain(want_tri, rows, (a, a + 1), k=k)
+    np.testing.assert_array_equal(want_tri[: eng.n, : eng.n].cpu().numpy(),
+                                  oracle.exact_counts(X, 7, 3)[np.ix_(eng.order, eng.order)])
+    rect = dict(k=k, rows_j=rows, strips_j=(1, ns), row_off=row0)
+    want_rect = pairs_packed.packed_block_plain(
+        torch.zeros((blk, n_pad), dtype=torch.int64, device=cuda), rows, (mid, ns), **rect
+    )
+    # the ring's diagonal step: strips d0.. (from the first 128-row tile
+    # boundary at or past mid, as a shard starts) against themselves,
+    # mirrored into their own row block
+    d0 = mid + (mid * tile) % 128 // tile
+    blk_d = int(fs[ns - 1]) + eng.c_max - int(fs[d0])
+    diag = dict(k=k, strips_j=(d0, ns), row_off=int(fs[d0]))
+    want_diag = pairs_packed.packed_block_plain(
+        torch.zeros((blk_d, n_pad), dtype=torch.int64, device=cuda), rows, (d0, ns), **diag
+    )
+    for body in ("mma", "bytes"):
+        before = pairs_packed_cuda.packed_block.launches, pairs_packed_cuda.packed_block.bodies[body]
+        tri = torch.zeros_like(want_tri)
+        for a in range(ns):
+            one = pairs_packed_cuda.packed_block(torch.zeros_like(tri), rows, (a, a + 1), k=k, body=body)
+            if tile % 128 == 0:  # a strip holds whole tiles: each call is its plain version
+                want = pairs_packed.packed_block_plain(torch.zeros_like(tri), rows, (a, a + 1), k=k)
+                torch.testing.assert_close(one, want, rtol=0, atol=0)
+            tri += one
+        got = pairs_packed_cuda.packed_block(
+            torch.zeros((blk, n_pad), dtype=torch.int64, device=cuda), rows, (mid, ns), body=body, **rect
+        )
+        got_diag = pairs_packed_cuda.packed_block(
+            torch.zeros((blk_d, n_pad), dtype=torch.int64, device=cuda), rows, (d0, ns), body=body, **diag
+        )
+        torch.cuda.synchronize()
+        assert pairs_packed_cuda.packed_block.launches == before[0] + ns + 2
+        assert pairs_packed_cuda.packed_block.bodies[body] == before[1] + ns + 2
+        torch.testing.assert_close(tri, want_tri, rtol=0, atol=0)
+        torch.testing.assert_close(got, want_rect, rtol=0, atol=0)
+        torch.testing.assert_close(got_diag, want_diag, rtol=0, atol=0)
+
+
+# kernel G over several groups in one launch: 256-row strips take the
+# tensor-core body (and the byte-code one when asked), 64-row strips the
+# byte-code body
+@pytest.mark.parametrize("tile,body", [(256, None), (256, "bytes"), (64, None)])
+def test_kernel_g_groups_match_plain(cuda, monkeypatch, tile, body):
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = _ragged(40 + tile, 20, 20, 400, 20)
+    eng = PackedPairsEngine(encode_sequences(X), 7, 3, KernelConfig(device=cuda, pairs_backend="pallas_grouped"))
+    rows, group, ns = eng.rows(), eng.group, eng.n_strips
+    assert ns >= 2 * group
+    assert pairs_packed_cuda.grouped_body(rows) == ("mma" if tile == 256 else "bytes")
+    ran = body or pairs_packed_cuda.grouped_body(rows)
+    for a in (0, group + 1, ns - 1):
+        gidx = a // group
+        n_groups = ns // group - gidx
+        before = pairs_packed_cuda.packed_grouped.launches, pairs_packed_cuda.packed_grouped.bodies[ran]
+        got = pairs_packed_cuda.packed_grouped(rows, a, gidx, k=4, group=group, n_groups=n_groups, body=body)
+        torch.cuda.synchronize()
+        assert pairs_packed_cuda.packed_grouped.launches == before[0] + 1
+        assert pairs_packed_cuda.packed_grouped.bodies[ran] == before[1] + 1
+        want = pairs_packed.packed_pair_parts_plain(
+            rows.onehot, rows.seq_of, rows.first_seq, [a] * (n_groups * group),
+            range(gidx * group, ns), k=4, tile=tile, c_pad=eng.c_pad,
+        )
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    np.testing.assert_array_equal(eng.exact(), oracle.exact_counts(X, 7, 3))
+
+
 @pytest.mark.parametrize("state", ["sharded", "replicated"])
 @pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
 def test_mesh_routes_match_kernel_d(cuda, monkeypatch, shape, state):
     """Both mesh routes, over the card named 1 or 4 times, equal kernel
-    D's single-device counts and launch kernel F."""
+    D's single-device counts through kernel F's block alone: one launch a
+    (device, ring step) with live strips on both sides, or a round-robin
+    strip; no stage-1 launch, and no plain or torch stage 2 or landing."""
     monkeypatch.setattr(PackedPairsEngine, "TILE", 256)
     X = _ragged(16, 60, 10, 400, 20)
     enc = encode_sequences(X)
     want = PackedPairsEngine(enc, 8, 4, KernelConfig(device=cuda)).exact()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card's mesh route ran the plain composite or torch stage 2")
+
+    for name in ("parts_from_s1", "add_blocks", "packed_block_plain"):
+        monkeypatch.setattr(pairs_packed, name, refuse)
+    monkeypatch.setattr(pairs_packed_cuda, "packed_block_plain", refuse)
     mesh = make_mesh(*shape, devices=[cuda] * (shape[0] * shape[1]))
-    before = pairs_packed_cuda.packed_s1.launches
-    got = PackedPairsEngine(enc, 8, 4, KernelConfig(device=cuda, mesh=mesh, mesh_state=state)).exact()
-    assert pairs_packed_cuda.packed_s1.launches > before
+    eng = PackedPairsEngine(enc, 8, 4, KernelConfig(device=cuda, mesh=mesh, mesh_state=state))
+    before = pairs_packed_cuda.packed_block.launches, pairs_packed_cuda.packed_s1.launches
+    got = eng.exact()
+    ns, n_dev = eng.n_strips, mesh.size
+    spd = -(-ns // n_dev)
+    live = sum(d * spd < ns for d in range(n_dev))
+    launches = live**2 if state == "sharded" else ns
+    assert pairs_packed_cuda.packed_block.launches == before[0] + launches
+    assert pairs_packed_cuda.packed_s1.launches == before[1]
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, oracle.exact_counts(X, 8, 4))
 

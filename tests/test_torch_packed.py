@@ -397,3 +397,263 @@ def test_packed_band_on_cpu_takes_the_plain_version(monkeypatch):
     np.testing.assert_array_equal(got[0].numpy()[np.ix_(pos, pos)], oracle.exact_counts(X, 5, 2))
     with pytest.raises(ValueError, match="body"):
         pc.packed_band(rows, k=3, n_out=eng.n, body="wmma")
+
+
+# --------------------------------------- kernels D, F and G's shared walk
+
+ROW = pairs_packed_cuda.ROW_TILE
+
+
+def _pairs_before(ti, nt):  # csrc/hopper.cuh:pairs_before
+    return ti * nt - ti * (ti - 1) // 2
+
+
+def _row_tile_of(L, nt):  # csrc/hopper.cuh:row_tile_of, in doubles as there
+    b2 = 2.0 * nt + 1.0
+    ti = int((b2 - math.sqrt(b2 * b2 - 8.0 * L)) / 2.0)
+    ti = min(max(ti, 0), nt - 1)
+    while ti > 0 and _pairs_before(ti, nt) > L:
+        ti -= 1
+    while ti + 1 < nt and _pairs_before(ti + 1, nt) <= L:
+        ti += 1
+    return ti
+
+
+class _Walk:
+    """csrc/pairs_packed.cu's Walk as ``packed_block_launch`` and
+    ``packed_grouped_launch`` build it from row ranges: the triangle
+    (``tri``) over the tiles holding rows below ``c_hi``, or the
+    rectangle."""
+
+    def __init__(self, r_lo, r_hi, c_lo, c_hi, tri, tr=ROW):
+        self.ti0, ti1 = r_lo // tr, -(-r_hi // tr)
+        self.tri = tri
+        if self.tri:
+            nt = -(-c_hi // tr)
+            self.nt, self.base = nt, _pairs_before(self.ti0, nt)
+            self.total = _pairs_before(ti1, nt) - self.base
+        else:
+            self.tj0 = c_lo // tr
+            self.nc = -(-c_hi // tr) - self.tj0
+            self.total = (ti1 - self.ti0) * self.nc
+
+    def at(self, L):
+        if self.tri:
+            g = L + self.base
+            ti = _row_tile_of(g, self.nt)
+            return ti, ti + g - _pairs_before(ti, self.nt)
+        return self.ti0 + L // self.nc, self.tj0 + L % self.nc
+
+    def next(self, ti, tj):
+        tj += 1
+        if tj == (self.nt if self.tri else self.tj0 + self.nc):
+            return ti + 1, ti + 1 if self.tri else self.tj0
+        return ti, tj
+
+    def runs(self, grid):
+        """Tile pairs in the order persistent block b of ``grid`` visits
+        them: its contiguous run, from ``at(begin)`` on by ``next``."""
+        for b in range(grid):
+            begin, end = b * self.total // grid, (b + 1) * self.total // grid
+            if begin < end:
+                ti, tj = self.at(begin)
+                for _ in range(begin, end):
+                    yield ti, tj
+                    ti, tj = self.next(ti, tj)
+
+
+def _emulate_block(rows_i, rows_j, k, walk, masks, land, grid, tr=ROW):
+    """numpy model of ``packed_block_mma_kernel`` (``tr`` = 128) and the
+    byte-code bodies over ``walk``: each persistent block's run of tile
+    pairs (every pair exactly once over the grid), matches of the g code
+    bytes in the word table (what the one-hot product counts), zero for
+    padding rows and rows outside ``masks = (r_lo, r_hi, c_lo, c_hi)``,
+    32-bit bins relative to ``tile_first``, then ``land(bins, fi, fj, ti,
+    tj)``."""
+    pairs = list(walk.runs(grid))
+    assert len(pairs) == len(set(pairs)) == walk.total
+    assert sorted(pairs) == sorted(walk.at(L) for L in range(walk.total))
+    g = rows_i.g
+    by = [r.words.numpy().view(np.uint8).reshape(r.words.shape[0], -1)[:, :g] for r in (rows_i, rows_j)]
+    seq = [r.seq_padded.numpy() for r in (rows_i, rows_j)]
+    meta = [r.meta(tr) for r in (rows_i, rows_j)]
+    cb = max(m.cb for m in meta)
+    tbl = np.array([math.comb(d, k) for d in range(g + 1)])
+    r_lo, r_hi, c_lo, c_hi = masks
+    for ti, tj in pairs:
+        ri, cj = np.arange(ti * tr, (ti + 1) * tr), np.arange(tj * tr, (tj + 1) * tr)
+        si, sj = seq[0][ri], seq[1][cj]
+        vi = (si >= 0) & (ri >= r_lo) & (ri < r_hi)
+        vj = (sj >= 0) & (cj >= c_lo) & (cj < c_hi)
+        w = tbl[(by[0][ri][:, None, :] == by[1][cj][None, :, :]).sum(-1)] * (vi[:, None] & vj[None, :])
+        fi, fj = int(meta[0].tile_first[ti]), int(meta[1].tile_first[tj])
+        li, lj = np.where(vi, si - fi, 0), np.where(vj, sj - fj, 0)
+        assert li.max() < cb and lj.max() < cb
+        bins = np.zeros((cb, cb), np.int64)
+        np.add.at(bins, (li[:, None], lj[None, :]), w)
+        assert bins.max() < 2**32  # the shared-memory bins are 32-bit unsigned
+        land(bins, fi, fj, ti, tj)
+
+
+def _land_matrix(out, row_off, mirror):
+    def land(bins, fi, fj, ti, tj):
+        for (i, j), v in np.ndenumerate(bins):
+            if v:
+                out[fi + i - row_off, fj + j] += v
+                if mirror and ti != tj:
+                    out[fj + j - row_off, fi + i] += v
+    return land
+
+
+def _emulate_packed_block(out, rows_i, strips_i, *, k, rows_j=None, strips_j=None, row_off=0,
+                          grid=5):
+    """The model of one ``packed_block`` call, with the row ranges its
+    wrapper passes, into ``out`` (numpy) in place."""
+    tile = rows_i.tile
+    r = (strips_i[0] * tile, strips_i[1] * tile)
+    mirror = rows_j is None
+    if mirror:
+        rows_j = rows_i
+        c_hi = (rows_i.n_strips if strips_j is None else strips_j[1]) * tile
+        c = (strips_i[0] * tile, c_hi)
+        masks = (*r, 0, c_hi)
+    else:
+        c = (strips_j[0] * tile, strips_j[1] * tile)
+        masks = (*r, *c)
+    walk = _Walk(*r, *c, mirror)
+    assert walk.total == pairs_packed_cuda.block_tile_pairs(*r, *c, mirror)
+    _emulate_block(rows_i, rows_j, k, walk, masks, _land_matrix(out, row_off, mirror), grid)
+    return out
+
+
+@pytest.mark.parametrize("tri", [True, False])
+@pytest.mark.parametrize("nt,ti0,ti1", [(1, 0, 1), (7, 0, 7), (7, 2, 3), (9, 3, 9), (40, 17, 33)])
+def test_kernel_walk_visits_each_tile_pair_once(nt, ti0, ti1, tri):
+    """Every grid splits the walk into runs that visit each tile pair of
+    the triangle restricted to row tiles ti0..ti1-1 (or of the rectangle
+    against column tiles 1..nt-1) exactly once, row-tile-major."""
+    walk = _Walk(ti0 * ROW, ti1 * ROW, ROW, nt * ROW, tri)
+    want = [(ti, tj) for ti in range(ti0, ti1) for tj in (range(ti, nt) if tri else range(1, nt))]
+    assert [walk.at(L) for L in range(walk.total)] == want
+    for grid in (1, 2, 3, 7, walk.total, walk.total + 5):
+        assert list(walk.runs(grid)) == want
+
+
+def test_kernel_walk_row_tile_at_full_size():
+    """``row_tile_of`` in doubles at the 2.19 shape's 9,168 tiles (and a
+    little past it) lands on every row's first and last pair, offset by
+    the run's base as in the round-robin strips."""
+    for nt in (9168, 40000):
+        for ti in (0, 1, 2, 15, 16, nt // 2, nt - 17, nt - 2, nt - 1):
+            first, last = _pairs_before(ti, nt), _pairs_before(ti + 1, nt) - 1
+            assert _row_tile_of(first, nt) == _row_tile_of(last, nt) == ti
+            walk = _Walk(ti * ROW, (ti + 1) * ROW, 0, nt * ROW, True)
+            assert walk.at(0) == (ti, ti) and walk.at(walk.total - 1) == (ti, nt - 1)
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+def test_kernel_f_model_matches_plain_and_oracle(rng, monkeypatch, tile):
+    """Kernel F's two walks and landings, modelled in numpy, on straddling
+    sequences (g=7: one padding byte a word): the ring's rectangles and its
+    diagonal triangles with a row offset on each device's shard and the
+    round-robin's triangle with its mirror, through both mesh routes of
+    the engine, equal the plain composite per call (the triangle where its
+    rows start on a 128-row tile and end on one or at its columns' end;
+    narrower strips only add up over the partition), and the oracle in
+    all."""
+    from fastsk_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = random_ragged_seqs(rng, 7, 20, 300, alphabet=5)
+    plain = pairs_packed_cuda.packed_block
+    calls = {"sharded": [], "replicated": []}
+    state = None
+
+    def model(out, rows_i, strips_i, **kw):
+        got = _emulate_packed_block(out.numpy().copy(), rows_i, strips_i, **kw,
+                                    grid=len(calls[state]) % 4 + 1)
+        end = (kw.get("strips_j") or (0, rows_i.n_strips))[1]
+        a0, a1 = (v * tile for v in strips_i)
+        if kw.get("rows_j") is not None or (a0 % ROW == 0 and (a1 % ROW == 0 or strips_i[1] == end)):
+            np.testing.assert_array_equal(got, plain(out.clone(), rows_i, strips_i, **kw).numpy())
+        calls[state].append("rectangle" if kw.get("rows_j") is not None else "triangle")
+        out.copy_(torch.from_numpy(got))
+        return out
+
+    monkeypatch.setattr(pairs_packed_cuda, "packed_block", model)
+    want = oracle.exact_counts(X, 7, 3)
+    for state in calls:
+        eng = _port(X, 7, 3, mesh=make_mesh(2, 2, devices=["cpu"] * 4), mesh_state=state)
+        assert eng.n_strips > 4 and straddles(eng)
+        np.testing.assert_array_equal(eng.exact(), want)
+    # the ring: a triangle a device with live strips (step 0), a rectangle
+    # a later (device, step) whose own and visiting shards both hold live
+    # strips; the round-robin: one triangle a strip
+    spd = -(-eng.n_strips // 4)
+    live = sum(d * spd < eng.n_strips for d in range(4))
+    assert calls["sharded"][:live] == ["triangle"] * live
+    assert calls["sharded"][live:] == ["rectangle"] * (live * (live - 1))
+    assert calls["replicated"] == ["triangle"] * eng.n_strips
+
+
+def straddles(eng) -> bool:
+    first = eng.pack["row0"]
+    last = first + (eng.pack["p"] + 7) // 8 * 8 - 1
+    return bool((first // eng.tile != last // eng.tile).any())
+
+
+def _land_parts(out, fs, a, b0, tps, c_pad):
+    def land(bins, fi, fj, ti, tj):
+        b = tj // tps
+        for (i, j), v in np.ndenumerate(bins):
+            if v:
+                out[b - b0, fi + i - fs[a], fj + j - fs[b]] += v
+    return land
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+def test_kernel_g_model_several_groups(rng, monkeypatch, tile):
+    """Kernel G over several groups in one launch, modelled in numpy with
+    the body ``grouped_body`` picks (128-row tiles of the tensor-core walk
+    at 256-row strips, the byte-code body's 64-row tiles at 64), equals
+    ``packed_pair_parts_plain``; the engine's grouped route lands it to
+    the oracle with one launch a strip."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = random_ragged_seqs(rng, 16, 20, 300, alphabet=5)
+    eng = _port(X, 7, 3, pairs_backend="pallas_grouped")
+    rows, group = eng.rows(), eng.group
+    body = pairs_packed_cuda.grouped_body(rows)
+    assert body == ("mma" if tile % ROW == 0 else "bytes") and eng.n_strips >= 2 * group
+    tr = ROW if body == "mma" else rows.sub_tile()
+    tps, fs = tile // tr, rows.first_seq.numpy()
+    n_groups = eng.n_strips // group
+    for a in (0, group + 1, eng.n_strips - 1):
+        gidx = a // group
+        n_b = (n_groups - gidx) * group
+        got = np.zeros((n_b, eng.c_pad, eng.c_pad), np.int64)
+        b0 = gidx * group
+        walk = _Walk(a * tile, (a + 1) * tile, b0 * tile, (b0 + n_b) * tile, False, tr)
+        _emulate_block(rows, rows, eng.k, walk, (0, np.inf, 0, np.inf),
+                       _land_parts(got, fs, a, b0, tps, eng.c_pad), grid=3, tr=tr)
+        want = pairs_packed.packed_pair_parts_plain(
+            rows.onehot, rows.seq_of, rows.first_seq, [a] * n_b, range(b0, b0 + n_b),
+            k=eng.k, tile=tile, c_pad=eng.c_pad,
+        ).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            pairs_packed_cuda.packed_grouped(rows, a, gidx, k=eng.k, group=group,
+                                             n_groups=n_groups - gidx).numpy(),
+            want,
+        )
+    from fastsk_tpu_torch.kernel import pairs_engine
+
+    calls = []
+    grouped = pairs_engine.packed_grouped
+
+    def spy(rows, a, gidx, **kw):
+        calls.append(a)
+        return grouped(rows, a, gidx, **kw)
+
+    monkeypatch.setattr(pairs_engine, "packed_grouped", spy)
+    np.testing.assert_array_equal(eng.exact(), oracle.exact_counts(X, 7, 3))
+    assert calls == list(range(eng.n_strips))

@@ -178,8 +178,9 @@ def test_parts_from_s1_matches_jax_pair_parts(rng, small_tile, g, m):
             digit_base=je.digit_base, backend="xla", interpret=False,
         ), dtype=np.int64)
         want = sum(je.digit_base**d * parts_j[d] for d in range(je.n_digits))
-        got = pairs_packed.pair_parts(
-            rows, a, rows, b, 1, bounds[b : b + 1], k=g - m, c_max=eng.c_max
+        got = pairs_packed.parts_from_s1(
+            pairs_packed_cuda.packed_s1(rows, a, rows, b, 1, k=g - m), bounds[b : b + 1],
+            c_max=eng.c_max,
         )
         assert got.dtype == torch.int64
         np.testing.assert_array_equal(got[0].numpy(), want)
@@ -242,6 +243,136 @@ def test_kernel_f_wrapper_checks_inputs(rng, small_tile):
     )
     with pytest.raises(ValueError, match="int32 sums"):
         pairs_packed_cuda.packed_s1(wide, 0, wide, 0, 1, k=10)
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+def test_strip_bounds_match_pack_windows(rng, monkeypatch, tile):
+    """The plain composite's bounds, from a table's seq_of and first_seq
+    alone, are ``pack_windows``'s (which the JAX stage 2 reads)."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    eng = PackedPairsEngine(
+        encode_sequences(random_ragged_seqs(rng, 9, 20, 300, alphabet=5)), 7, 3,
+        T.KernelConfig(**CPU),
+    )
+    rows = eng.rows()
+    assert pairs_packed.strip_span(rows.seq_of, rows.first_seq, tile) == eng.c_max
+    got = pairs_packed.strip_bounds(rows.seq_of, rows.first_seq, tile, eng.c_max)
+    np.testing.assert_array_equal(got.numpy(), eng.pack["bounds"])
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+def test_kernel_f_block_plain_walks_match_oracle(rng, monkeypatch, tile):
+    """``packed_block`` on the CPU (its plain composite): the triangles of
+    every strip add up to the oracle, and rectangles of the row strips
+    split in two, each landed into its own row block, add up to it too."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = random_ragged_seqs(rng, 7, 20, 300, alphabet=5)
+    eng = PackedPairsEngine(encode_sequences(X), 7, 3, T.KernelConfig(**CPU))
+    rows, ns, n_pad = eng.rows(), eng.n_strips, eng.n + eng.c_pad
+    want = oracle.exact_counts(X, 7, 3)[np.ix_(eng.order, eng.order)]
+    tri = torch.zeros((n_pad, n_pad), dtype=torch.int64)
+    for a in range(ns):
+        pairs_packed_cuda.packed_block(tri, rows, (a, a + 1), k=4)
+    np.testing.assert_array_equal(tri[: eng.n, : eng.n].numpy(), want)
+    fs = rows.first_seq
+    rect = np.zeros((n_pad, n_pad), np.int64)
+    for a0, a1 in ((0, ns // 2), (ns // 2, ns)):
+        row0 = int(fs[a0])
+        blk = torch.zeros((int(fs[a1 - 1]) + eng.c_max - row0, n_pad), dtype=torch.int64)
+        pairs_packed_cuda.packed_block(
+            blk, rows, (a0, a1), k=4, rows_j=rows, strips_j=(0, ns), row_off=row0
+        )
+        rect[row0 : row0 + blk.shape[0]] += blk.numpy()
+    np.testing.assert_array_equal(rect[: eng.n, : eng.n], want)
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+def test_kernel_f_ring_diagonal_triangle_matches_oracle(rng, monkeypatch, tile):
+    """The ring's steps on the CPU (``packed_block``'s plain composite):
+    each half of the strips against itself as a triangle with its mirror,
+    landed at the half's row offset, and against the other half as a
+    rectangle, add up to the oracle; the triangle's mirror stays in the
+    half's own rows."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = random_ragged_seqs(rng, 7, 20, 300, alphabet=5)
+    eng = PackedPairsEngine(encode_sequences(X), 7, 3, T.KernelConfig(**CPU))
+    rows, ns, n_pad = eng.rows(), eng.n_strips, eng.n + eng.c_pad
+    fs = rows.first_seq
+    halves = ((0, ns // 2), (ns // 2, ns))
+    got = np.zeros((n_pad, n_pad), np.int64)
+    for own in halves:
+        row0 = int(fs[own[0]])
+        blk = torch.zeros((int(fs[own[1] - 1]) + eng.c_max - row0, n_pad), dtype=torch.int64)
+        pairs_packed_cuda.packed_block(blk, rows, own, k=4, strips_j=own, row_off=row0)
+        diag = blk.clone()
+        for other in halves:
+            if other != own:
+                pairs_packed_cuda.packed_block(
+                    blk, rows, own, k=4, rows_j=rows, strips_j=other, row_off=row0
+                )
+        cols = diag.abs().sum(0).nonzero().flatten()
+        assert int(cols.min()) >= row0 and int(cols.max()) < row0 + blk.shape[0]
+        got[row0 : row0 + blk.shape[0]] += blk.numpy()
+    want = oracle.exact_counts(X, 7, 3)[np.ix_(eng.order, eng.order)]
+    np.testing.assert_array_equal(got[: eng.n, : eng.n], want)
+
+
+def test_kernel_f_block_wrapper_checks_inputs(rng, small_tile):
+    eng = PackedPairsEngine(
+        encode_sequences(random_ragged_seqs(rng, 5, 20, 90, alphabet=4)), 6, 3,
+        T.KernelConfig(**CPU),
+    )
+    rows, ns = eng.rows(), eng.n_strips
+    out = torch.zeros((eng.n + eng.c_pad,) * 2, dtype=torch.int64)
+    pc = pairs_packed_cuda
+    before = pc.packed_block.launches, dict(pc.packed_block.bodies)
+    pc.packed_block(out, rows, (0, ns), k=3)
+    pc.packed_block(out, rows, (0, 1), k=3, rows_j=rows, strips_j=(0, ns), body="bytes")
+    assert (pc.packed_block.launches, pc.packed_block.bodies) == before  # CPU path: no launch
+    with pytest.raises(ValueError, match="come together"):
+        pc.packed_block(out, rows, (0, 1), k=3, rows_j=rows)
+    with pytest.raises(ValueError, match="must start at its rows"):
+        pc.packed_block(out, rows, (1, 2), k=3, strips_j=(0, ns))
+    with pytest.raises(ValueError, match="must start at its rows"):
+        pc.packed_block(out, rows, (0, 2), k=3, strips_j=(0, 1))
+    with pytest.raises(ValueError, match="out of range"):
+        pc.packed_block(out, rows, (0, ns + 1), k=3)
+    with pytest.raises(ValueError, match="out of range"):
+        pc.packed_block(out, rows, (1, 1), k=3, rows_j=rows, strips_j=(0, 1))
+    with pytest.raises(ValueError, match="k <= g"):
+        pc.packed_block(out, rows, (0, 1), k=7)
+    with pytest.raises(ValueError, match="int64"):
+        pc.packed_block(out.int(), rows, (0, 1), k=3)
+    with pytest.raises(ValueError, match="body"):
+        pc.packed_block(out, rows, (0, 1), k=3, body="wmma")
+    other = PackedPairsEngine(
+        encode_sequences(random_ragged_seqs(rng, 5, 20, 90, alphabet=4)), 7, 3,
+        T.KernelConfig(**CPU),
+    ).rows()
+    with pytest.raises(ValueError, match="share g"):
+        pc.packed_block(out, rows, (0, 1), k=3, rows_j=other, strips_j=(0, 1))
+
+
+def test_kernel_g_wrapper_checks_groups(rng, small_tile):
+    eng = PackedPairsEngine(
+        encode_sequences(random_ragged_seqs(rng, 9, 40, 120, alphabet=4)), 6, 3,
+        T.KernelConfig(pairs_backend="pallas_grouped", **CPU),
+    )
+    rows, group = eng.rows(), eng.group
+    pc = pairs_packed_cuda
+    assert eng.n_strips == 2 * group and pc.grouped_body(rows) == "bytes"  # 64-row strips
+    before = pc.packed_grouped.launches, dict(pc.packed_grouped.bodies)
+    both = pc.packed_grouped(rows, 3, 0, k=3, group=group, n_groups=2)
+    assert both.shape == (2 * group, eng.c_pad, eng.c_pad)
+    assert (pc.packed_grouped.launches, pc.packed_grouped.bodies) == before
+    second = pc.packed_grouped(rows, 3, 1, k=3, group=group)
+    np.testing.assert_array_equal(both[group:].numpy(), second.numpy())
+    with pytest.raises(ValueError, match="outside"):
+        pc.packed_grouped(rows, 3, 1, k=3, group=group, n_groups=2)
+    with pytest.raises(ValueError, match="outside"):
+        pc.packed_grouped(rows, 3, 0, k=3, group=group, n_groups=0)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        pc.packed_grouped(rows, 3, 0, k=3, group=group, body="mma")
 
 
 # ------------------------------------------------------ the mesh routes
