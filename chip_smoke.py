@@ -9,15 +9,17 @@ raises and the exit code is non-zero:
 1. env    torch / CUDA / card / nvcc / triton facts; refuses to run
           without a CUDA device.
 2. build  compiles kernels A, H (csrc/pairs.cu), B, C (csrc/smo.cu) and
-          D, E, F, G (csrc/pairs_packed.cu; A, D, F and G share
-          csrc/hopper.cuh)
+          D, E, F, G (csrc/pairs_packed.cu; both share csrc/hopper.cuh)
           from the checkout, one nvcc per source in parallel; prints the
-          seconds and the kernels whose wgmma ptxas serializes.
+          seconds and the kernels whose wgmma ptxas serializes. Then the
+          inner loop of D to G's kernel at 5 code planes, read from the
+          built library's SASS (experiments/sass_loop.py): its common
+          path's instructions a window pair, for E's bound.
 3. pairs  kernel A's two bodies (the int8 tensor-core one and the dp4a
           one) against the plain PyTorch version: a small seeded shape (also against inline
           numpy counts), the full KAT2B shape (g=8, m=4) and 7230 seeded
           length-200 DNA at g=16, m=10, each body timed. Integers must be
-          equal. Then the KAT2B counts through kernel D's tensor-core body
+          equal. Then the KAT2B counts through kernel D
           (exact_engine="packed"), timed, equal to kernel A's; and both
           bodies timed on seeded 1000 x 200 sets at g=8 over 16, 24, 40,
           48 and 56 letters (one-hot depths 128 to 448 bytes, the deepest
@@ -38,26 +40,27 @@ raises and the exit code is non-zero:
           batch), AUC 0.904993 to 6 decimals and |AUC - 0.903321| <= 0.005.
 6. golden tests/golden/ep_sl at g=6, m=2 with device_resident=False on the
           card: the f64 kernel equals ep_sl_g6m2.txt bit for bit.
-7. packed kernels D (its tensor-core body, and its byte-code body on the
-          same rows), E and G (the packed engine's band, pair-list and
-          grouped routes; G one launch a strip) against the plain
-          version: a small seeded
+7. packed kernels D, E and G (the packed engine's band, pair-list and
+          grouped routes, one kernel on code planes; E one launch landing
+          in the matrix, no torch landing; G one launch a strip) against
+          the plain version: a small seeded
           ragged set whose sequences straddle 2048-row strips (also
           against inline numpy counts) and a medium one (400 sequences,
           lengths 16-905, alphabet 24, g=8, m=4). Integers must be equal.
-          Then D's two bodies timed on medium sets over 24 to 88 letters
-          (one-hot depths 192 to 704 bytes), and a set over 100 letters at
-          g=12 (1,216 bytes), which must take the byte-code body.
+          Then D timed on medium sets over 8 to 88 letters (one-hot
+          depths 64 to 704 bytes) and on 400 sequences over 100 letters
+          at g=12 (experiments/probe_band.py's wide set), each equal to
+          the plain version, and 24 sequences of that set equal to numpy.
 8. packed-full  the shape of protein 2.19 (2564 sequences, lengths
           16-905, alphabet 24, g=8, m=4): D, E and G equal each other and
           the plain version, and D equals kernel A run on the same set in
-          the padded sequence-aligned layout; G's route launches its
-          tensor-core body once a strip.
+          the padded sequence-aligned layout; E's route is one launch
+          that calls no land_parts; G's route launches once a strip.
 9. ragged-slice  that set, 80/20 split, positives carrying a seeded motif,
           through FastSK(8, 4).compute_kernel (device_resident=True) ->
           fit(C=0.01) -> score("auc") with the counters zeroed just
-          before: the auto route must take kernel D's tensor-core body
-          once (and not kernel A), kernel B 2 launches for 6 problems, AUC
+          before: the auto route must take kernel D once (and not
+          kernel A), kernel B 2 launches for 6 problems, AUC
           >= 0.9, and a host-path run (device_resident=False) must give an
           AUC within 0.005. Kernel B is then held to its twin, as in phase
           4, on that fit's training Gram: the main solve (C=0.01) and the
@@ -102,7 +105,7 @@ raises and the exit code is non-zero:
           stage 2 and the landing in one launch) against its plain
           composite (ops/pairs_packed.py:packed_block_plain) at phase 7's
           medium set (g=8, m=4) and at a seeded ragged DNA set at g=12,
-          m=6 (two digit planes in the JAX package), both bodies: the
+          m=6 (two digit planes in the JAX package): the
           rectangle of the later half of the row strips against every
           strip but the first, landed with a row offset (the ring's walk),
           and the triangles of strip 0 and of a middle strip (the
@@ -225,6 +228,22 @@ def smo_bound(n: int, iters: int) -> dict:
     gradient update's two f32 multiply-adds per row an iteration, and Q
     read once."""
     return bound(4.0 * n * iters, 4.0 * n * n + 20.0 * n, PEAK_F32_FLOPS)
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+
+
+def issue_floor_ms(pairs: int, per_pair: float, lanes: int) -> float:
+    """Milliseconds for ``pairs`` window pairs at ``per_pair`` instructions
+    each, on every SM's ``lanes`` a clock (128 issue, 16 POPC) at the
+    highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pairs * per_pair / (sms * lanes * sm_clock_mhz() * 1e6) * 1e3
 
 
 def windows_of(X, g: int) -> int:
@@ -372,9 +391,9 @@ def smo_twin(shape: str, gram, labels, c_box, clusters=()) -> dict:
 
 def kat2b_on_d(dev, Xtr, Xte, a_counts) -> dict:
     """Part of phase 3: the KAT2B count matrix through the packed engine
-    (``exact_engine="packed"``) and kernel D's tensor-core body, warmed up
-    then timed: the yardstick kernel A's tensor-core body must beat.
-    Integer-equal to kernel A's counts."""
+    (``exact_engine="packed"``) and kernel D, warmed up then timed: the
+    yardstick for kernel A's tensor-core body. Integer-equal to kernel A's
+    counts."""
     from fastsk_tpu_torch import KernelConfig
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
     from fastsk_tpu_torch.ops import pairs_packed_cuda
@@ -385,17 +404,14 @@ def kat2b_on_d(dev, Xtr, Xte, a_counts) -> dict:
     )
     rows = eng.rows()
     pairs_packed_cuda.packed_band(rows, k=4, n_out=eng.n)
-    before = dict(pairs_packed_cuda.packed_band.bodies)
+    before = pairs_packed_cuda.packed_band.launches
     got, ms = cuda_ms(pairs_packed_cuda.packed_band, rows, k=4, n_out=eng.n)
-    bodies = {b: pairs_packed_cuda.packed_band.bodies[b] - before[b] for b in before}
+    launches = pairs_packed_cuda.packed_band.launches - before
     pos = torch.from_numpy(np.argsort(eng.order)).to(dev)
     err = int((got[pos][:, pos] - a_counts.long()).abs().max())
-    fields = dict(
-        shape="KAT2B", g=8, m=4, depth=pairs_packed_cuda.onehot_depth(8, eng.alpha),
-        bodies=bodies, d_ms=ms, max_abs_err_vs_a=err,
-    )
+    fields = dict(shape="KAT2B", g=8, m=4, launches=launches, d_ms=ms, max_abs_err_vs_a=err)
     emit("pairs-on-d", **fields)
-    require(bodies == {"mma": 1, "bytes": 0}, f"KAT2B did not take D's tensor-core body: {bodies}")
+    require(launches == 1, f"KAT2B through kernel D took {launches} launches")
     require(err == 0, "kernel D's KAT2B counts differ from kernel A's")
     del eng, rows, got
     torch.cuda.empty_cache()
@@ -495,65 +511,72 @@ def slice_219(full=(2564, 16, 905)):
     )
 
 
-def band_body_sweep(dev, medium=(400, 16, 905), alphas=(24, 40, 56, 72, 88),
-                    wide=(24, 100, 905)):
-    """Part of phase 7: kernel D's two bodies on seeded ragged sets of the
-    ``medium`` shape at g=8, m=4 over each of ``alphas`` letters (one-hot
-    depths 192 to 704 bytes), each warmed up then timed, integer-equal;
-    then a set of ``wide`` over 100 letters at g=12, m=7 (1,216 bytes,
-    past the tensor-core body's depth), whose default body must be the
-    byte-code one, equal to the plain version and to numpy. Returns
-    ({alpha: fields}, the wide set's fields)."""
+def band_depth_sweep(dev, medium=(400, 16, 905), alphas=(8, 16, 24, 40, 56, 72, 88),
+                     wide=400):
+    """Part of phase 7: kernel D on seeded ragged sets of the ``medium``
+    shape at g=8, m=4 over each of ``alphas`` letters (one-hot depths 64
+    to 704 bytes), then on experiments/probe_band.py's wide set (``wide``
+    sequences over 100 letters, g=12, m=7: 1,200 bytes), each warmed up,
+    timed and equal to the plain version; its first 24 sequences also
+    equal to numpy. Returns ({alpha: fields}, the wide set's fields)."""
     from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.experiments.probe_band import wide_set
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
     from fastsk_tpu_torch.ops import pairs_packed, pairs_packed_cuda
     from fastsk_tpu_torch.ops.encode import encode_sequences
 
+    def timed(X, g, m):
+        """(D's counts in the input order, ms, the plain counts so, plain
+        ms, the engine)."""
+        eng = PackedPairsEngine(encode_sequences(X), g, m, KernelConfig(device=dev))
+        rows = eng.rows()
+        pairs_packed_cuda.packed_band(rows, k=g - m, n_out=eng.n)
+        got, ms = cuda_ms(pairs_packed_cuda.packed_band, rows, k=g - m, n_out=eng.n)
+        want, plain_ms = cuda_ms(
+            pairs_packed.packed_counts_plain, rows.onehot, rows.seq_of, rows.first_seq,
+            k=g - m, tile=eng.tile, c_pad=eng.c_pad, n_out=eng.n,
+        )
+        pos = torch.from_numpy(np.argsort(eng.order)).to(dev)
+        return got[pos][:, pos], ms, want[pos][:, pos], plain_ms, eng
+
     sweep = {}
     for alpha in alphas:
         X = ragged_set(70 + alpha, *medium, alpha=alpha)[0]
-        eng = PackedPairsEngine(encode_sequences(X), 8, 4, KernelConfig(device=dev))
-        rows = eng.rows()
-        got, ms = {}, {}
-        for body in ("mma", "bytes"):
-            pairs_packed_cuda.packed_band(rows, k=4, n_out=eng.n, body=body)
-            got[body], ms[body] = cuda_ms(pairs_packed_cuda.packed_band, rows, k=4, n_out=eng.n, body=body)
+        X = [[(c - 1) % alpha + 1 for c in seq] for seq in X]  # MOTIF's codes reach 20
+        got, ms, want, plain_ms, eng = timed(X, 8, 4)
         sweep[alpha] = dict(
-            depth=pairs_packed_cuda.onehot_depth(8, eng.alpha), alpha=eng.alpha,
-            default=pairs_packed_cuda.band_body(8, eng.alpha), mma_ms=ms["mma"],
-            bytes_ms=ms["bytes"], equal=bool(torch.equal(got["mma"], got["bytes"])),
+            depth=8 * eng.alpha, alpha=eng.alpha, ms=ms, plain_ms=plain_ms,
+            max_abs_err=int((got - want).abs().max()),
         )
-        del eng, rows, got
-    emit("d-bodies", g=8, m=4, sweep=sweep)
-    require(all(s["equal"] for s in sweep.values()), f"kernel D's bodies disagree: {sweep}")
+        del got, want, eng
+    emit("d-depths", g=8, m=4, sweep=sweep)
+    require(all(f["max_abs_err"] == 0 for f in sweep.values()),
+            f"kernel D differs from its plain version in the depth sweep: {sweep}")
 
-    X = ragged_set(100, *wide, alpha=100)[0]
-    eng = PackedPairsEngine(encode_sequences(X), 12, 7, KernelConfig(device=dev))
-    rows = eng.rows()
-    before = dict(pairs_packed_cuda.packed_band.bodies)
-    got, ms = cuda_ms(pairs_packed_cuda.packed_band, rows, k=5, n_out=eng.n)
-    bodies = {b: pairs_packed_cuda.packed_band.bodies[b] - before[b] for b in before}
-    want = pairs_packed.packed_counts_plain(
-        rows.onehot, rows.seq_of, rows.first_seq, k=5, tile=eng.tile, c_pad=eng.c_pad, n_out=eng.n
-    )
-    pos = torch.from_numpy(np.argsort(eng.order)).to(dev)
-    numpy_ok = bool(np.array_equal(got[pos][:, pos].cpu().numpy(), numpy_counts(X, 12, 5)))
+    got, ms, want, plain_ms, eng = timed(wide_set(wide), 12, 7)
+    X24 = wide_set(24)
+    got24 = timed(X24, 12, 7)[0]
+    numpy_ok = bool(np.array_equal(got24.cpu().numpy(), numpy_counts(X24, 12, 5)))
     fields = dict(
-        n=eng.n, alpha=eng.alpha, g=12, m=7, depth=pairs_packed_cuda.onehot_depth(12, eng.alpha),
-        body=pairs_packed_cuda.band_body(12, eng.alpha), bodies=bodies, ms=ms,
-        max_abs_err=int((got - want).abs().max()), equal_numpy=numpy_ok,
+        n=eng.n, alpha=eng.alpha, g=12, m=7, depth=12 * eng.alpha, windows=int(eng.pack["p"].sum()),
+        ms=ms, plain_ms=plain_ms, max_abs_err=int((got - want).abs().max()),
+        equal_numpy_24=numpy_ok,
     )
-    emit("d-bytes-body", **fields)
-    require(bodies == {"mma": 0, "bytes": 1}, f"the wide set did not take D's byte-code body: {bodies}")
-    require(fields["max_abs_err"] == 0 and numpy_ok, "D's byte-code body differs on the wide set")
+    emit("d-wide", **fields)
+    require(eng.alpha == 100, f"the wide set's alphabet is {eng.alpha}, not 100")
+    require(fields["max_abs_err"] == 0 and numpy_ok, "kernel D differs on the wide set")
+    del got, want, eng, got24
+    torch.cuda.empty_cache()
     return sweep, fields
 
 
-def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
+def packed_phases(dev, sass: dict, small=(24, 100, 905), medium=(400, 16, 905),
                   full=(2564, 16, 905)):
     """Phases 7-9 (the packed engine and kernels D, E, G); each size is
-    (sequences, shortest, longest). Returns the kernels' JSON records and
-    kernel B's twin check on the ragged slice's main solve."""
+    (sequences, shortest, longest); ``sass`` is the kernel's inner loop as
+    phase 2 read it (experiments/sass_loop.py:loop_stats). Returns the
+    kernels' JSON records and kernel B's twin check on the ragged slice's
+    main solve."""
     from fastsk_tpu_torch import FastSK, KernelConfig
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
     from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed, pairs_packed_cuda
@@ -563,15 +586,6 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
 
     # --------------------------------------------- kernels D, E, G vs plain
 
-    def bytes_body_counts(band, rows):
-        """(D's byte-code body's counts in the input order, ms): D's
-        earlier body on the same rows, warmed up, then timed."""
-        kw = dict(k=band.k, n_out=band.n, body="bytes")
-        pairs_packed_cuda.packed_band(rows, **kw)
-        got, ms = cuda_ms(pairs_packed_cuda.packed_band, rows, **kw)
-        pos = torch.from_numpy(np.argsort(band.order)).to(dev)
-        return got[pos][:, pos], ms
-
     def packed_engines(X, g, m):
         enc = encode_sequences(X)
         band = PackedPairsEngine(enc, g, m, KernelConfig(device=dev))
@@ -580,11 +594,20 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         )
         return band, grouped
 
-    def route_counts(band, grouped, launches=None):
+    land_parts = pairs_packed.land_parts
+
+    def route_counts(band, grouped, launches):
         """{route: (int64 counts in the input order, ms)}; each route runs
         once to warm up, then once timed with CUDA events, its kernel's
-        launches in that run (and G's bodies) into ``launches``."""
+        launches in that run (and the torch landings of part blocks on E's
+        route) into ``launches``."""
         out = {}
+        landed = []
+
+        def spy(*args):
+            landed.append(1)
+            return land_parts(*args)
+
         for name, eng, route, fn in (
             ("D", band, "band", pairs_packed_cuda.packed_band),
             ("E", band, "pairlist", pairs_packed_cuda.packed_pairlist),
@@ -593,18 +616,25 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
             eng.route = route
             eng._counts()
             fn.launches = 0
-            bodies = dict(pairs_packed_cuda.packed_grouped.bodies)
-            out[name] = cuda_ms(eng._counts)
-            if launches is not None:
-                launches[name] = fn.launches
-                if name == "G":
-                    launches["G_bodies"] = {
-                        b: n - bodies[b] for b, n in pairs_packed_cuda.packed_grouped.bodies.items()
-                    }
+            landed.clear()
+            pairs_packed.land_parts = spy
+            try:
+                out[name] = cuda_ms(eng._counts)
+            finally:
+                pairs_packed.land_parts = land_parts
+            launches[name] = fn.launches
+            if name == "E":
+                launches["E_land_parts"] = len(landed)
         band.route = "band"
         return out
 
-    packed_times = {}
+    def require_e_once(launches, shape):
+        require(
+            launches["E"] == 1 and launches["E_land_parts"] == 0,
+            f"E's route at the {shape} shape was not one launch landing in the matrix: {launches}",
+        )
+
+    packed_times, packed_launches = {}, {}
     for shape, X, check_numpy in (
         ("small", ragged_set(3, *small)[0], True),
         ("medium", ragged_set(4, *medium)[0], False),
@@ -618,8 +648,8 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         )
         pos = torch.from_numpy(np.argsort(band.order)).to(dev)
         plain = plain_sorted[pos][:, pos]
-        res = route_counts(band, grouped)
-        res["D-bytes"] = bytes_body_counts(band, rows)
+        launches = {}
+        res = route_counts(band, grouped, launches)
         errs = {name: int((got - plain).abs().max()) for name, (got, _) in res.items()}
         numpy_ok = (
             bool(np.array_equal(plain.cpu().numpy(), numpy_counts(X, 8, 4)))
@@ -627,16 +657,16 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         )
         emit(
             "packed", shape=shape, n=band.n, rows=band.total_rows,
-            strips=band.n_strips, c_max=band.c_max,
-            d_body=pairs_packed_cuda.band_body(8, band.alpha),
-            straddling=straddling(band),
+            strips=band.n_strips, c_max=band.c_max, straddling=straddling(band),
             kernel_ms={name: ms for name, (_, ms) in res.items()},
             plain_ms=plain_ms, max_abs_err=errs, equal_numpy=numpy_ok,
-            checksum=int(plain.sum()),
+            checksum=int(plain.sum()), launches=launches,
         )
         require(all(e == 0 for e in errs.values()), f"D/E/G differ from the plain version on {shape}: {errs}")
         require(numpy_ok is not False, "the plain packed counts differ from numpy on the small shape")
+        require_e_once(launches, shape)
         packed_times[shape] = {name: (ms, plain_ms, errs[name]) for name, (_, ms) in res.items()}
+        packed_launches[shape] = launches
         if shape == "medium":  # one count matrix, whichever route: one bound
             # (inputs: 8 code bytes and a 4-byte seq_of a row; int64 output)
             medium_bound = count_bound(
@@ -644,14 +674,13 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
             )
         del band, grouped, rows, plain_sorted, plain, res
     torch.cuda.empty_cache()
-    sweep, wide = band_body_sweep(dev, medium)
+    sweep, wide = band_depth_sweep(dev, medium)
 
     # ------------------------------- the 2.19 shape: D = E = G = kernel A
     X219, _, r_tr, r_te, ry_tr, ry_te = slice_219(full)
     band, grouped = packed_engines(X219, 8, 4)
     full_launches = {}
     res = route_counts(band, grouped, full_launches)
-    res["D-bytes"] = bytes_body_counts(band, band.rows())
     d_counts = res["D"][0]
     eng_a = PairsGkmEngine(encode_sequences(X219), 8, 4, KernelConfig(device=dev))
     x_a = eng_a._build_x()
@@ -672,19 +701,16 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
     full_bound = count_bound(windows, 8 * band.alpha, band.total_rows * 12 + band.n**2 * 8)
     emit(
         "packed-full", n=band.n, rows=band.total_rows, strips=band.n_strips,
-        c_max=band.c_max, windows=windows, d_body=pairs_packed_cuda.band_body(8, band.alpha),
-        d_bound_ms=full_bound["bound_ms"],
+        c_max=band.c_max, windows=windows, d_bound_ms=full_bound["bound_ms"],
         window_pairs_upper=windows * (windows + 1) // 2, p_pad_a=eng_a.p_pad,
         width_a=x_a.shape[1], kernel_ms={name: ms for name, (_, ms) in res.items()},
         kernel_a_ms=a_ms, plain_ms=full_plain_ms, max_abs_err_vs_d=errs,
         checksum=int(d_counts.sum()), launches=full_launches, g_strips=grouped.n_strips,
     )
     require(all(e == 0 for e in errs.values()), f"D, E, G, A and plain disagree at the 2.19 shape: {errs}")
-    require(
-        full_launches["G"] == grouped.n_strips
-        and full_launches["G_bodies"] == {"mma": grouped.n_strips, "bytes": 0},
-        f"G's route did not launch its tensor-core body once a strip: {full_launches}",
-    )
+    require_e_once(full_launches, "2.19")
+    require(full_launches["G"] == grouped.n_strips,
+            f"G's route did not launch once a strip: {full_launches}")
     full_times = {name: ms for name, (_, ms) in res.items()}
     del band, grouped, res, d_counts, x_a, a_full, a_counts
     torch.cuda.empty_cache()
@@ -697,13 +723,11 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
     for fn in counters:
         fn.launches = 0
     smo_cuda.smo_solve.problems = 0
-    pairs_packed_cuda.packed_band.bodies = {"mma": 0, "bytes": 0}
     rfsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
     _, r_kernel_s = wall(rfsk.compute_kernel, r_tr, r_te, ry_tr, ry_te)
     _, r_fit_s = wall(rfsk.fit, C=0.01)
     r_auc, r_score_s = wall(rfsk.score, "auc")
     r_launches = {fn.__name__: fn.launches for fn in counters}
-    r_bodies = dict(pairs_packed_cuda.packed_band.bodies)
     r_problems = smo_cuda.smo_solve.problems
     rk = rfsk._K_dev
     r_dec = rfsk._model.decision_function(rfsk._test_gram())
@@ -721,11 +745,9 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
         "ragged-slice", shape="2.19", g=8, m=4, C=0.01, n_train=len(r_tr),
         n_test=len(r_te), kernel_s=r_kernel_s, fit_s=r_fit_s,
         score_s=r_score_s, auc=r_auc, auc_host_path=h_auc,
-        svm_iters=rfsk._model.iters_, launches=r_launches, d_bodies=r_bodies,
-        smo_problems=r_problems, outputs_ok=r_ok,
+        svm_iters=rfsk._model.iters_, launches=r_launches, smo_problems=r_problems, outputs_ok=r_ok,
     )
     require(r_ok, "the ragged slice's kernel or decision values are malformed")
-    require(r_bodies == {"mma": 1, "bytes": 0}, f"kernel D did not run its tensor-core body once: {r_bodies}")
     require(r_launches["packed_band"] == 1, f"kernel D did not launch once: {r_launches}")
     require(r_launches["pairs_counts"] == 0, f"the ragged set took kernel A: {r_launches}")
     require(r_launches["smo_solve"] == 2 and r_problems == 6,
@@ -767,18 +789,29 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
             launches=o_launches, counts_equal_d=same,
         )
         require(o_launches[fn.__name__] > 0, f"kernel {key} did not launch: {o_launches}")
+        require(key != "E" or o_launches[fn.__name__] == 1,
+                f"E's route through the API was not one launch: {o_launches}")
         require(o_launches["packed_band"] == 0, f"route {key} took kernel D: {o_launches}")
         require(same, f"route {key}'s kernel counts differ from kernel D's")
         r_launches[fn.__name__] = o_launches[fn.__name__]
         del ofsk
 
+    # the kernel's own floor at 2.19 (D and E run the same kernel over the
+    # same window pairs): its SASS a window pair, counted in phase 2 from
+    # the library this run built (and its one POPC), over the card's issue
+    # (and POPC) rate
+    pairs_219 = windows * (windows + 1) // 2
+    body_floor = {
+        "code_plane_bound_ms_2_19": issue_floor_ms(pairs_219, sass["per_pair"], 128),
+        "popc_floor_ms_2_19": issue_floor_ms(pairs_219, 1, 16),
+        "sass_per_pair": sass["per_pair"], "sm_clock_mhz": sm_clock_mhz(),
+    }
     packed_src = "fastsk_tpu_torch/csrc/pairs_packed.cu"
     d_extra = {
-        "body": pairs_packed_cuda.band_body(8, 24), "bodies": r_bodies,
-        "ms_bytes_body": packed_times["medium"]["D-bytes"][0],
-        "ms_bytes_body_2_19": full_times["D-bytes"],
-        "body_sweep": sweep, "bytes_case": wide,
+        "depth_sweep": sweep, "ms_wide": wide["ms"], "plain_ms_wide": wide["plain_ms"],
+        "max_abs_err_wide": wide["max_abs_err"], "n_wide": wide["n"], **body_floor,
     }
+    e_extra = {"launches_medium_route": packed_launches["medium"]["E"], **body_floor}
     packed_rec = [
         {
             "name": fn.__name__, "route": "cuda", "source": packed_src,
@@ -791,7 +824,7 @@ def packed_phases(dev, small=(24, 100, 905), medium=(400, 16, 905),
             **medium_bound, "library_ms": None, "bound_ms_2_19": full_bound["bound_ms"],
             "launches_2_19_route": full_launches[key],
             **(d_extra if key == "D" else {}),
-            **({"bodies_2_19_route": full_launches["G_bodies"]} if key == "G" else {}),
+            **(e_extra if key == "E" else {}),
         }
         for key, fn, line in (
             ("D", pairs_packed_cuda.packed_band, 605),
@@ -1154,11 +1187,10 @@ def cli_phase(tmpdir: str, device: str = "cuda", prefix: str = EP300) -> dict:
 def s1_phase(dev, medium=(400, 16, 905), dna=(300, 16, 905)) -> dict:
     """Phase 14: kernel F (``packed_block``) against its plain composite
     at ``medium`` (phase 7's set, g=8 m=4) and at a seeded ragged DNA set
-    of ``dna`` at g=12 m=6, both walks and both bodies, each warmed up and
-    timed; then F's stage-1 kernel (``packed_s1``) against its plain
-    version. Returns {shape: fields}: the rectangle's with the default
-    body at the top, every case's under "cases", the stage-1 kernel's
-    under "s1"."""
+    of ``dna`` at g=12 m=6, both walks, each warmed up and timed; then F's
+    stage-1 kernel (``packed_s1``) against its plain version. Returns
+    {shape: fields}: the rectangle's at the top, every case's under
+    "cases", the stage-1 kernel's under "s1"."""
     from fastsk_tpu_torch import KernelConfig
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
     from fastsk_tpu_torch.ops import pairs_packed, pairs_packed_cuda
@@ -1175,9 +1207,8 @@ def s1_phase(dev, medium=(400, 16, 905), dna=(300, 16, 905)) -> dict:
         mid = ns // 2
         valid = (rows.seq_of >= 0).view(ns, tile).sum(1).tolist()
         fs = rows.first_seq.tolist()
-        words = rows.words.shape[1]
+        words, planes = rows.words.shape[1], rows.planes.shape[1]
         n_pad = eng.n + eng.c_pad
-        default = pairs_packed_cuda.band_body(g, eng.alpha)
 
         # the ring's steps with a row offset (a rectangle against other
         # strips; the triangle of a device's own strips with its mirror),
@@ -1199,21 +1230,17 @@ def s1_phase(dev, medium=(400, 16, 905), dna=(300, 16, 905)) -> dict:
             want, plain_ms = cuda_ms(pairs_packed.packed_block_plain, zeros(), rows, strips_i, k=k, **kw)
             ops_bytes = (
                 2.0 * g * eng.alpha * pairs,
-                (tile * (strips_i[1] - strips_i[0]) + cols) * (4 * words + 4) + want.numel() * 8,
+                (tile * (strips_i[1] - strips_i[0]) + cols) * (4 * planes + 4) + want.numel() * 8,
             )
-            for body in ("mma", "bytes"):
-                pairs_packed_cuda.packed_block(zeros(), rows, strips_i, k=k, body=body, **kw)
-                got, ms = cuda_ms(
-                    pairs_packed_cuda.packed_block, zeros(), rows, strips_i, k=k, body=body, **kw
-                )
-                errs[f"{name}/{body}"] = int((got - want).abs().max())
-                fields[f"{name}/{body}"] = dict(
-                    ms=ms, plain_ms=plain_ms, strips_i=list(strips_i), window_pairs=pairs,
-                    **bound(*ops_bytes, PEAK_INT8_OPS),
-                )
-                del got
-            del want
-        top = dict(fields[f"rectangle/{default}"], body=default, max_abs_err=max(errs.values()))
+            pairs_packed_cuda.packed_block(zeros(), rows, strips_i, k=k, **kw)
+            got, ms = cuda_ms(pairs_packed_cuda.packed_block, zeros(), rows, strips_i, k=k, **kw)
+            errs[name] = int((got - want).abs().max())
+            fields[name] = dict(
+                ms=ms, plain_ms=plain_ms, strips_i=list(strips_i), window_pairs=pairs,
+                **bound(*ops_bytes, PEAK_INT8_OPS),
+            )
+            del got, want
+        top = dict(fields["rectangle"], max_abs_err=max(errs.values()))
 
         # F's stage-1 kernel alone: strip 0 against every strip, a middle
         # strip against every later one
@@ -1243,8 +1270,8 @@ def s1_phase(dev, medium=(400, 16, 905), dna=(300, 16, 905)) -> dict:
         s1["max_abs_err"] = max(s1_errs)
         emit(
             "packed-block", shape=shape, g=g, m=m, n=eng.n, strips=ns, tile=tile,
-            c_max=eng.c_max, c_pad=eng.c_pad, depth=pairs_packed_cuda.onehot_depth(g, eng.alpha),
-            default_body=default, straddling=straddling(eng), max_abs_err=errs, cases=fields,
+            c_max=eng.c_max, c_pad=eng.c_pad, straddling=straddling(eng), max_abs_err=errs,
+            cases=fields,
             s1=dict(s1, max_abs_err_per_launch=s1_errs),
         )
         require(straddling(eng) > 0, f"no sequence straddles a strip on {shape}")
@@ -1299,8 +1326,7 @@ def f_at_full(dev, r_tr, r_te, d_counts) -> dict:
         )
     _, res["d_ms"] = cuda_ms(pairs_packed_cuda.packed_band, rows, k=4, n_out=n)
     res.update(
-        strips=ns, windows=windows, body=pairs_packed_cuda.band_body(8, eng.alpha),
-        width=8 * eng.alpha, nbytes=in_bytes + n * n * 8,
+        strips=ns, windows=windows, width=8 * eng.alpha, nbytes=in_bytes + n * n * 8,
         strip_windows=(rows.seq_of >= 0).view(ns, eng.tile).sum(1).tolist(),
     )
     emit("packed-block-full", shape="2.19", **{key: v for key, v in res.items() if key != "strip_windows"})
@@ -1518,6 +1544,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; there is no CPU run")
     from fastsk_tpu_torch import FastSK, FastaUtility, KernelConfig, _build
+    from fastsk_tpu_torch.experiments.sass_loop import loop_stats
     from fastsk_tpu_torch.kernel.device_counts import DeviceCounts
     from fastsk_tpu_torch.kernel.pairs_engine import PairsGkmEngine
     from fastsk_tpu_torch.ops import pairs, pairs_cuda
@@ -1562,6 +1589,12 @@ def main() -> None:
     })
     emit("build", seconds=build_s, library_dir=_build.BUILD_DIR, ptxas=regs,
          wgmma_serialized=serialized)
+    # the inner loop of D to G's kernel at 5 planes (the 2.19 shape's 24
+    # letters), in the library just built
+    sass = loop_stats()
+    emit("sass", **sass)
+    require(sass["popc"] > 0 and sass["lop3"] >= 5 * sass["popc"],
+            f"the inner loop's common path is not 5 LOP3 and a POPC a pair: {sass}")
 
     # --------------------------------------------------- kernel A vs plain
     rng = np.random.default_rng(0)
@@ -1690,7 +1723,7 @@ def main() -> None:
     emit("golden", n=golden.shape[0], bit_identical=golden_ok)
     require(golden_ok, "the ep_sl kernel differs from the reference golden")
 
-    packed_rec, smo_219, rfsk = packed_phases(dev)
+    packed_rec, smo_219, rfsk = packed_phases(dev, sass)
 
     # ------------------------------------------------ kernel C vs its twin
     nu_kat2b = smo_nu_twin("KAT2B nu-SVC main solve", gram, Ytr, 0.5, 20_000, clusters=(8, 16))
@@ -1792,8 +1825,8 @@ def main() -> None:
             },
             {
                 # the top-level numbers are the medium set's rectangle (the
-                # walk of the ring's other steps) with the default body,
-                # against the plain composite; launches are the 2x2 ring
+                # walk of the ring's other steps) against the plain
+                # composite; launches are the 2x2 ring
                 # run's (the main run); *_2_19_* the slice's rows (phase
                 # 15), each timed call's launches counted; mesh_runs each
                 # mesh run's launches, route ms and bound; s1_* F's
@@ -1803,7 +1836,7 @@ def main() -> None:
                 "replaces": "fastsk_tpu/ops/pairs_packed_pallas.py:130",
                 "launches": mesh["launches"]["packed_block"],
                 **{key: s1["medium"][key] for key in (
-                    "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "body")},
+                    "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")},
                 "library_ms": None,
                 "cases": s1["medium"]["cases"],
                 "ms_dna_g12m6": s1["dna-g12m6"]["ms"],

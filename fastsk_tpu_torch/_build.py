@@ -134,18 +134,15 @@ def kernels() -> ctypes.CDLL:
         for fn in (lib.smo_solve_launch, lib.smo_nu_solve_launch, lib.smo_solve_smem):
             fn.restype = ci
         ll = ctypes.c_longlong
-        lib.packed_band_launch.argtypes = [
-            vp, vp, vp, vp, ll, ll, ci, ci, ci, ci, ci, ci, ci, ci, vp
-        ]
+        lib.packed_band_launch.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ci, ci, ci, vp]
         lib.packed_block_launch.argtypes = [
-            vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, ci, vp, ll, ll,
-            ci, ci, ci, ci, ci, ci, ci, vp,
+            vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, ci, vp, ll, ll, ci, ci, ci, ci, ci, vp,
         ]
         lib.packed_pairlist_launch.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp
+            vp, vp, vp, vp, vp, vp, ll, vp, ll, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp
         ]
         lib.packed_grouped_launch.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp
+            vp, vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, ci, ci, ci, ci, vp
         ]
         lib.packed_s1_launch.argtypes = [
             vp, vp, vp, ci, ci, vp, vp, ll, ci, ci, ci, ci, vp, vp

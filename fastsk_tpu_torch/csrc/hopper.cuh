@@ -1,6 +1,7 @@
-// Hopper building blocks shared by kernels A (pairs.cu) and D, F and G
-// (pairs_packed.cu): one-hot tiles in wgmma's K-major core-matrix layout,
-// shared-memory matrix descriptors, cp.async and the int8 wgmma.
+// Hopper building blocks of kernel A (pairs.cu): one-hot tiles in wgmma's
+// K-major core-matrix layout, shared-memory matrix descriptors, cp.async
+// and the int8 wgmma; kernels D to G (pairs_packed.cu) share its cp.async
+// and upper-triangle walk.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -37,7 +37,7 @@ from ..ops import pairs, pairs_packed
 from ..ops.encode import EncodedSeqs
 from ..ops.pairs_cuda import padded_width, pairs_counts, tile_sequences
 from ..ops.pairs_packed_cuda import (
-    PackedRows, band_fits, packed_band, packed_grouped, packed_pairlist,
+    PackedRows, packed_band, packed_grouped, packed_pairlist,
 )
 from ..parallel import sharding as shd
 from .config import KernelConfig
@@ -138,10 +138,10 @@ class PackedPairsEngine:
     remove the sequence-aligned engine's int32 per-pair bound.
 
     Routes, as in the JAX engine: kernel D (``packed_band``, one launch)
-    by default; kernel E (``packed_pairlist``, slabs of strip pairs) with
-    ``FASTSK_PACKED_PAIRLIST=1`` or where D's byte-code body (wide
-    alphabets, ``band_body``) would pass its 1-D grid;
-    kernel G (``packed_grouped``) with ``pairs_backend="pallas_grouped"``.
+    by default; kernel E (``packed_pairlist``, one launch over the upper
+    list of strip pairs, landing in the matrix) with
+    ``FASTSK_PACKED_PAIRLIST=1``; kernel G (``packed_grouped``, one launch
+    a strip) with ``pairs_backend="pallas_grouped"``.
     Under a mesh, kernel F (``packed_block``) in the ring ("ring": one
     launch a device and ring step) or in round-robin strips ("round-robin":
     one launch a strip), by ``mesh_state``.
@@ -149,7 +149,7 @@ class PackedPairsEngine:
 
     TILE = 2048
     GROUP = 8  # b strips per kernel G launch
-    SLAB_BYTES = pairs_packed.SLAB_BYTES  # kernel E's and G's part blocks per launch
+    SLAB_BYTES = pairs_packed.SLAB_BYTES  # kernel G's part blocks per launch
 
     def __init__(
         self,
@@ -197,10 +197,7 @@ class PackedPairsEngine:
         self.c_max = self.pack["c_max"]
         self.c_pad = -(-self.c_max // 16) * 16
         self.total_rows = self.pack["total_pad"]
-        if self.route == "band" and (
-            os.environ.get("FASTSK_PACKED_PAIRLIST") == "1"
-            or not band_fits(self.total_rows, g, self.alpha)
-        ):
+        if self.route == "band" and os.environ.get("FASTSK_PACKED_PAIRLIST") == "1":
             self.route = "pairlist"
         self._ids_sorted = np.asarray(enc.ids)[self.order]
 
@@ -234,16 +231,9 @@ class PackedPairsEngine:
             (self.n + self.c_pad,) * 2, dtype=torch.int64, device=dev
         )
         if self.route == "pairlist":
-            pa = torch.repeat_interleave(
-                torch.arange(ns), torch.arange(ns, 0, -1)
-            )
-            pb = torch.cat([torch.arange(a, ns) for a in range(ns)])
-            slab = max(1, self.SLAB_BYTES // (self.c_pad**2 * 8))
-            for s0 in range(0, len(pa), slab):
-                a = pa[s0 : s0 + slab].to(dev, torch.int32)
-                b = pb[s0 : s0 + slab].to(dev, torch.int32)
-                parts = packed_pairlist(rows, a, b, k=self.k)
-                pairs_packed.land_parts(mat, parts, fs[a.long()], fs[b.long()], b > a)
+            # every upper strip pair (a, b >= a), row-major, in one launch
+            pa, pb = torch.triu_indices(ns, ns, device=dev).to(torch.int32)
+            packed_pairlist(rows, pa, pb, k=self.k, out=mat)
         else:  # grouped: strip a against the groups of strips b >= a
             group, n_groups = self.group, ns // self.group
             per = max(1, self.SLAB_BYTES // (group * self.c_pad**2 * 8))

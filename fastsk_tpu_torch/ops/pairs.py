@@ -29,18 +29,16 @@ PROBE_VARIANTS = ("noop", "matmul", "skeleton", "current", "int32")
 
 
 def binom_exact(x: torch.Tensor, k: int) -> torch.Tensor:
-    """C(x, k) for small integer-valued f32 x — exact in float32.
-
-    Stepwise ``c_{j+1} = c_j * (x - j) / (j + 1)``: every intermediate is
-    (j+1) * C(x, j+1) <= C(20, 10) * 20 < 2^24, and each division's true
-    quotient is an integer, so f32 arithmetic is exact end to end. Integer
-    x < k hits a zero factor, so windows with too few matches (and
-    padding, which matches nothing) get weight 0.
+    """C(x, k) for integer-valued float x in [0, 20] (a match count of two
+    windows of g <= 20 codes), exact: a lookup in the table of C(i, k),
+    every entry at most C(20, 10) < 2^24. C(i, k) = 0 for i < k, so
+    windows with too few matches (and padding, which matches nothing) get
+    weight 0. (Stepwise products divided by j + 1 miss the integer on the
+    card, where PyTorch divides by a scalar as a multiply by its
+    reciprocal.)
     """
-    c = torch.ones_like(x)
-    for j in range(k):
-        c = c * (x - j) / float(j + 1)
-    return c
+    table = torch.tensor([math.comb(i, k) for i in range(21)], dtype=x.dtype, device=x.device)
+    return table[x.long()]
 
 
 def onehot_windows(

@@ -4,17 +4,20 @@ Counterparts of ``fastsk_tpu/ops/pairs_packed_pallas.py``:
 
 - ``packed_band``     (kernel D, ``packed_band_pallas``): every
   upper-triangle row-pair tile at once, landed straight into the full
-  symmetric count matrix; the int8 tensor-core product of one-hot rows
-  up to ``band_body``'s depth, the byte-code body above it;
+  symmetric count matrix;
 - ``packed_block``    (kernel F, ``packed_s1_pallas`` with the mesh
   paths' stage 2 and landing folded in): one block of the count matrix,
   a strip's triangle or a rectangle of strips, added into the caller's
-  matrix or row block, on the same two bodies;
+  matrix or row block;
 - ``packed_grouped``  (kernel G, ``packed_part_pallas``): part blocks of
-  strip a against one or more groups of b strips, on the same two bodies;
-- ``packed_pairlist`` (kernel E, ``packed_pairlist_pallas``): part blocks
-  of a list of strip pairs, for ``ops/pairs_packed.py:land_parts``;
+  strip a against one or more groups of b strips;
+- ``packed_pairlist`` (kernel E, ``packed_pairlist_pallas``): a list of
+  strip pairs in one launch, landed straight into the count matrix (or
+  into part blocks, for ``ops/pairs_packed.py:land_parts``);
 - ``packed_s1``       (F's stage 1 alone, the TPU kernel's own output).
+
+D, E, F and G are one persistent kernel, ``packed_bytes_kernel``, on the
+windows' code planes (``PackedRows.planes``), walked four ways.
 
 Each takes a ``PackedRows`` (the packed window codes and their layout).
 On a CPU tensor it runs the plain version (``ops/pairs_packed.py``); on a
@@ -33,12 +36,11 @@ import torch
 
 from .. import _build
 from .pairs_packed import (
-    onehot_rows, packed_block_plain, packed_counts_plain, packed_pair_parts_plain,
-    packed_s1_plain,
+    land_parts, onehot_rows, packed_block_plain, packed_counts_plain,
+    packed_pair_parts_plain, packed_s1_plain,
 )
 
-ROW_TILE = 128  # rows a side of the kernels' tile pair (= threads a block)
-_MAX_BLOCKS = 2**31 - 1  # a 1-D grid
+ROW_TILE = 128  # rows a side of the kernels' tile pair
 
 
 class TileMeta(NamedTuple):
@@ -94,9 +96,9 @@ class PackedRows:
 
     @functools.cached_property
     def words(self) -> torch.Tensor:
-        """``[R', ceil(g / 4)]`` int32: each window's codes one byte each
-        (zero bytes past g), rows padded with zero words up to a multiple
-        of ``ROW_TILE``."""
+        """``[R', ceil(g / 4)]`` int32, F's stage-1 operand: each window's
+        codes one byte each (zero bytes past g), rows padded with zero
+        words up to a multiple of ``ROW_TILE``."""
         r, g = self.codes.shape
         w = -(-g // 4)
         r_pad = -(-r // ROW_TILE) * ROW_TILE
@@ -105,9 +107,37 @@ class PackedRows:
         return b.contiguous().view(torch.int32)
 
     @functools.cached_property
+    def planes(self) -> torch.Tensor:
+        """``[R', S]`` int32, the operand of kernels D to G: word p of a
+        row holds bit p of its window's code q at bit q (zero bits past
+        g), for the ``code_planes(alpha)`` bits of a code, padded with
+        zero words to ``S = plane_stride(...)`` and rows as ``words``
+        (the kernel masks padding rows by ``seq_padded``, not by these).
+
+        The kernel reads a sequence once per aligned group of 8 rows, so
+        each group must hold one sequence's rows, valid ones first (as
+        ``pack_windows`` lays them out); raises otherwise."""
+        r, g = self.codes.shape
+        nb = code_planes(self.alpha)
+        r_pad = -(-r // ROW_TILE) * ROW_TILE
+        c = self.codes.clamp_min(0)
+        bit = torch.arange(nb, device=c.device, dtype=torch.int32)
+        pos = torch.arange(g, device=c.device, dtype=torch.int32)
+        planes = (((c[:, None, :] >> bit[None, :, None]) & 1) << pos).sum(-1, dtype=torch.int32)
+        planes = torch.nn.functional.pad(planes, (0, plane_stride(nb) - nb, 0, r_pad - r))
+        s8 = self.seq_padded.view(-1, 8)
+        valid = (s8 >= 0).to(torch.int8)
+        if not bool(((s8 == s8[:, :1]) | (valid == 0)).all() & (valid[:, 1:] <= valid[:, :-1]).all()):
+            raise ValueError(
+                "kernels D to G need every aligned group of 8 rows to hold one "
+                "sequence's rows, valid ones first"
+            )
+        return planes.contiguous()
+
+    @functools.cached_property
     def seq_padded(self) -> torch.Tensor:
         """``seq_of`` padded with -1 to the rows of ``words``."""
-        r_pad = self.words.shape[0]
+        r_pad = -(-self.seq_of.shape[0] // ROW_TILE) * ROW_TILE
         return torch.nn.functional.pad(
             self.seq_of, (0, r_pad - self.seq_of.shape[0]), value=-1
         ).contiguous()
@@ -122,7 +152,7 @@ class PackedRows:
             *(t.to(device, non_blocking=True) for t in (self.codes, self.seq_of, self.first_seq)),
             tile=self.tile, c_pad=self.c_pad, alpha=self.alpha,
         )
-        for name in ("words", "seq_padded"):
+        for name in ("words", "planes", "seq_padded"):
             if name in self.__dict__:
                 moved.__dict__[name] = self.__dict__[name].to(device, non_blocking=True)
         for tr, m in self._meta.items():  # no host sync to recompute them
@@ -149,8 +179,8 @@ class PackedRows:
         return self._meta[tr]
 
     def sub_tile(self) -> int:
-        """Rows a side of E's and G's tile pairs: 128, or the strip when
-        strips are narrower."""
+        """Rows a side of E's tile pairs (and G's on narrow strips): 128,
+        or the strip when strips are narrower."""
         tr = min(self.tile, ROW_TILE)
         if self.tile % tr:
             raise ValueError(f"strip tile {self.tile} is not a multiple of {tr}")
@@ -164,44 +194,16 @@ def _check_k(rows: PackedRows, k: int) -> None:
         raise ValueError(f"kernels D to G run on CUDA or CPU tensors, not {rows.device}")
 
 
-# the tensor-core body of kernels D, F and G holds two 128-row one-hot
-# tiles of up to this many bytes a row in shared memory
-# (csrc/pairs_packed.cu:kMmaDepthMax)
-MMA_DEPTH_MAX = 768
-# ... and beats the byte-code body up to this depth: chip_smoke.py's sweep
-# of both bodies over medium ragged sets at g=8 (NVIDIA H100 80GB HBM3,
-# 700 W): faster at 192 and 320 bytes, slower from 448, where two tiles
-# leave room for one block an SM instead of two
-MMA_DEPTH_FASTER = 320
+def code_planes(alpha: int) -> int:
+    """Bits of a code over ``alpha`` letters: the planes of kernels D to G
+    (csrc/pairs_packed.cu:planes_of)."""
+    return max(1, (alpha - 1).bit_length())
 
 
-def onehot_depth(g: int, alpha: int) -> int:
-    """Bytes a one-hot row of g codes over ``alpha`` letters takes in
-    kernel D's tensor-core body: g * alpha rounded up to 64 (two k-steps
-    of the int8 mma; the padding bytes are zero and add no matches)."""
-    return -(-g * alpha // 64) * 64
-
-
-def band_body(g: int, alpha: int) -> str:
-    """The body of kernels D, F and G for g codes over ``alpha`` letters:
-    "mma" (the int8 tensor-core product of one-hot rows) up to the
-    measured depth ``MMA_DEPTH_FASTER``, else "bytes" (the byte-code body,
-    whose cost does not grow with the alphabet)."""
-    return "mma" if onehot_depth(g, alpha) <= MMA_DEPTH_FASTER else "bytes"
-
-
-def band_fits(total_rows: int, g: int, alpha: int) -> bool:
-    """Kernel D's own limit on the card. The tensor-core body runs
-    persistent blocks over the upper tile triangle and has none; the
-    byte-code body launches one block per upper-triangle pair of 128-row
-    tiles, in a 1-D grid of at most 2^31 - 1 blocks (about 8.4M window
-    rows)."""
-    return band_body(g, alpha) == "mma" or _bytes_grid_fits(total_rows)
-
-
-def _bytes_grid_fits(total_rows: int) -> bool:
-    nt = -(-total_rows // ROW_TILE)
-    return nt * (nt + 1) // 2 <= _MAX_BLOCKS
+def plane_stride(nb: int) -> int:
+    """Words a row of the code-plane operand: ``nb`` planes padded to 4 or
+    8 (one or two 16-byte loads; csrc/pairs_packed.cu:plane_stride)."""
+    return 4 if nb <= 4 else 8
 
 
 def _launch(fn, name: str, rows: PackedRows, *args) -> None:
@@ -211,60 +213,26 @@ def _launch(fn, name: str, rows: PackedRows, *args) -> None:
     _build.check_launch(status, name)
 
 
-_BODY_CODE = {"mma": 0, "bytes": 1}  # the C entry points' `body`
-
-
-def _body(rows: PackedRows, body) -> str:
-    """``band_body``'s choice for these rows, or ``body`` checked."""
-    body = band_body(rows.g, rows.alpha) if body is None else body
-    if body not in _BODY_CODE:
-        raise ValueError(f"body must be 'mma' or 'bytes'; got {body!r}")
-    if body == "mma" and onehot_depth(rows.g, rows.alpha) > MMA_DEPTH_MAX:
-        raise ValueError(
-            f"one-hot rows of {onehot_depth(rows.g, rows.alpha)} bytes exceed "
-            f"the tensor-core body's {MMA_DEPTH_MAX}"
-        )
-    return body
-
-
-def packed_band(rows: PackedRows, *, k: int, n_out: int, body=None) -> torch.Tensor:
+def packed_band(rows: PackedRows, *, k: int, n_out: int) -> torch.Tensor:
     """Kernel D: the full symmetric count matrix ``[n_out, n_out]`` int64
     in packed (length-sorted) sequence order; ``n_out`` is at least the
-    number of sequences. ``body`` ("mma" or "bytes") overrides
-    ``band_body``'s choice; ``packed_band.bodies`` counts the launches of
-    each."""
+    number of sequences."""
     _check_k(rows, k)
-    body = _body(rows, body)
     if rows.device.type == "cpu":
         return packed_counts_plain(
             rows.onehot, rows.seq_of, rows.first_seq,
             k=k, tile=rows.tile, c_pad=rows.c_pad, n_out=n_out,
         )
-    words = rows.words
-    if body == "bytes" and not _bytes_grid_fits(words.shape[0]):
-        raise ValueError(f"{words.shape[0]} rows exceed the byte-code body's 1-D grid")
-    meta = rows.meta(ROW_TILE)
+    planes, meta = rows.planes, rows.meta(ROW_TILE)
     out = torch.zeros((n_out, n_out), dtype=torch.int64, device=rows.device)
     _launch(
         _build.kernels().packed_band_launch, "packed_band", rows,
-        words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
-        out.data_ptr(), words.shape[0] // ROW_TILE, n_out, words.shape[1], rows.g,
-        rows.alpha, onehot_depth(rows.g, rows.alpha), meta.cb, k, _BODY_CODE[body], 0,
+        planes.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+        out.data_ptr(), planes.shape[0] // ROW_TILE, n_out, planes.shape[1], rows.g,
+        rows.alpha, meta.cb, k,
     )
     packed_band.launches += 1
-    packed_band.bodies[body] += 1
     return out
-
-
-def block_tile_pairs(r_lo: int, r_hi: int, c_lo: int, c_hi: int, tri: bool) -> int:
-    """Pairs of 128-row tiles that kernel F walks for rows [r_lo, r_hi)
-    against rows [c_lo, c_hi) (the rectangle), or, with ``tri``, against
-    every tile from their own on that holds rows below ``c_hi`` (the
-    triangle)."""
-    ti0, ti1, tj1 = r_lo // ROW_TILE, -(-r_hi // ROW_TILE), -(-c_hi // ROW_TILE)
-    if tri:
-        return sum(tj1 - ti for ti in range(ti0, ti1))
-    return (ti1 - ti0) * (tj1 - c_lo // ROW_TILE)
 
 
 def packed_block(
@@ -276,7 +244,6 @@ def packed_block(
     rows_j: PackedRows = None,
     strips_j=None,
     row_off: int = 0,
-    body=None,
 ) -> torch.Tensor:
     """Kernel F: add one block of the count matrix into ``out`` (``[M,
     ld]`` int64, in place; it must hold every landing) and return it.
@@ -297,9 +264,7 @@ def packed_block(
       a) where its rows start on a 128-row tile and end on one or at b1;
       narrower strips share tiles, and only their sum does.
 
-    Sequence ids are global (shards of one table keep them). ``body``
-    ("mma" or "bytes") overrides ``band_body``'s choice;
-    ``packed_block.bodies`` counts the launches of each."""
+    Sequence ids are global (shards of one table keep them)."""
     _check_k(rows_i, k)
     tri = rows_j is None
     if tri:
@@ -325,48 +290,34 @@ def packed_block(
         raise ValueError("out must be a contiguous 2-D int64 tensor")
     if out.device != rows_i.device:
         raise ValueError(f"out on {out.device}, strips on {rows_i.device}")
-    body = _body(rows_i, body)
     if rows_i.device.type == "cpu":
         return packed_block_plain(
             out, rows_i, strips_i, k=k, rows_j=None if tri else rows_j,
             strips_j=strips_j, row_off=row_off,
         )
     tile = rows_i.tile
-    wi, wj = rows_i.words, rows_j.words
-    if body == "bytes" and block_tile_pairs(a0 * tile, a1 * tile, b0 * tile, b1 * tile, tri) > _MAX_BLOCKS:
-        raise ValueError("the block's tile pairs exceed the byte-code body's 1-D grid")
+    wi, wj = rows_i.planes, rows_j.planes
     mi, mj = rows_i.meta(ROW_TILE), rows_j.meta(ROW_TILE)
     _launch(
         _build.kernels().packed_block_launch, "packed_block", rows_i,
         wi.data_ptr(), rows_i.seq_padded.data_ptr(), mi.tile_first.data_ptr(),
         wj.data_ptr(), rows_j.seq_padded.data_ptr(), mj.tile_first.data_ptr(),
         a0 * tile, a1 * tile, b0 * tile, b1 * tile, int(tri), out.data_ptr(),
-        out.shape[1], row_off, wi.shape[1], rows_i.g, rows_i.alpha,
-        onehot_depth(rows_i.g, rows_i.alpha), max(mi.cb, mj.cb), k, _BODY_CODE[body],
+        out.shape[1], row_off, wi.shape[1], rows_i.g, rows_i.alpha, max(mi.cb, mj.cb), k,
     )
     packed_block.launches += 1
-    packed_block.bodies[body] += 1
     return out
-
-
-def grouped_body(rows: PackedRows) -> str:
-    """Kernel G's body: ``band_body``'s, but the byte-code one where the
-    strip tile is not a multiple of the 128-row tile (its part blocks land
-    per column strip, so a tile must lie in one; such strips, which only
-    tests make, run kernel E's byte-code tile pairs over (a, b))."""
-    return band_body(rows.g, rows.alpha) if rows.tile % ROW_TILE == 0 else "bytes"
 
 
 def packed_grouped(
     rows: PackedRows, a: int, gidx: int, *, k: int, group: int, n_groups: int = 1,
-    body=None,
 ) -> torch.Tensor:
     """Kernel G: part blocks ``[n_groups * group, c_pad, c_pad]`` int64 of
     strip ``a`` against strips ``gidx * group + u``, u < n_groups * group,
-    in one launch. ``body`` ("mma" or "bytes") overrides ``grouped_body``'s
-    choice; ``packed_grouped.bodies`` counts the launches of each. Both
-    bodies walk 128-row tile pairs; strips narrower than that take kernel
-    E's byte-code tile pairs, each strip pair (a, b) of the launch a slot."""
+    in one launch, over 128-row tile pairs. Its part blocks land per
+    column strip, so a tile must lie in one: strips narrower than 128 rows
+    (only tests make them) take kernel E's walk over the pair list (a, b),
+    in tiles of the strip."""
     _check_k(rows, k)
     n_b, b0 = n_groups * group, gidx * group
     if not (0 <= a < rows.n_strips and 0 <= gidx and n_groups >= 1 and b0 + n_b <= rows.n_strips):
@@ -374,78 +325,90 @@ def packed_grouped(
             f"strip {a} or groups {gidx}..{gidx + n_groups - 1} x {group} outside "
             f"{rows.n_strips} strips"
         )
-    body = _body(rows, grouped_body(rows) if body is None else body)
-    if body == "mma" and rows.tile % ROW_TILE:
-        raise ValueError(f"the tensor-core body needs strips of a multiple of {ROW_TILE} rows")
     if rows.device.type == "cpu":
         return packed_pair_parts_plain(
             rows.onehot, rows.seq_of, rows.first_seq, [a] * n_b, range(b0, b0 + n_b),
             k=k, tile=rows.tile, c_pad=rows.c_pad,
         )
-    if rows.first_seq.dtype != torch.int32 or not rows.first_seq.is_contiguous():
-        raise ValueError("first_seq must be a contiguous int32 tensor")
+    _check_first_seq(rows)
     c = rows.c_pad
     out = torch.zeros((n_b, c, c), dtype=torch.int64, device=rows.device)
-    words = rows.words
-    lib = _build.kernels()
-    tr = rows.sub_tile()
-    meta = rows.meta(tr)
-    tps = rows.tile // tr
-    if body == "bytes" and n_b * tps * tps > _MAX_BLOCKS:
-        raise ValueError(f"{n_b} strips exceed kernel G's 1-D grid")
-    if tr == ROW_TILE:
+    if rows.tile % ROW_TILE == 0:
+        planes, meta = rows.planes, rows.meta(ROW_TILE)
         _launch(
-            lib.packed_grouped_launch, "packed_grouped", rows,
-            words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
-            rows.first_seq.data_ptr(), a, b0, n_b, out.data_ptr(), tps, c,
-            words.shape[1], rows.g, rows.alpha, onehot_depth(rows.g, rows.alpha), meta.cb, k,
-            _BODY_CODE[body],
+            _build.kernels().packed_grouped_launch, "packed_grouped", rows,
+            planes.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+            rows.first_seq.data_ptr(), a, b0, n_b, out.data_ptr(), rows.tile // ROW_TILE, c,
+            planes.shape[1], rows.g, rows.alpha, meta.cb, k,
         )
     else:
         pb = torch.arange(b0, b0 + n_b, dtype=torch.int32, device=rows.device)
-        pa = torch.full_like(pb, a)
-        _launch(
-            lib.packed_pairlist_launch, "packed_grouped", rows,
-            words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
-            rows.first_seq.data_ptr(), pa.data_ptr(), pb.data_ptr(), out.data_ptr(),
-            n_b, words.shape[1], tr, tps, meta.cb, k, 4 * words.shape[1] - rows.g, c,
-        )
+        _launch_pairlist("packed_grouped", rows, torch.full_like(pb, a), pb, out, k, parts=True)
     packed_grouped.launches += 1
-    packed_grouped.bodies[body] += 1
     return out
 
 
+def _check_first_seq(rows: PackedRows) -> None:
+    if rows.first_seq.dtype != torch.int32 or not rows.first_seq.is_contiguous():
+        raise ValueError("first_seq must be a contiguous int32 tensor")
+
+
+def _launch_pairlist(name, rows, pa, pb, out, k, *, parts: bool) -> None:
+    """Kernel E's one launch over the slots (pa[s], pb[s]), in tiles of
+    ``rows.sub_tile()`` rows: into part blocks, or into the matrix ``out``
+    with each slot's mirror where pb[s] > pa[s]."""
+    tr = rows.sub_tile()
+    if tr % 8:
+        raise ValueError(f"kernel E's tiles of {tr} rows must be a multiple of 8")
+    meta, planes = rows.meta(tr), rows.planes
+    _launch(
+        _build.kernels().packed_pairlist_launch, name, rows,
+        planes.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
+        rows.first_seq.data_ptr(), pa.data_ptr(), pb.data_ptr(), pa.numel(), out.data_ptr(),
+        out.shape[-1], int(parts), planes.shape[1], rows.g, rows.alpha, tr, rows.tile // tr,
+        meta.cb, k, rows.c_pad,
+    )
+
+
 def packed_pairlist(
-    rows: PackedRows, pa: torch.Tensor, pb: torch.Tensor, *, k: int
+    rows: PackedRows, pa: torch.Tensor, pb: torch.Tensor, *, k: int, out=None
 ) -> torch.Tensor:
-    """Kernel E: part blocks ``[S, c_pad, c_pad]`` int64 of the ordered
-    strip pairs ``(pa[s], pb[s])`` (int32 tensors on the rows' device)."""
+    """Kernel E over the ordered strip pairs ``(pa[s], pb[s])`` (1-D
+    integer tensors), in one launch.
+
+    Without ``out``: part blocks ``[S, c_pad, c_pad]`` int64 (the JAX
+    kernel's contract). With ``out`` (``[M, ld]`` int64, contiguous, on the
+    rows' device; it must hold every landing): each slot's part block
+    added at (fa, fb) of ``out`` in place, and for pb[s] > pa[s] also its
+    transpose at (fb, fa) (``land_parts``'s rule: a diagonal slot holds
+    both orders); returns ``out``."""
     _check_k(rows, k)
     if pa.shape != pb.shape or pa.dim() != 1:
         raise ValueError("pa and pb must be 1-D and of one length")
+    if out is not None:
+        if out.dtype != torch.int64 or out.dim() != 2 or not out.is_contiguous():
+            raise ValueError("out must be a contiguous 2-D int64 tensor")
+        if out.device != rows.device:
+            raise ValueError(f"out on {out.device}, strips on {rows.device}")
     if rows.device.type == "cpu":
-        return packed_pair_parts_plain(
+        parts = packed_pair_parts_plain(
             rows.onehot, rows.seq_of, rows.first_seq, pa.tolist(), pb.tolist(),
             k=k, tile=rows.tile, c_pad=rows.c_pad,
         )
+        if out is None:
+            return parts
+        fs = rows.first_seq.long()
+        pa, pb = pa.long(), pb.long()
+        land_parts(out, parts, fs[pa], fs[pb], pb > pa)
+        return out
+    _check_first_seq(rows)
     pa = pa.to(device=rows.device, dtype=torch.int32).contiguous()
     pb = pb.to(device=rows.device, dtype=torch.int32).contiguous()
-    tr = rows.sub_tile()
-    meta = rows.meta(tr)
-    tps = rows.tile // tr
-    if pa.numel() * tps * tps > _MAX_BLOCKS:
-        raise ValueError(f"{pa.numel()} strip pairs exceed kernel E's 1-D grid")
-    c = rows.c_pad
-    out = torch.zeros((pa.numel(), c, c), dtype=torch.int64, device=rows.device)
-    words = rows.words
-    lib = _build.kernels()
-    _launch(
-        lib.packed_pairlist_launch, "packed_pairlist", rows,
-        words.data_ptr(), rows.seq_padded.data_ptr(), meta.tile_first.data_ptr(),
-        rows.first_seq.data_ptr(), pa.data_ptr(), pb.data_ptr(), out.data_ptr(),
-        pa.numel(), words.shape[1], tr, tps, meta.cb, k,
-        4 * words.shape[1] - rows.g, c,
-    )
+    parts = out is None
+    if parts:
+        c = rows.c_pad
+        out = torch.zeros((pa.numel(), c, c), dtype=torch.int64, device=rows.device)
+    _launch_pairlist("packed_pairlist", rows, pa, pb, out, k, parts=parts)
     packed_pairlist.launches += 1
     return out
 
@@ -483,8 +446,7 @@ def packed_s1(
             rows_b.onehot[b0 * tile : (b0 + n_b) * tile],
             k=k, tile=tile, c_pad=c,
         )
-    if rows_a.first_seq.dtype != torch.int32 or not rows_a.first_seq.is_contiguous():
-        raise ValueError("first_seq must be a contiguous int32 tensor")
+    _check_first_seq(rows_a)
     out = torch.zeros((n_b, c, tile), dtype=torch.int32, device=rows_a.device)
     wa, wb = rows_a.words, rows_b.words
     lib = _build.kernels()
@@ -500,10 +462,7 @@ def packed_s1(
 
 # kernel launches; the CPU path does not count
 packed_band.launches = 0
-packed_band.bodies = {"mma": 0, "bytes": 0}  # launches of each body
 packed_block.launches = 0
-packed_block.bodies = {"mma": 0, "bytes": 0}
 packed_grouped.launches = 0
-packed_grouped.bodies = {"mma": 0, "bytes": 0}
 packed_pairlist.launches = 0
 packed_s1.launches = 0

@@ -1,6 +1,6 @@
 """Kernels A to H against their plain PyTorch versions, on the card
-(kernels A, D, F and G with both of their bodies, kernel C at every
-cluster size).
+(kernel A with both of its bodies, D to G's one kernel at every code
+width, E in both landings, kernel C at every cluster size).
 
 Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
@@ -292,14 +292,11 @@ def test_kernels_d_e_g_match_plain_and_oracle(cuda, monkeypatch, X, g, m, tile):
         oracle_counts = oracle.exact_counts(X, g, m)
     np.testing.assert_array_equal(want.cpu().numpy(), oracle_counts[np.ix_(order, order)])
 
-    assert pairs_packed_cuda.band_body(g, eng.alpha) == "mma"
-    for body in ("mma", "bytes"):  # the default body, then the byte-code one
-        before = pairs_packed_cuda.packed_band.launches, pairs_packed_cuda.packed_band.bodies[body]
-        band = pairs_packed_cuda.packed_band(rows, k=k, n_out=eng.n, body=None if body == "mma" else body)
-        torch.cuda.synchronize()
-        assert pairs_packed_cuda.packed_band.launches == before[0] + 1
-        assert pairs_packed_cuda.packed_band.bodies[body] == before[1] + 1
-        torch.testing.assert_close(band, want, rtol=0, atol=0)
+    before = pairs_packed_cuda.packed_band.launches
+    band = pairs_packed_cuda.packed_band(rows, k=k, n_out=eng.n)
+    torch.cuda.synchronize()
+    assert pairs_packed_cuda.packed_band.launches == before + 1
+    torch.testing.assert_close(band, want, rtol=0, atol=0)
 
     ns = eng.n_strips
     pa = torch.repeat_interleave(torch.arange(ns), torch.arange(ns, 0, -1)).to(cuda, torch.int32)
@@ -330,24 +327,202 @@ def test_kernels_d_e_g_match_plain_and_oracle(cuda, monkeypatch, X, g, m, tile):
 
 
 def test_kernel_d_bytes_body_above_depth(cuda, monkeypatch):
-    """One-hot rows past the tensor-core body's depth (g=12 over 100
-    codes: 1,216 bytes) take D's byte-code body, equal to the plain
-    version and the oracle."""
+    """Kernel D at one-hot rows of 1,200 bytes (g=12 over 100 codes: 7
+    code planes), one launch, equal to the plain version and the
+    oracle."""
     monkeypatch.setattr(PackedPairsEngine, "TILE", 256)
     X = _ragged(21, 12, 12, 300, 100)
     X[0] = list(range(1, 101)) + X[0]  # every code, so alpha = 100
     eng = PackedPairsEngine(encode_sequences(X), 12, 7, KernelConfig(device=cuda))
-    assert eng.alpha == 100 and pairs_packed_cuda.band_body(12, 100) == "bytes"
+    assert eng.alpha == 100
     rows = eng.rows()
     want = pairs_packed.packed_counts_plain(
         rows.onehot, rows.seq_of, rows.first_seq, k=5, tile=256, c_pad=eng.c_pad, n_out=eng.n
     )
-    before = dict(pairs_packed_cuda.packed_band.bodies)
+    before = pairs_packed_cuda.packed_band.launches
     got = pairs_packed_cuda.packed_band(rows, k=5, n_out=eng.n)
     torch.cuda.synchronize()
-    assert pairs_packed_cuda.packed_band.bodies == {"mma": before["mma"], "bytes": before["bytes"] + 1}
+    assert pairs_packed_cuda.packed_band.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     np.testing.assert_array_equal(eng.exact(), oracle.exact_counts(X, 12, 7))
+
+
+# kernel E in both landings: strips of 64 rows
+# (tiles of 64), 256 (two 128-row tiles) and 2048; the upper list of strip
+# pairs, and a list with diagonal, reversed (b < a) and repeated slots
+@pytest.mark.parametrize("kind", ["upper", "mixed"])
+@pytest.mark.parametrize("tile", [64, 256, 2048])
+def test_kernel_e_landings_match_plain(cuda, monkeypatch, tile, kind):
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = _ragged(50 + tile, 24 if tile == 2048 else 12, 20, 600, 24)
+    eng = PackedPairsEngine(encode_sequences(X), 8, 4, KernelConfig(device=cuda))
+    rows, ns, k = eng.rows(), eng.n_strips, 4
+    assert ns >= 3
+    if kind == "upper":
+        pa, pb = torch.triu_indices(ns, ns, device=cuda).to(torch.int32)
+    else:
+        pa = torch.tensor([0, 2, ns - 1, 1, 1, 2, 0], dtype=torch.int32, device=cuda)
+        pb = torch.tensor([0, 1, 0, 2, 2, 2, ns - 1], dtype=torch.int32, device=cuda)
+    parts_plain = pairs_packed.packed_pair_parts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, pa.tolist(), pb.tolist(), k=k, tile=tile,
+        c_pad=eng.c_pad,
+    )
+    m = eng.n + eng.c_pad
+    want = torch.zeros((m, m), dtype=torch.int64, device=cuda)
+    fs = rows.first_seq.long()
+    pairs_packed.land_parts(want, parts_plain, fs[pa.long()], fs[pb.long()], pb > pa)
+    before = pairs_packed_cuda.packed_pairlist.launches
+    parts = pairs_packed_cuda.packed_pairlist(rows, pa, pb, k=k)
+    mat = pairs_packed_cuda.packed_pairlist(rows, pa, pb, k=k, out=torch.zeros_like(want))
+    torch.cuda.synchronize()
+    assert pairs_packed_cuda.packed_pairlist.launches == before + 2
+    torch.testing.assert_close(parts, parts_plain, rtol=0, atol=0)
+    torch.testing.assert_close(mat, want, rtol=0, atol=0)
+    if kind == "upper":
+        np.testing.assert_array_equal(
+            mat[: eng.n, : eng.n].cpu().numpy(),
+            oracle.exact_counts(X, 8, 4)[np.ix_(eng.order, eng.order)],
+        )
+
+
+def test_kernel_e_route_is_one_launch(cuda, monkeypatch):
+    """E's route: one launch over the whole upper list, landing in the
+    matrix, no part blocks landed by torch; counts equal to kernel D's."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", 256)
+    monkeypatch.setenv("FASTSK_PACKED_PAIRLIST", "1")
+    X = _ragged(61, 30, 20, 500, 24)
+    eng = PackedPairsEngine(encode_sequences(X), 8, 4, KernelConfig(device=cuda))
+    assert eng.route == "pairlist" and eng.n_strips > 4
+    landed = []
+    land = pairs_packed.land_parts
+    monkeypatch.setattr(pairs_packed, "land_parts", lambda *a: landed.append(1) or land(*a))
+    before = pairs_packed_cuda.packed_pairlist.launches
+    got = eng.exact()
+    assert pairs_packed_cuda.packed_pairlist.launches == before + 1 and not landed
+    eng.route = "band"
+    np.testing.assert_array_equal(got, eng.exact())
+    np.testing.assert_array_equal(got, oracle.exact_counts(X, 8, 4))
+
+
+# kernels D, F and G at every word width of the codes (g = 4, 8, 12, 16,
+# 20: one to five), at one-hot depths of 20 to 100 B (5 letters: 3
+# planes) and 400 to 2,000 B (100 letters: 7 planes), at strips of 64 (G
+# through E's pair list), 256 and 2048 rows
+@pytest.mark.parametrize("alpha", [5, 100])
+@pytest.mark.parametrize("g,tile", [(4, 64), (8, 256), (12, 2048), (16, 64), (20, 256)])
+def test_bytes_body_every_width_matches_plain(cuda, monkeypatch, g, tile, alpha):
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = _ragged(70 + g + alpha, 30 if tile == 2048 else 10, g, 400, alpha)
+    X[0] = list(range(1, alpha + 1)) + X[0]  # every code, so the alphabet is alpha
+    m, k = g // 2, g - g // 2
+    eng = PackedPairsEngine(encode_sequences(X), g, m, KernelConfig(device=cuda, pairs_backend="pallas_grouped"))
+    assert eng.alpha == alpha
+    rows, ns = eng.rows(), eng.n_strips
+    assert ns >= 2
+    want = pairs_packed.packed_counts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, k=k, tile=tile, c_pad=eng.c_pad, n_out=eng.n
+    )
+    before = pairs_packed_cuda.packed_band.launches
+    band = pairs_packed_cuda.packed_band(rows, k=k, n_out=eng.n)
+    torch.cuda.synchronize()
+    assert pairs_packed_cuda.packed_band.launches == before + 1
+    torch.testing.assert_close(band, want, rtol=0, atol=0)
+
+    # F: every strip's triangle (they add up to D), and the rectangle of the
+    # later half against every strip but the first, at a row offset
+    n_pad = eng.n + eng.c_pad
+    tri = torch.zeros((n_pad, n_pad), dtype=torch.int64, device=cuda)
+    for a in range(ns):
+        pairs_packed_cuda.packed_block(tri, rows, (a, a + 1), k=k)
+    torch.testing.assert_close(tri[: eng.n, : eng.n], want, rtol=0, atol=0)
+    mid = ns // 2
+    fs = rows.first_seq.cpu().numpy()
+    row0 = int(fs[mid])
+    blk = int(fs[ns - 1]) + eng.c_max - row0
+    rect = dict(k=k, rows_j=rows, strips_j=(1, ns), row_off=row0)
+    got = pairs_packed_cuda.packed_block(
+        torch.zeros((blk, n_pad), dtype=torch.int64, device=cuda), rows, (mid, ns), **rect
+    )
+    plain = pairs_packed.packed_block_plain(
+        torch.zeros((blk, n_pad), dtype=torch.int64, device=cuda), rows, (mid, ns), **rect
+    )
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+    # G: strip 0 against every strip, in part blocks
+    grp = pairs_packed_cuda.packed_grouped(rows, 0, 0, k=k, group=1, n_groups=ns)
+    grp_plain = pairs_packed.packed_pair_parts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, [0] * ns, range(ns), k=k, tile=tile, c_pad=eng.c_pad
+    )
+    torch.cuda.synchronize()
+    torch.testing.assert_close(grp, grp_plain, rtol=0, atol=0)
+
+
+def _poly_a(seed):
+    """Homopolymers of the lowest code and DNA with poly-A runs of 20-60;
+    at each g = 17-20 one homopolymer's window count is not a multiple of
+    8, so padding rows share its last group."""
+    rng = np.random.default_rng(seed)
+    X = [[1] * 130, [1] * 131, [4] * 40]
+    for length in (90, 155, 203, 260, 333):
+        s = rng.integers(1, 5, size=length)
+        at = int(rng.integers(0, length - 60))
+        s[at : at + int(rng.integers(20, 61))] = 1
+        X.append(s.tolist())
+    return X
+
+
+def _window_pair_counts(X, g, k):
+    """Exact counts by brute force over window pairs, codes compared
+    directly."""
+    wins = [np.array([s[p : p + g] for p in range(len(s) - g + 1)]) for s in X]
+    comb = np.array([math.comb(d, k) for d in range(g + 1)], dtype=np.int64)
+    return np.array([[comb[(a[:, None, :] == b[None, :, :]).sum(-1)].sum() for b in wins] for a in wins])
+
+
+# g = 17 to 20 at k = 1 to 8 (m = g - 1 .. g - 8): padding rows must weigh
+# nothing against valid rows that match them in nearly every place,
+# through D, E (both landings), F (both walks) and G, at strips of 64
+# rows (G through E's pair list) and 256 (G's own walk)
+@pytest.mark.parametrize("tile", [64, 256])
+@pytest.mark.parametrize("g,m", [(17, 16), (17, 9), (18, 13), (19, 11), (20, 12), (20, 19)])
+def test_kernels_padding_rows_weigh_nothing(cuda, monkeypatch, g, m, tile):
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = _poly_a(g + m)
+    eng = PackedPairsEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
+    rows, ns, k = eng.rows(), eng.n_strips, g - m
+    assert (eng.pack["p"] % 8).any() and ns >= 3
+    want = torch.from_numpy(_window_pair_counts(X, g, k)[np.ix_(eng.order, eng.order)]).to(cuda)
+    torch.testing.assert_close(pairs_packed_cuda.packed_band(rows, k=k, n_out=eng.n), want, rtol=0, atol=0)
+
+    m_pad = eng.n + eng.c_pad
+    pa, pb = torch.triu_indices(ns, ns, device=cuda).to(torch.int32)
+    mat = pairs_packed_cuda.packed_pairlist(rows, pa, pb, k=k, out=torch.zeros((m_pad, m_pad), dtype=torch.int64, device=cuda))
+    torch.testing.assert_close(mat[: eng.n, : eng.n], want, rtol=0, atol=0)
+    parts = pairs_packed_cuda.packed_pairlist(rows, pa, pb, k=k)
+    plain = pairs_packed.packed_pair_parts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, pa.tolist(), pb.tolist(), k=k, tile=tile, c_pad=eng.c_pad
+    )
+    torch.testing.assert_close(parts, plain, rtol=0, atol=0)
+
+    tri = torch.zeros((m_pad, m_pad), dtype=torch.int64, device=cuda)
+    for a in range(ns):
+        pairs_packed_cuda.packed_block(tri, rows, (a, a + 1), k=k)
+    torch.testing.assert_close(tri[: eng.n, : eng.n], want, rtol=0, atol=0)
+    mid = ns // 2
+    fs = rows.first_seq.cpu().numpy()
+    blk = int(fs[ns - 1]) + eng.c_max - int(fs[mid])
+    rect = dict(k=k, rows_j=rows, strips_j=(0, ns), row_off=int(fs[mid]))
+    zeros = lambda: torch.zeros((blk, m_pad), dtype=torch.int64, device=cuda)  # noqa: E731
+    torch.testing.assert_close(
+        pairs_packed_cuda.packed_block(zeros(), rows, (mid, ns), **rect),
+        pairs_packed.packed_block_plain(zeros(), rows, (mid, ns), **rect), rtol=0, atol=0,
+    )
+
+    grp = pairs_packed_cuda.packed_grouped(rows, 0, 0, k=k, group=1, n_groups=ns)
+    grp_plain = pairs_packed.packed_pair_parts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, [0] * ns, range(ns), k=k, tile=tile, c_pad=eng.c_pad
+    )
+    torch.testing.assert_close(grp, grp_plain, rtol=0, atol=0)
 
 
 # kernel F at every word width (g=6 one word, 7 with a padding byte, 12
@@ -383,9 +558,8 @@ def test_kernel_f_matches_plain(cuda, monkeypatch, X, g, m, tile):
 
 
 # kernel F's block at strips narrower than a tile (64), of two tiles (256)
-# and of the default 2048 rows; g=7 leaves a padding byte in the last
-# word; alphabets of 5 (one-hot depth 64 B, the tensor-core body by
-# default) and 48 (448 B, the byte-code body by default)
+# and of the default 2048 rows; g=7; alphabets of 5 (3 code planes, one
+# 16-byte load a row) and 48 (6 planes, two)
 @pytest.mark.parametrize("alpha", [5, 48])
 @pytest.mark.parametrize("tile,n,lmax", [(64, 9, 300), (256, 13, 400), (2048, 40, 400)])
 def test_kernel_f_block_matches_plain(cuda, monkeypatch, tile, n, lmax, alpha):
@@ -395,7 +569,6 @@ def test_kernel_f_block_matches_plain(cuda, monkeypatch, tile, n, lmax, alpha):
     eng = PackedPairsEngine(encode_sequences(X), 7, 3, KernelConfig(device=cuda))
     assert eng.alpha == alpha and eng.n_strips >= 3
     rows, ns, k = eng.rows(), eng.n_strips, 4
-    assert pairs_packed_cuda.band_body(7, alpha) == ("mma" if alpha == 5 else "bytes")
     n_pad = eng.n + eng.c_pad
     fs = rows.first_seq.cpu().numpy()
     mid = ns // 2
@@ -419,49 +592,43 @@ def test_kernel_f_block_matches_plain(cuda, monkeypatch, tile, n, lmax, alpha):
     want_diag = pairs_packed.packed_block_plain(
         torch.zeros((blk_d, n_pad), dtype=torch.int64, device=cuda), rows, (d0, ns), **diag
     )
-    for body in ("mma", "bytes"):
-        before = pairs_packed_cuda.packed_block.launches, pairs_packed_cuda.packed_block.bodies[body]
-        tri = torch.zeros_like(want_tri)
-        for a in range(ns):
-            one = pairs_packed_cuda.packed_block(torch.zeros_like(tri), rows, (a, a + 1), k=k, body=body)
-            if tile % 128 == 0:  # a strip holds whole tiles: each call is its plain version
-                want = pairs_packed.packed_block_plain(torch.zeros_like(tri), rows, (a, a + 1), k=k)
-                torch.testing.assert_close(one, want, rtol=0, atol=0)
-            tri += one
-        got = pairs_packed_cuda.packed_block(
-            torch.zeros((blk, n_pad), dtype=torch.int64, device=cuda), rows, (mid, ns), body=body, **rect
-        )
-        got_diag = pairs_packed_cuda.packed_block(
-            torch.zeros((blk_d, n_pad), dtype=torch.int64, device=cuda), rows, (d0, ns), body=body, **diag
-        )
-        torch.cuda.synchronize()
-        assert pairs_packed_cuda.packed_block.launches == before[0] + ns + 2
-        assert pairs_packed_cuda.packed_block.bodies[body] == before[1] + ns + 2
-        torch.testing.assert_close(tri, want_tri, rtol=0, atol=0)
-        torch.testing.assert_close(got, want_rect, rtol=0, atol=0)
-        torch.testing.assert_close(got_diag, want_diag, rtol=0, atol=0)
+    before = pairs_packed_cuda.packed_block.launches
+    tri = torch.zeros_like(want_tri)
+    for a in range(ns):
+        one = pairs_packed_cuda.packed_block(torch.zeros_like(tri), rows, (a, a + 1), k=k)
+        if tile % 128 == 0:  # a strip holds whole tiles: each call is its plain version
+            want = pairs_packed.packed_block_plain(torch.zeros_like(tri), rows, (a, a + 1), k=k)
+            torch.testing.assert_close(one, want, rtol=0, atol=0)
+        tri += one
+    got = pairs_packed_cuda.packed_block(
+        torch.zeros((blk, n_pad), dtype=torch.int64, device=cuda), rows, (mid, ns), **rect
+    )
+    got_diag = pairs_packed_cuda.packed_block(
+        torch.zeros((blk_d, n_pad), dtype=torch.int64, device=cuda), rows, (d0, ns), **diag
+    )
+    torch.cuda.synchronize()
+    assert pairs_packed_cuda.packed_block.launches == before + ns + 2
+    torch.testing.assert_close(tri, want_tri, rtol=0, atol=0)
+    torch.testing.assert_close(got, want_rect, rtol=0, atol=0)
+    torch.testing.assert_close(got_diag, want_diag, rtol=0, atol=0)
 
 
-# kernel G over several groups in one launch: 256-row strips take the
-# tensor-core body (and the byte-code one when asked), 64-row strips the
-# byte-code body
-@pytest.mark.parametrize("tile,body", [(256, None), (256, "bytes"), (64, None)])
-def test_kernel_g_groups_match_plain(cuda, monkeypatch, tile, body):
+# kernel G over several groups in one launch: 256-row strips in G's own
+# walk of 128-row tiles, 64-row strips through kernel E's pair list
+@pytest.mark.parametrize("tile", [256, 64])
+def test_kernel_g_groups_match_plain(cuda, monkeypatch, tile):
     monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
     X = _ragged(40 + tile, 20, 20, 400, 20)
     eng = PackedPairsEngine(encode_sequences(X), 7, 3, KernelConfig(device=cuda, pairs_backend="pallas_grouped"))
     rows, group, ns = eng.rows(), eng.group, eng.n_strips
     assert ns >= 2 * group
-    assert pairs_packed_cuda.grouped_body(rows) == ("mma" if tile == 256 else "bytes")
-    ran = body or pairs_packed_cuda.grouped_body(rows)
     for a in (0, group + 1, ns - 1):
         gidx = a // group
         n_groups = ns // group - gidx
-        before = pairs_packed_cuda.packed_grouped.launches, pairs_packed_cuda.packed_grouped.bodies[ran]
-        got = pairs_packed_cuda.packed_grouped(rows, a, gidx, k=4, group=group, n_groups=n_groups, body=body)
+        before = pairs_packed_cuda.packed_grouped.launches
+        got = pairs_packed_cuda.packed_grouped(rows, a, gidx, k=4, group=group, n_groups=n_groups)
         torch.cuda.synchronize()
-        assert pairs_packed_cuda.packed_grouped.launches == before[0] + 1
-        assert pairs_packed_cuda.packed_grouped.bodies[ran] == before[1] + 1
+        assert pairs_packed_cuda.packed_grouped.launches == before + 1
         want = pairs_packed.packed_pair_parts_plain(
             rows.onehot, rows.seq_of, rows.first_seq, [a] * (n_groups * group),
             range(gidx * group, ns), k=4, tile=tile, c_pad=eng.c_pad,

@@ -90,7 +90,6 @@ def test_routes_match_jax_pallas_interpret(
 def test_routes_straddling_match_oracle(rng, small_tile, monkeypatch, route):
     if route == "pairlist":
         monkeypatch.setenv("FASTSK_PACKED_PAIRLIST", "1")
-        monkeypatch.setattr(PackedPairsEngine, "SLAB_BYTES", 3 * 16 * 16 * 8)
     backend = "pallas_grouped" if route == "grouped" else "auto"
     X = random_ragged_seqs(rng, 6, 100, 200, alphabet=4)
     eng = _port(X, 6, 3, pairs_backend=backend)
@@ -250,52 +249,21 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch(rng, small_tile):
 
 def _emulate_kernels(rows: pairs_packed_cuda.PackedRows, k: int, n: int):
     """numpy model of what kernels D and E compute from the operands their
-    wrappers build (byte words, padded seq_of, tile metadata): byte
-    compares including the padding bytes, the C(t - pad, k) table, bins
-    relative to tile_first, and each kernel's landing rule."""
-    words = rows.words.numpy()
-    by = words.view(np.uint8).reshape(words.shape[0], -1)
-    pad = by.shape[1] - rows.g
-    seq = rows.seq_padded.numpy()
-    tbl = np.array([math.comb(t - pad, k) if t - pad >= k else 0 for t in range(by.shape[1] + 1)])
-
-    def tile_pair(ti, tj, tr, meta):
-        ri, rj = slice(ti * tr, (ti + 1) * tr), slice(tj * tr, (tj + 1) * tr)
-        w = tbl[(by[ri][:, None, :] == by[rj][None, :, :]).sum(-1)]
-        si, sj = seq[ri], seq[rj]
-        w = w * ((si >= 0)[:, None] & (sj >= 0)[None, :])
-        fi, fj = int(meta.tile_first[ti]), int(meta.tile_first[tj])
-        bins = np.zeros((meta.cb, meta.cb), np.int64)
-        np.add.at(bins, (np.clip(si - fi, 0, None)[:, None], np.clip(sj - fj, 0, None)[None, :]), w)
-        assert bins.max() < 2**32  # the shared-memory bins are 32-bit unsigned
-        return bins, fi, fj
-
-    meta = rows.meta(pairs_packed_cuda.ROW_TILE)
-    nt = words.shape[0] // pairs_packed_cuda.ROW_TILE
+    wrappers build (code planes, padded seq_of, tile metadata): D's upper
+    tile triangle with mirrored off-diagonal bins, and E's pair list over
+    every upper strip pair in tiles of ``sub_tile()`` rows, into part
+    blocks."""
     band = np.zeros((n, n), np.int64)
-    for tj in range(nt):
-        for ti in range(tj + 1):
-            bins, fi, fj = tile_pair(ti, tj, pairs_packed_cuda.ROW_TILE, meta)
-            for (a, b), v in np.ndenumerate(bins):
-                if v:
-                    band[fi + a, fj + b] += v
-                    if ti != tj:
-                        band[fj + b, fi + a] += v
-
-    tr = rows.sub_tile()
-    tps = rows.tile // tr
-    meta = rows.meta(tr)
-    fs = rows.first_seq.numpy()
+    nt = rows.planes.shape[0] // ROW
+    _emulate_block(rows, rows, k, _Walk(0, nt * ROW, 0, nt * ROW, True), _ALL,
+                   _land_matrix(band, 0, True), grid=3)
     ns = rows.n_strips
-    pa = np.repeat(np.arange(ns), np.arange(ns, 0, -1))
-    pb = np.concatenate([np.arange(a, ns) for a in range(ns)])
+    pa, pb = (v.numpy() for v in torch.triu_indices(ns, ns))
+    tr = rows.sub_tile()
     parts = np.zeros((len(pa), rows.c_pad, rows.c_pad), np.int64)
-    for s, (a, b) in enumerate(zip(pa, pb)):
-        for sub in range(tps * tps):
-            bins, fi, fj = tile_pair(a * tps + sub // tps, b * tps + sub % tps, tr, meta)
-            for (i, j), v in np.ndenumerate(bins):
-                if v:
-                    parts[s, fi + i - fs[a], fj + j - fs[b]] += v
+    walk = _Walk.pairlist(pa, pb, rows.tile // tr)
+    _emulate_block(rows, rows, k, walk, _ALL, _land_list_parts(parts, walk, rows.first_seq.numpy()),
+                   grid=5, tr=tr)
     return band, parts, pa, pb
 
 
@@ -304,7 +272,7 @@ def test_kernel_model_matches_plain(rng, monkeypatch, tile):
     """The kernels' operands and landing rules, modelled in numpy: D's
     upper-tile sweep with mirrored off-diagonal bins, and E's part blocks
     landed by ``land_parts``, both equal the plain version and the oracle
-    on straddling sequences (g=7: one padding byte a word)."""
+    on straddling sequences (g=7: the code planes' bits past g zero)."""
     monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
     X = random_ragged_seqs(rng, 7, 20, 200, alphabet=5)
     eng = _port(X, 7, 3)
@@ -328,6 +296,197 @@ def test_kernel_model_matches_plain(rng, monkeypatch, tile):
         mat, torch.from_numpy(parts), rows.first_seq[pa_t], rows.first_seq[pb_t], pb_t > pa_t
     )
     np.testing.assert_array_equal(mat[: eng.n, : eng.n].numpy(), want)
+
+
+def poly_a_seqs(rng):
+    """Homopolymers of the lowest code and DNA with poly-A runs of 20-60,
+    one of the two homopolymers with a window count not a multiple of 8
+    at each g = 17-20."""
+    X = [[1] * 130, [1] * 131, [4] * 40]
+    for length in (90, 155, 203):
+        s = rng.integers(1, 5, size=length)
+        at = int(rng.integers(0, length - 60))
+        s[at : at + int(rng.integers(20, 61))] = 1
+        X.append(s.tolist())
+    return X
+
+
+def _window_pair_counts(X, g, k):
+    """Exact counts by brute force over window pairs: C(matches, k) with
+    the codes compared directly."""
+    wins = [np.array([s[p : p + g] for p in range(len(s) - g + 1)]) for s in X]
+    comb = np.array([math.comb(d, k) for d in range(g + 1)], dtype=np.int64)
+    return np.array([[comb[(a[:, None, :] == b[None, :, :]).sum(-1)].sum() for b in wins] for a in wins])
+
+
+# g = 17 to 20 at small k: the code planes leave only 32 - g bits past g,
+# so a padding row must weigh nothing by its mask, not by those bits,
+# against valid rows that match it in nearly every place
+@pytest.mark.parametrize("g,m", [(17, 16), (18, 12), (19, 11), (20, 12), (20, 19)])
+def test_kernel_model_padding_rows_weigh_nothing(rng, monkeypatch, g, m):
+    """D's and E's models (kernel E in 64-row tiles, into part blocks then
+    landed) equal the plain version and the oracle on homopolymers of the
+    lowest code and poly-A runs, at g = 17-20 and k = 1-8, with sequences
+    whose last group of 8 rows holds padding."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", 64)
+    X = poly_a_seqs(rng)
+    eng = _port(X, g, m)
+    rows = eng.rows()
+    assert (eng.pack["p"] % 8).any()
+    band, parts, pa, pb = _emulate_kernels(rows, eng.k, eng.n)
+    want = _window_pair_counts(X, g, g - m)[np.ix_(eng.order, eng.order)]
+    if g - m <= 2:  # the oracle sums C(g, k) position subsets: small k only
+        np.testing.assert_array_equal(want, oracle.exact_counts(X, g, m)[np.ix_(eng.order, eng.order)])
+    np.testing.assert_array_equal(band, want)
+    np.testing.assert_array_equal(pairs_packed_cuda.packed_band(rows, k=eng.k, n_out=eng.n).numpy(), want)
+    mat = torch.zeros((eng.n + eng.c_pad,) * 2, dtype=torch.int64)
+    pa_t, pb_t = torch.from_numpy(pa), torch.from_numpy(pb)
+    pairs_packed.land_parts(
+        mat, torch.from_numpy(parts), rows.first_seq[pa_t], rows.first_seq[pb_t], pb_t > pa_t
+    )
+    np.testing.assert_array_equal(mat[: eng.n, : eng.n].numpy(), want)
+
+
+def _land_list_parts(out, walk, fs):
+    """Kernel E's part blocks: slot s's bins at out[s, si - fs[pa[s]],
+    sj - fs[pb[s]]]."""
+    def land(bins, fi, fj, ti, tj, L):
+        s = walk.slot(L)
+        fa, fb = fs[walk.pa[s]], fs[walk.pb[s]]
+        for (i, j), v in np.ndenumerate(bins):
+            if v:
+                out[s, fi + i - fa, fj + j - fb] += v
+    return land
+
+
+def _land_list_matrix(out, walk):
+    """Kernel E's matrix landing: bins at (si, sj), and where pb[s] > pa[s]
+    also at (sj, si); a diagonal slot holds both orders and lands once."""
+    def land(bins, fi, fj, ti, tj, L):
+        s = walk.slot(L)
+        mirror = walk.pb[s] > walk.pa[s]
+        for (i, j), v in np.ndenumerate(bins):
+            if v:
+                out[fi + i, fj + j] += v
+                if mirror:
+                    out[fj + j, fi + i] += v
+    return land
+
+
+@pytest.mark.parametrize("kind", ["upper", "mixed"])
+@pytest.mark.parametrize("tile", [64, 256])
+def test_kernel_e_matrix_landing_model(rng, monkeypatch, tile, kind):
+    """Kernel E landing straight into the count matrix, modelled in numpy
+    (each slot mirrored where pb[s] > pa[s]) on straddling sequences, in
+    tiles of 64 rows (64-row strips) or 128 (two a 256-row strip): over
+    the upper list of strip pairs it is the oracle's matrix; over a list
+    with diagonal, reversed (b < a) and repeated slots it is
+    ``land_parts`` of the plain part blocks; the CPU wrapper with ``out``
+    lands the same."""
+    monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
+    X = random_ragged_seqs(rng, 9, 20, 300, alphabet=6)
+    eng = _port(X, 7, 3)
+    rows = eng.rows()
+    ns = eng.n_strips
+    assert ns >= 4 and straddles(eng)
+    if kind == "upper":
+        pa, pb = (v.numpy() for v in torch.triu_indices(ns, ns))
+    else:
+        pa = np.array([0, 2, ns - 1, 1, 1, 3, 0])
+        pb = np.array([0, 1, 0, 3, 3, 3, ns - 1])
+    tr = rows.sub_tile()
+    assert tr == min(tile, ROW)
+    walk = _Walk.pairlist(pa, pb, tile // tr)
+    m = eng.n + eng.c_pad
+    got = np.zeros((m, m), np.int64)
+    _emulate_block(rows, rows, eng.k, walk, _ALL, _land_list_matrix(got, walk), grid=4, tr=tr)
+    pa_t, pb_t = torch.from_numpy(pa), torch.from_numpy(pb)
+    want = torch.zeros((m, m), dtype=torch.int64)
+    parts = pairs_packed.packed_pair_parts_plain(
+        rows.onehot, rows.seq_of, rows.first_seq, pa, pb, k=eng.k, tile=tile, c_pad=eng.c_pad
+    )
+    pairs_packed.land_parts(want, parts, rows.first_seq[pa_t], rows.first_seq[pb_t], pb_t > pa_t)
+    np.testing.assert_array_equal(got, want.numpy())
+    if kind == "upper":
+        order = eng.order
+        np.testing.assert_array_equal(got[: eng.n, : eng.n],
+                                      oracle.exact_counts(X, 7, 3)[np.ix_(order, order)])
+    before = pairs_packed_cuda.packed_pairlist.launches
+    out = torch.zeros((m, m), dtype=torch.int64)
+    assert pairs_packed_cuda.packed_pairlist(rows, pa_t, pb_t, k=eng.k, out=out) is out
+    assert pairs_packed_cuda.packed_pairlist.launches == before  # CPU path: no launch
+    np.testing.assert_array_equal(out.numpy(), got)
+    with pytest.raises(ValueError, match="int64"):
+        pairs_packed_cuda.packed_pairlist(rows, pa_t, pb_t, k=eng.k, out=out.int())
+
+
+@pytest.mark.parametrize(
+    "pa,pb,tps",
+    [
+        ([0, 1, 2], [0, 1, 2], 1),  # diagonal slots
+        ([0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2], 2),  # an upper list
+        ([3, 2, 0, 1], [1, 2, 3, 0], 3),  # reversed slots (b < a)
+        ([1, 1, 0, 2], [2, 2, 0, 2], 16),  # repeated slots, tiles of a 2048-row strip
+    ],
+)
+def test_kernel_list_walk_visits_each_tile_pair_once(pa, pb, tps):
+    """Every grid splits kernel E's pair-list walk into runs that visit
+    each index of the walk exactly once, slot after slot, each slot's tile
+    pairs row tile first."""
+    walk = _Walk.pairlist(pa, pb, tps)
+    want = [(a * tps + u // tps, b * tps + u % tps) for a, b in zip(pa, pb) for u in range(tps * tps)]
+    assert walk.total == len(want)
+    assert [walk.at(L) for L in range(walk.total)] == want
+    for grid in (1, 2, 3, 7, walk.total, walk.total + 5):
+        assert [(ti, tj) for _, ti, tj in walk.runs(grid)] == want
+
+
+def test_kernel_list_walk_past_int32():
+    """A pair list of more than 2^31 tile pairs (the upper list of 3,000
+    strips of 64 tiles): the walk's int64 index arithmetic lands on its
+    first and last tile pairs and on each persistent block's first one."""
+    ns, tps = 3000, 64
+    pa, pb = (v.numpy().astype(np.int32) for v in torch.triu_indices(ns, ns))
+    walk = _Walk.pairlist(pa, pb, tps)
+    assert walk.total == len(pa) * tps * tps > 2**31
+    assert walk.at(0) == (0, 0)
+    last = (ns - 1) * tps + tps - 1
+    assert walk.at(walk.total - 1) == (last, last)
+    grid = 132 * 8
+    for b in (1, grid // 2, grid - 1):
+        begin = b * int(walk.total) // grid  # as the card: blockIdx.x * total / gridDim.x
+        s, u = divmod(begin, tps * tps)
+        assert walk.at(np.int64(begin)) == (int(pa[s]) * tps + u // tps, int(pb[s]) * tps + u % tps)
+
+
+@pytest.mark.parametrize("g,alpha", [(4, 2), (7, 5), (8, 24), (12, 100), (20, 256)])
+def test_code_planes_hold_each_codes_bits(rng, g, alpha):
+    """The code-plane operand: ceil(log2 alpha) planes padded to 4 or 8
+    words, bit q of plane p being bit p of code q, no bit past g in a
+    valid row; a padding row (-1, also the rows past R) all zero. Groups
+    of 8 rows holding two sequences, or a padding row before a valid one,
+    are refused."""
+    codes = torch.from_numpy(rng.integers(0, alpha, size=(96, g)).astype(np.int32))
+    seq_of = torch.arange(96, dtype=torch.int32) // 8
+    codes[5:8], seq_of[5:8] = -1, -1
+    meta = (torch.zeros(3, dtype=torch.int32), 32, 16, alpha)
+    rows = pairs_packed_cuda.PackedRows(codes, seq_of, *meta)
+    nb = pairs_packed_cuda.code_planes(alpha)
+    assert nb == max(1, math.ceil(math.log2(alpha)))
+    planes = rows.planes.numpy().view(np.uint32)
+    assert planes.shape == (ROW, pairs_packed_cuda.plane_stride(nb))
+    pad = np.r_[5:8, 96:ROW]
+    assert not planes[pad].any()
+    assert not planes[:, nb:].any()
+    valid = np.setdiff1d(np.arange(96), pad)
+    c = codes.numpy()[valid]
+    for p in range(nb):
+        bits = (planes[valid, p, None] >> np.arange(32)) & 1
+        np.testing.assert_array_equal(bits[:, :g], (c >> p) & 1)
+        assert not bits[:, g:].any()
+    for bad in (torch.where(torch.arange(96) == 12, 2, seq_of), torch.where(torch.arange(96) == 8, -1, seq_of)):
+        with pytest.raises(ValueError, match="groups? of 8"):
+            pairs_packed_cuda.PackedRows(codes, bad.to(torch.int32), *meta).planes
 
 
 def test_pack_windows_matches_jax(rng):
@@ -366,37 +525,41 @@ def test_packed_onehot_matches_jax_build_packed_x(rng, small_tile):
 
 
 @pytest.mark.parametrize(
-    "g,alpha,body",
-    [(8, 24, "mma"), (8, 5, "mma"), (8, 40, "mma"), (8, 56, "bytes"), (20, 256, "bytes"), (12, 100, "bytes")],
+    "g,alpha,nb",
+    [(8, 24, 5), (8, 5, 3), (8, 40, 6), (8, 56, 6), (20, 256, 8), (12, 100, 7)],
 )
-def test_kernel_d_body_selection(g, alpha, body):
-    """Kernel D's tensor-core body up to its one-hot depth, the byte-code
-    body above it; the byte-code body alone keeps the 1-D grid limit."""
+def test_kernel_d_body_selection(monkeypatch, g, alpha, nb):
+    """Kernels D to G have one body, on ``nb`` code planes whatever the
+    one-hot depth g * alpha (40 to 5,120 bytes here), and no row limit:
+    the engine takes kernel D's route at any depth and kernel E's only
+    under ``FASTSK_PACKED_PAIRLIST=1``."""
     pc = pairs_packed_cuda
-    assert pc.band_body(g, alpha) == body
-    assert pc.onehot_depth(g, alpha) % 64 == 0 and pc.onehot_depth(g, alpha) >= g * alpha
-    assert pc.band_fits(10**8, g, alpha) == (body == "mma")
-    assert pc.band_fits(1000, g, alpha)
+    assert pc.code_planes(alpha) == nb and pc.plane_stride(nb) == (4 if nb <= 4 else 8)
+    for gone in ("band_fits", "band_body", "grouped_body", "MMA_DEPTH_FASTER", "onehot_depth"):
+        assert not hasattr(pc, gone)
+    X = [list(range(1, alpha + 1)) + [1] * g, [alpha] * (g + 3)]  # every code: alphabet alpha
+    monkeypatch.delenv("FASTSK_PACKED_PAIRLIST", raising=False)
+    eng = _port(X, g, g // 2)
+    assert eng.alpha == alpha and eng.route == "band"
+    assert eng.rows().planes.shape[1] == pc.plane_stride(nb)
+    monkeypatch.setenv("FASTSK_PACKED_PAIRLIST", "1")
+    assert _port(X, g, g // 2).route == "pairlist"
 
 
 def test_packed_band_on_cpu_takes_the_plain_version(monkeypatch):
-    """On a CPU tensor either body is the plain version and counts no
-    launch; an unknown body is refused."""
+    """On a CPU tensor kernel D is its plain version, equal to the oracle,
+    and counts no launch."""
     pc = pairs_packed_cuda
     monkeypatch.setattr(PackedPairsEngine, "TILE", 64)
     rng = np.random.default_rng(9)
     X = [rng.integers(1, 6, size=int(rng.integers(8, 60))).tolist() for _ in range(9)]
     eng = PackedPairsEngine(encode_sequences(X), 5, 2, T.KernelConfig(device="cpu"))
     rows = eng.rows()
-    before = pc.packed_band.launches, dict(pc.packed_band.bodies)
-    got = [pc.packed_band(rows, k=3, n_out=eng.n, body=b) for b in (None, "mma", "bytes")]
-    assert (pc.packed_band.launches, pc.packed_band.bodies) == before
-    for g in got[1:]:
-        torch.testing.assert_close(g, got[0], rtol=0, atol=0)
+    before = pc.packed_band.launches
+    got = pc.packed_band(rows, k=3, n_out=eng.n)
+    assert pc.packed_band.launches == before
     pos = np.argsort(eng.order)
-    np.testing.assert_array_equal(got[0].numpy()[np.ix_(pos, pos)], oracle.exact_counts(X, 5, 2))
-    with pytest.raises(ValueError, match="body"):
-        pc.packed_band(rows, k=3, n_out=eng.n, body="wmma")
+    np.testing.assert_array_equal(got.numpy()[np.ix_(pos, pos)], oracle.exact_counts(X, 5, 2))
 
 
 # --------------------------------------- kernels D, F and G's shared walk
@@ -423,11 +586,12 @@ class _Walk:
     """csrc/pairs_packed.cu's Walk as ``packed_block_launch`` and
     ``packed_grouped_launch`` build it from row ranges: the triangle
     (``tri``) over the tiles holding rows below ``c_hi``, or the
-    rectangle."""
+    rectangle; or, from ``pairlist``, kernel E's list of strip pairs."""
 
     def __init__(self, r_lo, r_hi, c_lo, c_hi, tri, tr=ROW):
         self.ti0, ti1 = r_lo // tr, -(-r_hi // tr)
         self.tri = tri
+        self.pa = None
         if self.tri:
             nt = -(-c_hi // tr)
             self.nt, self.base = nt, _pairs_before(self.ti0, nt)
@@ -437,7 +601,20 @@ class _Walk:
             self.nc = -(-c_hi // tr) - self.tj0
             self.total = (ti1 - self.ti0) * self.nc
 
+    @classmethod
+    def pairlist(cls, pa, pb, tps):
+        """Slot s = L // tps^2 is strip pair (pa[s], pb[s]), its tile pairs
+        row tile first; the index arithmetic in int64, as on the card."""
+        w = cls.__new__(cls)
+        w.pa, w.pb = np.asarray(pa, np.int64), np.asarray(pb, np.int64)
+        w.tps = np.int64(tps)
+        w.total = np.int64(len(w.pa)) * w.tps * w.tps
+        return w
+
     def at(self, L):
+        if self.pa is not None:
+            s, u = divmod(np.int64(L), self.tps * self.tps)
+            return int(self.pa[s] * self.tps + u // self.tps), int(self.pb[s] * self.tps + u % self.tps)
         if self.tri:
             g = L + self.base
             ti = _row_tile_of(g, self.nt)
@@ -450,53 +627,75 @@ class _Walk:
             return ti + 1, ti + 1 if self.tri else self.tj0
         return ti, tj
 
+    def slot(self, L):
+        return int(np.int64(L) // (self.tps * self.tps))
+
     def runs(self, grid):
-        """Tile pairs in the order persistent block b of ``grid`` visits
-        them: its contiguous run, from ``at(begin)`` on by ``next``."""
+        """(L, ti, tj) in the order persistent block b of ``grid`` visits
+        them: its contiguous run, from ``at(begin)`` on by ``next`` (a
+        list by ``at(L + 1)``)."""
         for b in range(grid):
             begin, end = b * self.total // grid, (b + 1) * self.total // grid
             if begin < end:
                 ti, tj = self.at(begin)
-                for _ in range(begin, end):
-                    yield ti, tj
-                    ti, tj = self.next(ti, tj)
+                for L in range(begin, end):
+                    yield L, ti, tj
+                    if L + 1 < end:
+                        ti, tj = self.at(L + 1) if self.pa is not None else self.next(ti, tj)
+
+
+_ALL = (0, np.inf, 0, np.inf)  # no row outside the launch's strips
 
 
 def _emulate_block(rows_i, rows_j, k, walk, masks, land, grid, tr=ROW):
-    """numpy model of ``packed_block_mma_kernel`` (``tr`` = 128) and the
-    byte-code bodies over ``walk``: each persistent block's run of tile
-    pairs (every pair exactly once over the grid), matches of the g code
-    bytes in the word table (what the one-hot product counts), zero for
-    padding rows and rows outside ``masks = (r_lo, r_hi, c_lo, c_hi)``,
+    """numpy model of ``packed_bytes_kernel`` over ``walk``: each
+    persistent block's run of tile pairs (every index of the walk exactly
+    once over the grid); for two windows d, the popcount of the OR over
+    code planes of their XOR and of the j row's padding mask (all ones
+    where its seq_of is -1), weighing C(g - d, k) from a 64-entry table
+    (zero past g); g - d must be the matches of the g code bytes (what the
+    one-hot product counts) and a padding j row must weigh 0; i rows that
+    are padding or outside ``masks = (r_lo, r_hi, c_lo, c_hi)``, j groups
+    of 8 that start with padding and j rows outside the masks add nothing;
     32-bit bins relative to ``tile_first``, then ``land(bins, fi, fj, ti,
-    tj)``."""
+    tj, L)``."""
     pairs = list(walk.runs(grid))
-    assert len(pairs) == len(set(pairs)) == walk.total
-    assert sorted(pairs) == sorted(walk.at(L) for L in range(walk.total))
+    assert [L for L, _, _ in pairs] == list(range(walk.total))
+    assert all((ti, tj) == walk.at(L) for L, ti, tj in pairs)
     g = rows_i.g
     by = [r.words.numpy().view(np.uint8).reshape(r.words.shape[0], -1)[:, :g] for r in (rows_i, rows_j)]
+    pl = [r.planes.numpy().view(np.uint32) for r in (rows_i, rows_j)]
+    assert all((p[r.seq_padded.numpy() >= 0] >> g).max() == 0 for p, r in zip(pl, (rows_i, rows_j)))
     seq = [r.seq_padded.numpy() for r in (rows_i, rows_j)]
     meta = [r.meta(tr) for r in (rows_i, rows_j)]
     cb = max(m.cb for m in meta)
-    tbl = np.array([math.comb(d, k) for d in range(g + 1)])
+    tbl = np.array([math.comb(g - d, k) if d <= g else 0 for d in range(64)])
     r_lo, r_hi, c_lo, c_hi = masks
-    for ti, tj in pairs:
+    for L, ti, tj in pairs:
         ri, cj = np.arange(ti * tr, (ti + 1) * tr), np.arange(tj * tr, (tj + 1) * tr)
         si, sj = seq[0][ri], seq[1][cj]
         vi = (si >= 0) & (ri >= r_lo) & (ri < r_hi)
-        vj = (sj >= 0) & (cj >= c_lo) & (cj < c_hi)
-        w = tbl[(by[0][ri][:, None, :] == by[1][cj][None, :, :]).sum(-1)] * (vi[:, None] & vj[None, :])
+        sg = np.repeat(sj[::8], 8)  # the sequence of each row's group of 8
+        vj = (sg >= 0) & (cj >= c_lo) & (cj < c_hi)
+        pad = np.where(sj < 0, np.uint32(0xFFFFFFFF), np.uint32(0))
+        differ = np.bitwise_or.reduce(pl[0][ri][:, None, :] ^ pl[1][cj][None, :, :], axis=-1)
+        d = np.bitwise_count(differ | pad[None, :]).astype(np.int64)
+        matches = (by[0][ri][:, None, :] == by[1][cj][None, :, :]).sum(-1)
+        both = (si >= 0)[:, None] & (sj >= 0)[None, :]
+        np.testing.assert_array_equal(np.where(both, g - d, 0), np.where(both, matches, 0))
+        assert (tbl[d][:, sj < 0] == 0).all()
+        w = tbl[d] * (vi[:, None] & vj[None, :])
         fi, fj = int(meta[0].tile_first[ti]), int(meta[1].tile_first[tj])
-        li, lj = np.where(vi, si - fi, 0), np.where(vj, sj - fj, 0)
+        li, lj = np.where(vi, si - fi, 0), np.where(vj, sg - fj, 0)
         assert li.max() < cb and lj.max() < cb
         bins = np.zeros((cb, cb), np.int64)
         np.add.at(bins, (li[:, None], lj[None, :]), w)
         assert bins.max() < 2**32  # the shared-memory bins are 32-bit unsigned
-        land(bins, fi, fj, ti, tj)
+        land(bins, fi, fj, ti, tj, L)
 
 
 def _land_matrix(out, row_off, mirror):
-    def land(bins, fi, fj, ti, tj):
+    def land(bins, fi, fj, ti, tj, L):
         for (i, j), v in np.ndenumerate(bins):
             if v:
                 out[fi + i - row_off, fj + j] += v
@@ -521,7 +720,6 @@ def _emulate_packed_block(out, rows_i, strips_i, *, k, rows_j=None, strips_j=Non
         c = (strips_j[0] * tile, strips_j[1] * tile)
         masks = (*r, *c)
     walk = _Walk(*r, *c, mirror)
-    assert walk.total == pairs_packed_cuda.block_tile_pairs(*r, *c, mirror)
     _emulate_block(rows_i, rows_j, k, walk, masks, _land_matrix(out, row_off, mirror), grid)
     return out
 
@@ -536,7 +734,7 @@ def test_kernel_walk_visits_each_tile_pair_once(nt, ti0, ti1, tri):
     want = [(ti, tj) for ti in range(ti0, ti1) for tj in (range(ti, nt) if tri else range(1, nt))]
     assert [walk.at(L) for L in range(walk.total)] == want
     for grid in (1, 2, 3, 7, walk.total, walk.total + 5):
-        assert list(walk.runs(grid)) == want
+        assert [(ti, tj) for _, ti, tj in walk.runs(grid)] == want
 
 
 def test_kernel_walk_row_tile_at_full_size():
@@ -554,7 +752,7 @@ def test_kernel_walk_row_tile_at_full_size():
 @pytest.mark.parametrize("tile", [64, 256])
 def test_kernel_f_model_matches_plain_and_oracle(rng, monkeypatch, tile):
     """Kernel F's two walks and landings, modelled in numpy, on straddling
-    sequences (g=7: one padding byte a word): the ring's rectangles and its
+    sequences (g=7): the ring's rectangles and its
     diagonal triangles with a row offset on each device's shard and the
     round-robin's triangle with its mirror, through both mesh routes of
     the engine, equal the plain composite per call (the triangle where its
@@ -603,7 +801,7 @@ def straddles(eng) -> bool:
 
 
 def _land_parts(out, fs, a, b0, tps, c_pad):
-    def land(bins, fi, fj, ti, tj):
+    def land(bins, fi, fj, ti, tj, L):
         b = tj // tps
         for (i, j), v in np.ndenumerate(bins):
             if v:
@@ -613,18 +811,16 @@ def _land_parts(out, fs, a, b0, tps, c_pad):
 
 @pytest.mark.parametrize("tile", [64, 256])
 def test_kernel_g_model_several_groups(rng, monkeypatch, tile):
-    """Kernel G over several groups in one launch, modelled in numpy with
-    the body ``grouped_body`` picks (128-row tiles of the tensor-core walk
-    at 256-row strips, the byte-code body's 64-row tiles at 64), equals
-    ``packed_pair_parts_plain``; the engine's grouped route lands it to
-    the oracle with one launch a strip."""
+    """Kernel G over several groups in one launch, modelled in numpy (its
+    128-row tiles at 256-row strips, kernel E's 64-row tiles over the pair
+    list at 64), equals ``packed_pair_parts_plain``; the engine's grouped
+    route lands it to the oracle with one launch a strip."""
     monkeypatch.setattr(PackedPairsEngine, "TILE", tile)
     X = random_ragged_seqs(rng, 16, 20, 300, alphabet=5)
     eng = _port(X, 7, 3, pairs_backend="pallas_grouped")
     rows, group = eng.rows(), eng.group
-    body = pairs_packed_cuda.grouped_body(rows)
-    assert body == ("mma" if tile % ROW == 0 else "bytes") and eng.n_strips >= 2 * group
-    tr = ROW if body == "mma" else rows.sub_tile()
+    assert eng.n_strips >= 2 * group
+    tr = ROW if tile % ROW == 0 else rows.sub_tile()
     tps, fs = tile // tr, rows.first_seq.numpy()
     n_groups = eng.n_strips // group
     for a in (0, group + 1, eng.n_strips - 1):
@@ -633,7 +829,7 @@ def test_kernel_g_model_several_groups(rng, monkeypatch, tile):
         got = np.zeros((n_b, eng.c_pad, eng.c_pad), np.int64)
         b0 = gidx * group
         walk = _Walk(a * tile, (a + 1) * tile, b0 * tile, (b0 + n_b) * tile, False, tr)
-        _emulate_block(rows, rows, eng.k, walk, (0, np.inf, 0, np.inf),
+        _emulate_block(rows, rows, eng.k, walk, _ALL,
                        _land_parts(got, fs, a, b0, tps, eng.c_pad), grid=3, tr=tr)
         want = pairs_packed.packed_pair_parts_plain(
             rows.onehot, rows.seq_of, rows.first_seq, [a] * n_b, range(b0, b0 + n_b),

@@ -325,10 +325,10 @@ def test_kernel_f_block_wrapper_checks_inputs(rng, small_tile):
     rows, ns = eng.rows(), eng.n_strips
     out = torch.zeros((eng.n + eng.c_pad,) * 2, dtype=torch.int64)
     pc = pairs_packed_cuda
-    before = pc.packed_block.launches, dict(pc.packed_block.bodies)
+    before = pc.packed_block.launches
     pc.packed_block(out, rows, (0, ns), k=3)
-    pc.packed_block(out, rows, (0, 1), k=3, rows_j=rows, strips_j=(0, ns), body="bytes")
-    assert (pc.packed_block.launches, pc.packed_block.bodies) == before  # CPU path: no launch
+    pc.packed_block(out, rows, (0, 1), k=3, rows_j=rows, strips_j=(0, ns))
+    assert pc.packed_block.launches == before  # CPU path: no launch
     with pytest.raises(ValueError, match="come together"):
         pc.packed_block(out, rows, (0, 1), k=3, rows_j=rows)
     with pytest.raises(ValueError, match="must start at its rows"):
@@ -343,8 +343,6 @@ def test_kernel_f_block_wrapper_checks_inputs(rng, small_tile):
         pc.packed_block(out, rows, (0, 1), k=7)
     with pytest.raises(ValueError, match="int64"):
         pc.packed_block(out.int(), rows, (0, 1), k=3)
-    with pytest.raises(ValueError, match="body"):
-        pc.packed_block(out, rows, (0, 1), k=3, body="wmma")
     other = PackedPairsEngine(
         encode_sequences(random_ragged_seqs(rng, 5, 20, 90, alphabet=4)), 7, 3,
         T.KernelConfig(**CPU),
@@ -360,19 +358,17 @@ def test_kernel_g_wrapper_checks_groups(rng, small_tile):
     )
     rows, group = eng.rows(), eng.group
     pc = pairs_packed_cuda
-    assert eng.n_strips == 2 * group and pc.grouped_body(rows) == "bytes"  # 64-row strips
-    before = pc.packed_grouped.launches, dict(pc.packed_grouped.bodies)
+    assert eng.n_strips == 2 * group and rows.tile == 64  # narrower than a 128-row tile
+    before = pc.packed_grouped.launches
     both = pc.packed_grouped(rows, 3, 0, k=3, group=group, n_groups=2)
     assert both.shape == (2 * group, eng.c_pad, eng.c_pad)
-    assert (pc.packed_grouped.launches, pc.packed_grouped.bodies) == before
+    assert pc.packed_grouped.launches == before
     second = pc.packed_grouped(rows, 3, 1, k=3, group=group)
     np.testing.assert_array_equal(both[group:].numpy(), second.numpy())
     with pytest.raises(ValueError, match="outside"):
         pc.packed_grouped(rows, 3, 1, k=3, group=group, n_groups=2)
     with pytest.raises(ValueError, match="outside"):
         pc.packed_grouped(rows, 3, 0, k=3, group=group, n_groups=0)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        pc.packed_grouped(rows, 3, 0, k=3, group=group, body="mma")
 
 
 # ------------------------------------------------------ the mesh routes
