@@ -1,4 +1,4 @@
-"""Drive fastsk_tpu_torch's exact paths on one CUDA card and check them.
+"""Drive fastsk_tpu_torch's exact and approx paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -38,6 +38,16 @@ raises and the exit code is non-zero:
           tensor-core body once, kernel B twice
           for 6 problems (the main solve, then the 5 Platt folds in one
           batch), AUC 0.904993 to 6 decimals and |AUC - 0.903321| <= 0.005.
+5b. theta-dense  KAT2B (g=8, m=4) through exact_engine="theta": the
+          dense theta engine (kernel/engine.py, no kernel of its own),
+          device-resident; counts integer-equal to phase 5's kernel A
+          counts; kernel_s, ms a theta, peak memory, and a theta's time
+          split with CUDA events (histogram, products, one Welford step).
+5c. approx-kat2b  FastSK(8, 4, approx=True, delta=0.025, seed=0) on KAT2B
+          (device-resident) -> fit (C=1; kernel B twice for 6 problems)
+          -> score("auc") within 0.02 of 0.904993; the first 8 thetas
+          with skip_variance integer-equal to the port on the CPU, and
+          the same Welford call on the CPU: equal iterations and counts.
 6. golden tests/golden/ep_sl at g=6, m=2 with device_resident=False on the
           card: the f64 kernel equals ep_sl_g6m2.txt bit for bit.
 7. packed kernels D, E and G (the packed engine's band, pair-list and
@@ -100,7 +110,9 @@ raises and the exit code is non-zero:
           on EP300 (2000 + 2000 sequences): AUC within 0.005 of 0.990146;
           then -s nu_svc -r fastsk with a LIBSVM model and the kernel saved,
           and `python -m fastsk_tpu_torch.predict_cli` on them: its accuracy
-          within 0.05 points (one row of 2000) of the CLI's.
+          within 0.05 points (one row of 2000) of the CLI's; then `-a
+          --seed 0` (approx mode, the dense theta engine): AUC within
+          0.02 of the exact run's, and its iterations.
 14. packed-block  kernel F (csrc/pairs_packed.cu packed_block, stage 1,
           stage 2 and the landing in one launch) against its plain
           composite (ops/pairs_packed.py:packed_block_plain) at phase 7's
@@ -137,6 +149,16 @@ raises and the exit code is non-zero:
           tensor-core body at both shapes (experiments/probe_pairs.py
           --body mma): whole, without the epilogue, without the wgmma
           loop, loads only; the whole equal to phase 3's plain counts.
+17. approx-219  the 2.19 set of phase 8 (alphabet 24, g=8, m=4: 24^4
+          buckets, so the sorted theta engine) with approx=True, seed 0,
+          device-resident -> fit (C=0.01; kernel B twice for 6 problems)
+          -> score: AUC >= 0.9; iterations, kernel_s, ms a pass, peak
+          memory and a pass's split (hash and sort, slab products full
+          and upper block triangle, one Welford step).
+18. theta-sorted-exact  phase 7's medium set through
+          exact_engine="theta" (the sorted engine): counts
+          integer-equal to kernel D's (one launch); kernel_s, ms a pass,
+          peak memory and its split.
 
 The last three lines are the card's name and power limit (nvidia-smi),
 the per-kernel JSON record (every kernel's launches on its path, error
@@ -509,6 +531,264 @@ def slice_219(full=(2564, 16, 905)):
     return (
         X, y, [X[i] for i in tr_idx], [X[i] for i in te_idx], y[tr_idx], y[te_idx],
     )
+
+
+def peak_mib(fn, *args, **kwargs):
+    """(result, the peak MiB the call allocated on the card above what was
+    allocated when it began)."""
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(*args, **kwargs)
+    return out, (torch.cuda.max_memory_allocated() - before) / 2**20
+
+
+def welford_ms(ks_int) -> float:
+    """CUDA-event ms of one Welford step (ops/gkm.py:welford_step) on the
+    pass ``ks_int``, warmed up, past the first iteration's branch."""
+    from fastsk_tpu_torch.ops.gkm import welford_step
+
+    n = ks_int.shape[0]
+    state = (
+        torch.zeros_like(ks_int), torch.zeros((n, n), dtype=torch.float32, device=ks_int.device),
+        torch.full((), 5, dtype=torch.int32, device=ks_int.device),
+        torch.zeros((), dtype=torch.bool, device=ks_int.device),
+    )
+    kw = dict(n_train=n, conv_delta=0.025, max_iters=-1)
+    welford_step(state, ks_int, **kw)
+    return cuda_ms(welford_step, state, ks_int, **kw)[1]
+
+
+def dense_split(eng) -> dict:
+    """Where a dense theta's time goes (CUDA events, ms a theta, warmed
+    up): one batch's histogram (ops/gkm.py:_counts_for_batch), its
+    products (count_gram_int32), one theta's product alone (the Welford
+    loop's unit) and one Welford step."""
+    from fastsk_tpu_torch.ops import gkm
+    from fastsk_tpu_torch.ops.combinatorics import enumerate_combinations
+
+    thetas = enumerate_combinations(eng.g, eng.k)[: eng.theta_batch]
+    batch = eng._batch(thetas)
+    kw = {key: v for key, v in eng._static_kwargs().items()
+          if key not in ("matmul_dtype", "count_split")}
+    gkm._counts_for_batch(eng._ids, eng._lengths, batch, **kw)
+    counts, hist_ms = cuda_ms(gkm._counts_for_batch, eng._ids, eng._lengths, batch, **kw)
+    counts = counts.to(eng.matmul_dtype)
+    gkm.count_gram_int32(counts, eng.count_split)
+    _, prod_ms = cuda_ms(gkm.count_gram_int32, counts, eng.count_split)
+    ks, one_ms = cuda_ms(gkm.gram, counts[0], counts[0])
+    t = len(thetas)
+    return dict(
+        thetas_timed=t, histogram_ms=hist_ms / t, products_ms=prod_ms / t,
+        product_one_theta_ms=one_ms, welford_ms=welford_ms(ks.to(torch.int32)),
+        matmul_dtype=str(eng.matmul_dtype), theta_batch=eng.theta_batch,
+        row_chunk=eng.row_chunk,
+    )
+
+
+def sorted_split(eng, n_thetas: int = 4) -> dict:
+    """Where a sorted pass's time goes (CUDA events, ms a pass, the mean
+    over the first ``n_thetas`` subsets after a warm-up pass): hash, sort
+    and run detection (ops/sorted_theta.py:_pass_phase1), then the slab
+    products (pass_products); one Welford step."""
+    from fastsk_tpu_torch.ops import sorted_theta
+    from fastsk_tpu_torch.ops.combinatorics import enumerate_combinations
+
+    st = eng._static_kwargs()
+    p1 = {key: st[key] for key in ("base", "code_min", "n", "dpw", "n_words")}
+    prod_kw = dict(n=eng.n, run_width=st["run_width"], slab=st["slab"],
+                   count_split=st["count_split"])
+    thetas = enumerate_combinations(eng.g, eng.k)
+    eng._pass(thetas[-1])
+    sort_ms, prod_ms, runs = [], [], []
+    for theta in thetas[:n_thetas]:
+        th = eng._thetas(theta)
+        phase1, ms = cuda_ms(sorted_theta._pass_phase1, eng._windows, eng._seq_of, th, **p1)
+        sort_ms.append(ms)
+        runs.append(int(phase1[2][-1]) + 1 if phase1[2].shape[0] else 0)
+        ks, ms = cuda_ms(sorted_theta.pass_products, *phase1, **prod_kw)
+        prod_ms.append(ms)
+    return dict(
+        passes_timed=n_thetas, sort_ms=float(np.mean(sort_ms)), products_ms=float(np.mean(prod_ms)),
+        multi_runs=runs, slabs=[-(-r // st["run_width"]) for r in runs],
+        windows=int(eng._windows.shape[0]), welford_ms=welford_ms(ks),
+    )
+
+
+def theta_dense_phase(dev, a_counts, Xtr, Xte) -> dict:
+    """Phase 5b: KAT2B (g=8, m=4) through exact_engine="theta", the dense
+    engine, device-resident: its counts integer-equal to kernel A's of
+    phase 5 (``a_counts``, on the card); kernel_s, ms a theta, peak memory
+    and the split of a theta's time."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.kernel.engine import DenseGkmEngine
+    from fastsk_tpu_torch.ops.combinatorics import nchoosek
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    fsk = FastSK(8, 4, config=KernelConfig(device=dev, exact_engine="theta", device_resident=True))
+    # the host's share of kernel_s: encoding and the engine's set-up
+    eng, setup_s = wall(lambda: fsk._make_exact_engine(encode_sequences(Xtr, Xte)))
+    require(isinstance(eng, DenseGkmEngine), f"exact_engine='theta' took {type(eng).__name__}")
+    (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, Xtr, Xte)
+    counts = fsk._counts_dev
+    equal = counts.hi is None and torch.equal(counts.counts, a_counts)
+    thetas = nchoosek(8, 4)
+    fields = dict(
+        dataset="KAT2B", g=8, m=4, n=eng.n, p_max=eng.p_max, buckets=eng.b_total,
+        thetas=thetas, kernel_s=kernel_s, ms_a_theta=kernel_s * 1e3 / thetas,
+        setup_s=setup_s, peak_mib=peak, counts_equal_kernel_a=equal, split=dense_split(eng),
+    )
+    emit("theta-dense", **fields)
+    require(equal, "the dense theta engine's KAT2B counts differ from kernel A's")
+    return fields
+
+
+def approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte, cpu_iters: int = 8) -> dict:
+    """Phase 5c: FastSK(8, 4, approx=True, delta=0.025, seed=0) on KAT2B,
+    device-resident, then fit (C-SVC, C=1, kernel B) and score("auc"): AUC
+    within 0.02 of the exact 0.904993. The card is held to the port on the
+    CPU: the first ``cpu_iters`` thetas with skip_variance, counts
+    integer-equal; the same Welford call, equal iterations and counts."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.kernel.engine import DenseGkmEngine
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+    from fastsk_tpu_torch.svm import smo_cuda
+
+    fsk = FastSK(8, 4, approx=True, delta=0.025, seed=0,
+                 config=KernelConfig(device=dev, device_resident=True))
+    (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, Xtr, Xte, Ytr, Yte)
+    smo_cuda.smo_solve.launches = 0
+    smo_cuda.smo_solve.problems = 0
+    _, fit_s = wall(fsk.fit, C=1.0)
+    auc, score_s = wall(fsk.score, "auc")
+    launches = dict(smo_solve=smo_cuda.smo_solve.launches, problems=smo_cuda.smo_solve.problems)
+    k_dev = fsk._K_dev
+    outputs_ok = (
+        tuple(k_dev.shape) == (len(Xtr) + len(Xte),) * 2 and bool(torch.isfinite(k_dev).all())
+        and float((torch.diagonal(k_dev) - 1).abs().max()) < 1e-6
+    )
+    enc = encode_sequences(Xtr, Xte)
+    card_sv = DenseGkmEngine(enc, 8, 4, KernelConfig(device=dev)).approx(
+        max_iters=cpu_iters, skip_variance=True, seed=0)
+    cpu_sv, cpu_sv_s = wall(DenseGkmEngine(enc, 8, 4, KernelConfig(device="cpu")).approx,
+                            max_iters=cpu_iters, skip_variance=True, seed=0)
+    sv_equal = bool(np.array_equal(card_sv.counts, cpu_sv.counts))
+    cpu_w, cpu_w_s = wall(DenseGkmEngine(enc, 8, 4, KernelConfig(device="cpu")).approx,
+                          conv_delta=0.025, seed=0)
+    w_equal = bool(np.array_equal(fsk.kernel_counts, cpu_w.counts))
+    sd_card = np.asarray(fsk.get_stdevs())
+    sd_rel = (float(np.max(np.abs(sd_card - cpu_w.stdevs) / np.abs(cpu_w.stdevs)))
+              if len(sd_card) == len(cpu_w.stdevs) else None)
+    fields = dict(
+        dataset="KAT2B", g=8, m=4, delta=0.025, seed=0, C=1.0, iterations=fsk.iterations,
+        kernel_s=kernel_s, ms_a_theta=kernel_s * 1e3 / max(fsk.iterations, 1), peak_mib=peak,
+        fit_s=fit_s, score_s=score_s, auc=auc, auc_exact=AUC_KAT2B,
+        last_sd=float(sd_card[-1]) if len(sd_card) else None, launches=launches,
+        outputs_ok=outputs_ok, cpu_skip_variance_iters=cpu_iters,
+        cpu_skip_variance_s=cpu_sv_s, skip_variance_counts_equal_cpu=sv_equal,
+        cpu_welford_s=cpu_w_s, cpu_welford_iterations=cpu_w.iters,
+        welford_counts_equal_cpu=w_equal, sd_max_rel_diff_cpu=sd_rel,
+    )
+    emit("approx-kat2b", **fields)
+    require(outputs_ok, "the approx KAT2B kernel is malformed")
+    require(launches == dict(smo_solve=2, problems=6),
+            f"the approx C-SVC fit did not launch kernel B twice for 6 problems: {launches}")
+    require(abs(auc - AUC_KAT2B) <= 0.02, f"approx KAT2B AUC {auc} is off the exact {AUC_KAT2B}")
+    require(sv_equal, "approx skip_variance counts differ between the card and the CPU")
+    require(cpu_w.iters == fsk.iterations,
+            f"Welford iterations: card {fsk.iterations}, CPU {cpu_w.iters}")
+    require(w_equal, "approx Welford counts differ between the card and the CPU")
+    return fields
+
+
+def approx_219_phase(dev, full=(2564, 16, 905), cpu_iters: int = 2) -> dict:
+    """Phase 17: the seeded 2.19 set (alphabet 24, g=8, m=4: 24^4 buckets
+    past b_max_dense, so the sorted engine runs) with approx=True (seed 0),
+    device-resident, then fit (C=0.01) and score: AUC >= 0.9 (the planted
+    motif's gate). Records iterations, kernel_s, the ms a pass and its
+    split (sort, then slab products). The card is held to the port on the
+    CPU over the stream's first ``cpu_iters`` passes at this size: the
+    skip_variance counts and a Welford call's counts integer-equal, its
+    iterations equal, and the sd traces (the main call's first passes
+    too) within rtol 1e-4."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.kernel.sorted_engine import SortedGkmEngine
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+    from fastsk_tpu_torch.svm import smo_cuda
+
+    _, _, r_tr, r_te, ry_tr, ry_te = slice_219(full)
+    fsk = FastSK(8, 4, approx=True, seed=0, config=KernelConfig(device=dev, device_resident=True))
+    eng, setup_s = wall(lambda: fsk._make_engine(encode_sequences(r_tr, r_te)))
+    require(isinstance(eng, SortedGkmEngine), f"approx at 2.19 took {type(eng).__name__}")
+    (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, r_tr, r_te, ry_tr, ry_te)
+    smo_cuda.smo_solve.launches = 0
+    smo_cuda.smo_solve.problems = 0
+    _, fit_s = wall(fsk.fit, C=0.01)
+    auc, score_s = wall(fsk.score, "auc")
+    launches = dict(smo_solve=smo_cuda.smo_solve.launches, problems=smo_cuda.smo_solve.problems)
+    k_dev = fsk._K_dev
+    outputs_ok = tuple(k_dev.shape) == (len(r_tr) + len(r_te),) * 2 and bool(torch.isfinite(k_dev).all())
+    enc = encode_sequences(r_tr, r_te)
+    card_eng = SortedGkmEngine(enc, 8, 4, KernelConfig(device=dev))
+    card_sv = card_eng.approx(max_iters=cpu_iters, skip_variance=True, seed=0)
+    card_w = card_eng.approx(max_iters=cpu_iters, seed=0)
+    cpu_w, cpu_s = wall(SortedGkmEngine(enc, 8, 4, KernelConfig(device="cpu")).approx,
+                        max_iters=cpu_iters, seed=0)
+    sv_equal = bool(np.array_equal(card_sv.counts, cpu_w.counts))
+    w_equal = card_w.iters == cpu_w.iters and bool(np.array_equal(card_w.counts, cpu_w.counts))
+    sd_cpu = np.asarray(cpu_w.stdevs)
+    sd_rel = max(
+        float(np.max(np.abs(np.asarray(sd)[: len(sd_cpu)] - sd_cpu) / sd_cpu))
+        for sd in (card_w.stdevs, fsk.get_stdevs())
+    )
+    fields = dict(
+        shape="2.19", g=8, m=4, C=0.01, seed=0, n=eng.n, buckets=eng.base**eng.k,
+        iterations=fsk.iterations, kernel_s=kernel_s,
+        ms_a_pass=kernel_s * 1e3 / max(fsk.iterations, 1), setup_s=setup_s, peak_mib=peak,
+        fit_s=fit_s,
+        score_s=score_s, auc=auc, launches=launches, outputs_ok=outputs_ok,
+        cpu_iters=cpu_iters, cpu_s=cpu_s, skip_variance_counts_equal_cpu=sv_equal,
+        welford_counts_iters_equal_cpu=w_equal, sd_max_rel_diff_cpu=sd_rel,
+        split=sorted_split(eng),
+    )
+    emit("approx-219", **fields)
+    require(outputs_ok, "the approx 2.19 kernel is malformed")
+    require(sv_equal, "approx 2.19 skip_variance counts differ between the card and the CPU")
+    require(w_equal, "approx 2.19 Welford counts or iterations differ between the card and the CPU")
+    require(sd_rel <= 1e-4, f"approx 2.19 sd trace off the CPU's by {sd_rel}")
+    require(launches == dict(smo_solve=2, problems=6),
+            f"the approx 2.19 fit did not launch kernel B twice for 6 problems: {launches}")
+    require(auc >= 0.9, f"approx 2.19 AUC {auc} < 0.9")
+    return fields
+
+
+def theta_sorted_phase(dev, medium=(400, 16, 905)) -> dict:
+    """Phase 18: phase 7's medium set (g=8, m=4, alphabet 24) through
+    exact_engine="theta", the sorted engine, device-resident: counts
+    integer-equal to kernel D's (exact_engine="packed", one launch)."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.kernel.sorted_engine import SortedGkmEngine
+    from fastsk_tpu_torch.ops import pairs_packed_cuda
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    X = ragged_set(4, *medium)[0]
+    pairs_packed_cuda.packed_band.launches = 0
+    dfsk = FastSK(8, 4, config=KernelConfig(device=dev, exact_engine="packed"))
+    _, d_kernel_s = wall(dfsk.compute_train, X)
+    d_launches = pairs_packed_cuda.packed_band.launches
+    tfsk = FastSK(8, 4, config=KernelConfig(device=dev, exact_engine="theta", device_resident=True))
+    eng, setup_s = wall(lambda: tfsk._make_exact_engine(encode_sequences(X)))
+    require(isinstance(eng, SortedGkmEngine), f"exact_engine='theta' took {type(eng).__name__}")
+    (_, kernel_s), peak = peak_mib(wall, tfsk.compute_train, X)
+    equal = bool(np.array_equal(tfsk.kernel_counts, dfsk.kernel_counts))
+    fields = dict(
+        shape="medium", sequences=medium[0], g=8, m=4, p_max=eng.p_max, kernel_s=kernel_s,
+        ms_a_pass=kernel_s * 1e3 / 70, setup_s=setup_s, peak_mib=peak, d_kernel_s=d_kernel_s,
+        d_launches=d_launches, counts_equal_kernel_d=equal, split=sorted_split(eng),
+    )
+    emit("theta-sorted-exact", **fields)
+    require(d_launches == 1, f"kernel D launched {d_launches} times, not once")
+    require(equal, "the sorted theta engine's counts differ from kernel D's")
+    return fields
 
 
 def band_depth_sweep(dev, medium=(400, 16, 905), alphas=(8, 16, 24, 40, 56, 72, 88),
@@ -1172,13 +1452,23 @@ def cli_phase(tmpdir: str, device: str = "cuda", prefix: str = EP300) -> dict:
                "--test-file", te)
     line = [ln for ln in pred.stderr.splitlines() if ln.startswith("Accuracy = ")][-1]
     pred_acc = float(line.split()[2].rstrip("%"))
+    # approx mode (the dense theta engine, seed 0); its stderr line names
+    # the iterations
+    t0 = time.perf_counter()
+    proc = run("fastsk_tpu_torch.cli", *[a for a in base if a != "-q"], "-a", "--seed", "0", tr, te)
+    approx_s = time.perf_counter() - t0
+    approx = json.loads(proc.stdout.splitlines()[-1])
+    approx["iterations"] = int(proc.stderr.split("iters=")[-1].split(",")[0])
     fields = dict(
         dataset="EP300", g=10, m=4, c_svc=c_svc, c_svc_wall_s=c_svc_s,
         auc_anchor=EP300_ANCHOR, nu_svc=nu, predict_cli_accuracy=pred_acc,
+        approx=approx, approx_wall_s=approx_s, auc_exact=c_svc["auc"],
     )
     emit("cli", **fields)
     require(abs(c_svc["auc"] - EP300_ANCHOR) <= 0.005,
             f"CLI AUC {c_svc['auc']} is off the anchor {EP300_ANCHOR}")
+    require(abs(approx["auc"] - c_svc["auc"]) <= 0.02,
+            f"CLI approx AUC {approx['auc']} is off the exact run's {c_svc['auc']}")
     require(abs(pred_acc - nu["accuracy"]) <= 0.05,
             f"predict_cli accuracy {pred_acc} vs the CLI's {nu['accuracy']}")
     return fields
@@ -1712,6 +2002,15 @@ def main() -> None:
     require(abs(auc - AUC_ANCHOR) <= 0.005, f"AUC {auc} is off the anchor {AUC_ANCHOR}")
     require(round(auc, 6) == AUC_KAT2B, f"AUC {auc} moved from {AUC_KAT2B} (the same trajectories)")
 
+    # ------------------------------- the dense theta engine and approx mode
+    a_counts = fsk._counts_dev.counts
+    del fsk, k_dev
+    torch.cuda.empty_cache()
+    theta_dense_phase(dev, a_counts, Xtr, Xte)
+    del a_counts
+    approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------ golden
     golden = load_tri(os.path.join(GOLDEN, "ep_sl_g6m2.txt"))
     reader = FastaUtility()
@@ -1749,6 +2048,11 @@ def main() -> None:
     mesh = mesh_phase(dev)
     probe = probe_phase(probe_cases)
     del probe_cases
+    torch.cuda.empty_cache()
+
+    # ------------------------------- the sorted theta engine, approx and exact
+    approx_219_phase(dev)
+    theta_sorted_phase(dev)
 
     record = {
         "kernels": [

@@ -1,20 +1,20 @@
-"""User-facing FastSK model class — the exact-kernel path.
+"""User-facing FastSK model class.
 
 Counterpart of ``fastsk_tpu/api.py:FastSK``, with the same signature and
-methods for exact mode: ``compute_kernel / compute_train / kernel /
-kernel_counts / get_train_kernel / get_test_kernel / get_stdevs /
-iterations / save_kernel / fit / score / score_report /
-save_predictions``. The kernel comes from the sequence-aligned or the
-packed (ragged) all-pairs engine, chosen as the JAX package chooses, and
-the SVM is any of the LIBSVM family (``svm_type`` c_svc, nu_svc,
-one_class, epsilon_svr, nu_svr; multiclass labels train one-vs-one), all
-on ``KernelConfig.device``. Under ``KernelConfig.mesh`` the packed engine
+methods: ``compute_kernel / compute_train / kernel / kernel_counts /
+get_train_kernel / get_test_kernel / get_stdevs / iterations /
+save_kernel / fit / score / score_report / save_predictions``. The exact
+kernel comes from the sequence-aligned or the packed (ragged) all-pairs
+engine, or the theta engine as the last fallback, chosen as the JAX
+package chooses; approx mode (``approx=True``, deterministic given
+``seed``) and ``exact_engine="theta"`` run the dense theta engine when
+``hash_base**k <= b_max_dense`` and the sorted one otherwise. The SVM is
+any of the LIBSVM family (``svm_type`` c_svc, nu_svc, one_class,
+epsilon_svr, nu_svr; multiclass labels train one-vs-one), all on
+``KernelConfig.device``. Under ``KernelConfig.mesh`` the packed engine
 computes the kernel over the mesh's devices, and the fit runs on
-``KernelConfig.device``.
-
-Not ported yet, and refused with ``NotImplementedError`` rather than run
-another way: approx mode (ROADMAP.md slice 3) and the theta exact engine
-(slice 3).
+``KernelConfig.device``; the theta engines refuse a mesh
+(``NotImplementedError``, ROADMAP.md slice 3c).
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from .kernel.config import KernelConfig
-from .kernel.engine import cosine_normalize
+from .kernel.engine import ApproxResult, DenseGkmEngine, cosine_normalize
+from .kernel.sorted_engine import SortedGkmEngine
 from .ops.encode import EncodedSeqs, encode_sequences, validate_g
 from .ops.pairs import full_f32_matmul
 
@@ -43,15 +44,11 @@ class FastSK:
         seed: int = 0,
         config: Optional[KernelConfig] = None,
     ):
-        if approx:
-            raise NotImplementedError(
-                "approx=True is not ported yet: ROADMAP.md slice 3 (approx mode)"
-            )
         self.g = int(g)
         self.m = int(m)
         self.k = self.g - self.m
         self.t = t  # accepted for API parity with the reference
-        self.approx = False
+        self.approx = bool(approx)
         self.delta = float(delta)
         self.max_iters = int(max_iters)
         self.skip_variance = bool(skip_variance)
@@ -72,19 +69,23 @@ class FastSK:
 
     # ------------------------------------------------------------ kernel
 
+    def _make_engine(self, enc: EncodedSeqs):
+        """The theta engine: dense while ``hash_base**k`` buckets fit
+        ``b_max_dense``, sorted beyond."""
+        if enc.hash_base**self.k <= self.config.b_max_dense:
+            return DenseGkmEngine(enc, self.g, self.m, self.config)
+        return SortedGkmEngine(enc, self.g, self.m, self.config)
+
     def _make_exact_engine(self, enc: EncodedSeqs):
         """The JAX package's choice: the sequence-aligned engine when
         lengths are near-uniform, the packed one on ragged data (padding
         waste > 1.5) or when the sequence-aligned engine refuses the
-        shape; the theta engine, the last fallback, raises."""
+        shape; the theta engine when forced or as the last fallback."""
         from .kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
 
         choice = self.config.exact_engine
         if choice == "theta":
-            raise NotImplementedError(
-                "exact_engine='theta' is not ported yet: ROADMAP.md slice 3 "
-                "(theta engines)"
-            )
+            return self._make_engine(enc)
         if choice == "packed":
             return PackedPairsEngine(enc, self.g, self.m, self.config)
         windows = enc.num_windows(self.g)
@@ -95,26 +96,38 @@ class FastSK:
             if choice == "auto" and waste > 1.5:
                 return PackedPairsEngine(enc, self.g, self.m, self.config)
             return PairsGkmEngine(enc, self.g, self.m, self.config)
-        except ValueError as exc:
+        except ValueError:
             if choice == "pairs":
                 raise
             try:
                 return PackedPairsEngine(enc, self.g, self.m, self.config)
-            except ValueError as packed_exc:
-                raise NotImplementedError(
-                    f"{exc}; {packed_exc}; the theta engine that takes such "
-                    "shapes is not ported yet: ROADMAP.md slice 3"
-                ) from packed_exc
+            except ValueError:
+                pass
+            return self._make_engine(enc)
 
     def _compute(self, enc: EncodedSeqs) -> None:
         validate_g(enc, self.g, self.m)
-        engine = self._make_exact_engine(enc)
+        engine = self._make_engine(enc) if self.approx else self._make_exact_engine(enc)
         self._counts_dev = None
         self._K_dev = None
         # under a mesh the packed engine accumulates to the host, as in the
         # JAX package: device_resident is ignored there
         use_dev = self.config.device_resident and self.config.mesh is None
-        counts = engine.exact_device() if use_dev else engine.exact()
+        if self.approx:
+            res: ApproxResult = engine.approx(
+                conv_delta=self.delta,
+                max_iters=self.max_iters,
+                skip_variance=self.skip_variance,
+                seed=self.seed,
+                device_out=use_dev,
+            )
+            self._stdevs = res.stdevs
+            self._iters = res.iters
+            counts = res.counts
+        else:
+            counts = engine.exact_device() if use_dev else engine.exact()
+            self._iters = 0
+            self._stdevs = []
         if isinstance(counts, np.ndarray):
             # host path, or counts past int32 from the packed engine
             self._counts = counts

@@ -6,15 +6,14 @@ flags plus ``--device``:
     fastsk-torch -g 10 -m 6 -C 1 train.fasta test.fasta [dictionary.txt]
     python -m fastsk_tpu_torch.cli -g 10 -m 4 --json train.fasta test.fasta
 
-It runs the exact kernel and any SVM type of the LIBSVM family on
-``--device``: the card by default, the CPU only with ``--device cpu``
-(without a card and without that flag it exits with an error). The
-flags that only unported slices read raise ``NotImplementedError`` when
-set, instead of being ignored: ``-a`` /
-``--approx``, ``-I``, ``--delta``, ``--skip-variance`` and ``--seed``
-(approx mode, ROADMAP.md slice 3), ``--checkpoint`` and
-``--checkpoint-every`` (slice 5). ``-t`` is accepted and ignored, as in
-the JAX CLI.
+It runs the exact kernel, or approx mode (``-a``; ``-I``, ``--delta``,
+``--skip-variance`` and ``--seed`` as in the JAX CLI), and any SVM type of
+the LIBSVM family on ``--device``: the card by default, the CPU only with
+``--device cpu`` (without a card and without that flag it exits with an
+error). ``--checkpoint`` and ``--checkpoint-every``, which only the
+unported checkpoint slice reads (ROADMAP.md slice 5), raise
+``NotImplementedError`` when set instead of being ignored. ``-t`` is
+accepted and ignored, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -43,17 +42,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-s", "--svm-type", default="c_svc",
                     choices=["c_svc", "nu_svc", "one_class", "epsilon_svr", "nu_svr"],
                     help="SVM solver type (LIBSVM -s)")
-    unported = " (approx mode is not ported yet: raises if set, ROADMAP.md slice 3)"
     ap.add_argument("-I", "--max-iters", type=int, default=-1,
-                    help="max Monte-Carlo iterations in approx mode" + unported)
+                    help="max Monte-Carlo iterations in approx mode")
     ap.add_argument("-a", "--approx", action="store_true",
-                    help="Monte-Carlo approximation" + unported)
-    ap.add_argument("--delta", type=float, default=0.025,
-                    help="approx convergence delta" + unported)
+                    help="Monte-Carlo approximation with convergence stopping")
+    ap.add_argument("--delta", type=float, default=0.025, help="approx convergence delta")
     ap.add_argument("--skip-variance", action="store_true",
-                    help="approx without variance tracking" + unported)
+                    help="approx without variance tracking (exactly max-iters samples)")
     ap.add_argument("-q", "--quiet", action="store_true")
-    ap.add_argument("--seed", type=int, default=0, help="approx sampling seed" + unported)
+    ap.add_argument("--seed", type=int, default=0, help="approx sampling seed (deterministic)")
     ap.add_argument("--metric", default="both", choices=["auc", "accuracy", "both"])
     ap.add_argument("--save-kernel", metavar="PATH",
                     help="write the normalized kernel in the reference text format "
@@ -89,11 +86,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flags of the JAX CLI that only the unported slices read: setting one
 # raises rather than being ignored
 UNPORTED = {
-    "approx": ("-a/--approx", "slice 3 (approx mode)"),
-    "max_iters": ("-I/--max-iters", "slice 3 (approx mode)"),
-    "delta": ("--delta", "slice 3 (approx mode)"),
-    "skip_variance": ("--skip-variance", "slice 3 (approx mode)"),
-    "seed": ("--seed", "slice 3 (approx mode)"),
     "checkpoint": ("--checkpoint", "slice 5 (checkpoint/resume)"),
     "checkpoint_every": ("--checkpoint-every", "slice 5 (checkpoint/resume)"),
 }
@@ -129,7 +121,17 @@ def main(argv=None) -> int:
               "(drop --no-svm)", file=sys.stderr)
         return 2
     config = KernelConfig(device=device, device_resident=args.device_resident)
-    fsk = FastSK(g=args.g, m=args.m, t=args.t, config=config)
+    fsk = FastSK(
+        g=args.g,
+        m=args.m,
+        t=args.t,
+        approx=args.approx,
+        delta=args.delta,
+        max_iters=args.max_iters,
+        skip_variance=args.skip_variance,
+        seed=args.seed,
+        config=config,
+    )
 
     t0 = time.time()
     if Xtest:

@@ -1,8 +1,9 @@
 """Configuration for the gapped k-mer kernel engine.
 
-Counterpart of ``fastsk_tpu/kernel/config.py``, cut to the knobs the exact
-path of this port reads. The TPU budgets, checkpointing and the
-approx-mode knobs belong to slices that are not ported yet (ROADMAP.md).
+Counterpart of ``fastsk_tpu/kernel/config.py``: the knobs of the exact
+engines, of the two theta engines (dense and sorted) and of approx mode,
+with the JAX package's defaults. Checkpointing, the profiler and the TPU
+compile cache belong to slices that are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,17 +18,37 @@ from ..parallel.sharding import Mesh
 
 @dataclass
 class KernelConfig:
-    """Knobs of the exact-kernel path."""
+    """Knobs of the kernel engines."""
 
     # Device the kernel, the Gram and the SVM solves run on. On a CUDA
     # device every kernel launch goes through the hand-written kernels; on
     # the CPU their plain PyTorch versions run instead.
     device: Union[str, torch.device] = "cuda"
 
+    # Largest dense bucket space B = hash_base**k that the dense theta
+    # engine histograms; beyond it the sorted engine takes over.
+    b_max_dense: int = 1 << 17
+
+    # Device-memory budget (bytes) of one theta batch's count tensor
+    # C [T, N, B]; it sets the dense engine's theta batch.
+    counts_budget_bytes: int = 2 << 30
+
+    # Device-memory budget (bytes) of one row chunk's hash and scatter-index
+    # tensors (ops/gkm.py:HASH_BYTES a window and theta); it sets the dense
+    # engine's row chunk.
+    hash_budget_bytes: int = 1 << 30
+
+    # Upper bound on thetas a batch.
+    max_theta_batch: int = 64
+
+    # Fixed overrides of the two sizes above (None = auto).
+    theta_batch: Optional[int] = None
+    row_chunk: Optional[int] = None
+
     # Exact-mode engine: "pairs" is the sequence-aligned all-pairs engine,
-    # "packed" the ragged one (kernel/pairs_engine.py); "auto" picks as the
-    # JAX package does (api.py:_make_exact_engine). "theta" is an accepted
-    # name whose engine is not ported yet; it raises.
+    # "packed" the ragged one (kernel/pairs_engine.py), "theta" the dense
+    # or sorted theta engine by bucket space; "auto" picks as the JAX
+    # package does (api.py:_make_exact_engine).
     exact_engine: str = "auto"
 
     # Packed-engine route: "auto" and "pallas" take kernel D (the band
@@ -36,6 +57,13 @@ class KernelConfig:
     # JAX package's "xla" and "*_interpret" are refused: on a card they
     # would put the plain version on the main path.
     pairs_backend: str = "auto"
+
+    # Sorted engine: pairs a scatter chunk of one slab's count matrix.
+    sorted_slab: int = 8192
+
+    # Sorted engine: runs a slab (the width of its run-aligned count
+    # matrix).
+    sorted_run_width: int = 2048
 
     # Keep the counts on the device (kernel/device_counts.py): normalize,
     # Gram, SMO and decision values then run there and only O(n) results

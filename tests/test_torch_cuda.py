@@ -1,6 +1,7 @@
 """Kernels A to H against their plain PyTorch versions, on the card
 (kernel A with both of its bodies, D to G's one kernel at every code
-width, E in both landings, kernel C at every cluster size).
+width, E in both landings, kernel C at every cluster size), and the theta
+engines' card path (bf16 products with f32 outputs) against the CPU's.
 
 Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
@@ -18,6 +19,8 @@ import torch
 
 from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
 from fastsk_tpu_torch.kernel.config import KernelConfig
+from fastsk_tpu_torch.kernel.engine import DenseGkmEngine
+from fastsk_tpu_torch.kernel.sorted_engine import SortedGkmEngine
 from fastsk_tpu_torch.ops import pairs, pairs_cuda, pairs_packed, pairs_packed_cuda
 from fastsk_tpu_torch.ops.encode import encode_sequences
 from fastsk_tpu_torch.parallel import make_mesh
@@ -694,3 +697,25 @@ def test_kernel_h_variants_match_plain(cuda, g, m, alpha, n, length):
             else pairs.pairs_probe_plain(x, k=g - m, p_pad=eng.p_pad, variant=variant, tile=tile)
         )
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("engine,alpha", [(DenseGkmEngine, 4), (SortedGkmEngine, 24)])
+def test_theta_engines_on_the_card_match_the_cpu(cuda, engine, alpha):
+    """The theta engines take bf16 products with f32 outputs only on the
+    card (the CPU takes f32): exact counts equal the oracle's, in both
+    accumulations; approx mode's iterations and counts equal the CPU run's
+    and its sd trace is within rtol 1e-4 (f32 sums in another order)."""
+    rng = np.random.default_rng(alpha)
+    X = [rng.integers(1, alpha + 1, size=rng.integers(20, 121)).tolist() for _ in range(40)]
+    enc = encode_sequences(X)
+    card = engine(enc, 8, 4, KernelConfig(device=cuda))
+    cpu = engine(enc, 8, 4, KernelConfig(device="cpu"))
+    if engine is DenseGkmEngine:
+        assert card.matmul_dtype == torch.bfloat16
+    want = oracle.exact_counts(X, 8, 4)
+    np.testing.assert_array_equal(card.exact(), want)
+    np.testing.assert_array_equal(card.exact_device().to_host_int64(), want)
+    got, ref = card.approx(conv_delta=0.1, seed=1), cpu.approx(conv_delta=0.1, seed=1)
+    assert got.iters == ref.iters and got.converged == ref.converged
+    np.testing.assert_array_equal(got.counts, ref.counts)
+    np.testing.assert_allclose(got.stdevs, ref.stdevs, rtol=1e-4)

@@ -119,19 +119,32 @@ def test_compute_train_matches_jax():
 
 
 def test_unported_routes_raise():
-    """The routes of later slices raise; the packed routes and the nu-SVC
-    fit that this test once refused now run (packed, ragged auto,
-    pallas_grouped; svm_type="nu_svc")."""
+    """The routes of later slices raise: the theta engines under a mesh
+    (slice 3c). The routes this test once refused now run: approx mode and
+    exact_engine="theta" (slice 3), the packed routes (packed, ragged auto,
+    pallas_grouped) and the nu-SVC fit."""
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
     from fastsk_tpu_torch.ops.encode import encode_sequences
+    from fastsk_tpu_torch.parallel import make_mesh
 
     Xtr, Xte, ytr, yte = _seeded_dna()
     cpu = dict(device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        T.FastSK(6, 2, approx=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        T.FastSK(6, 2, config=T.KernelConfig(exact_engine="theta", **cpu)).compute_kernel(Xtr, Xte)
     want = oracle.exact_counts(Xtr + Xte, 6, 2)
+    approx = T.FastSK(6, 2, approx=True, config=T.KernelConfig(**cpu))
+    approx.compute_kernel(Xtr, Xte)
+    j = J.FastSK(6, 2, approx=True)
+    j.compute_kernel(Xtr, Xte)
+    assert approx.iterations == j.iterations > 0
+    np.testing.assert_array_equal(approx.kernel_counts, j.kernel_counts)
+    theta = T.FastSK(6, 2, config=T.KernelConfig(exact_engine="theta", **cpu))
+    theta.compute_kernel(Xtr, Xte)
+    np.testing.assert_array_equal(theta.kernel_counts, want)
+    mesh = make_mesh(1, 2, devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="slice 3c"):
+        T.FastSK(6, 2, config=T.KernelConfig(exact_engine="theta", mesh=mesh, **cpu)
+                 ).compute_kernel(Xtr, Xte)
+    with pytest.raises(NotImplementedError, match="slice 3c"):
+        T.FastSK(6, 2, approx=True, config=T.KernelConfig(mesh=mesh, **cpu)).compute_kernel(Xtr, Xte)
     for backend in ("auto", "pallas_grouped"):
         packed = T.FastSK(
             6, 2, config=T.KernelConfig(exact_engine="packed", pairs_backend=backend, **cpu)
@@ -153,10 +166,14 @@ def test_unported_routes_raise():
 
 
 def test_import_leaves_jax_out():
-    """The package and its two command-line modules load no jax."""
+    """The package, its two command-line modules and the theta engines'
+    modules load no jax."""
     code = (
         "import sys, fastsk_tpu_torch, fastsk_tpu_torch.cli, "
-        "fastsk_tpu_torch.predict_cli; print('jax' in sys.modules)"
+        "fastsk_tpu_torch.predict_cli, fastsk_tpu_torch.ops.combinatorics, "
+        "fastsk_tpu_torch.ops.gkm, fastsk_tpu_torch.ops.sorted_theta, "
+        "fastsk_tpu_torch.kernel.engine, fastsk_tpu_torch.kernel.sorted_engine; "
+        "print('jax' in sys.modules or 'fastsk_tpu' in sys.modules)"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

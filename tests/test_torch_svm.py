@@ -524,10 +524,17 @@ def test_cli_model_file_and_predict_cli(rng, tmp_path, capsys):
     assert abs(float(line.split()[2].rstrip("%")) - acc) <= 1e-4
 
 
-def test_cli_unported_flags_raise(tmp_path, rng):
+def test_cli_unported_flags_raise(tmp_path, rng, capsys):
+    """``--checkpoint`` (slice 5) still raises; ``-a`` (slice 3, ported)
+    runs approx mode and gives the JAX CLI's JSON."""
     tr = _labelled_fasta(tmp_path / "tr.fasta", rng, 10)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tcli.main(["-g", "5", "-m", "2", "-a", tr])
+    te = _labelled_fasta(tmp_path / "te.fasta", rng, 8)
+    args = ["-g", "5", "-m", "2", "-a", "--json", "-q", tr, te]
+    assert jcli.main(args) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert tcli.main(["--device", "cpu", *args]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert abs(got["auc"] - want["auc"]) <= 1e-6
     with pytest.raises(NotImplementedError, match="slice 5"):
         tcli.main(["-g", "5", "-m", "2", "--checkpoint", str(tmp_path / "ck"), tr])
     assert "the CPU runs only with --device cpu" in " ".join(tcli.build_parser().format_help().split())
@@ -543,12 +550,23 @@ def test_cli_unported_flags_raise(tmp_path, rng):
         (["--checkpoint-every", "64"], "slice 5"),
     ],
 )
-def test_cli_unported_options_raise_when_set(tmp_path, rng, flag, slice_):
-    """Options the JAX CLI reads only in approx mode or for checkpoints
-    refuse a non-default value instead of being ignored."""
+def test_cli_unported_options_raise_when_set(tmp_path, rng, capsys, flag, slice_):
+    """The checkpoint options (slice 5, not ported) refuse a non-default
+    value instead of being ignored; the approx options (slice 3, ported)
+    reach FastSK with ``-a`` and give the JAX CLI's kernel."""
     tr = _labelled_fasta(tmp_path / "tr.fasta", rng, 10)
-    with pytest.raises(NotImplementedError, match=slice_):
-        tcli.main(["-g", "5", "-m", "2", "--device", "cpu", *flag, tr])
+    if slice_ == "slice 5":
+        with pytest.raises(NotImplementedError, match=slice_):
+            tcli.main(["-g", "5", "-m", "2", "--device", "cpu", *flag, tr])
+        return
+    extra = ["-I", "4"] if flag == ["--skip-variance"] else []
+    args = ["-g", "5", "-m", "2", "-a", "-q", "--no-svm", *extra, *flag]
+    kernels = []
+    for cli, dev in ((jcli, []), (tcli, ["--device", "cpu"])):
+        out = str(tmp_path / f"{cli.__name__}.npy")
+        assert cli.main([*dev, *args, "--save-kernel", out, tr]) == 0
+        kernels.append(np.load(out))
+    np.testing.assert_array_equal(kernels[1], kernels[0])
 
 
 def test_cli_without_a_card_needs_device_cpu(tmp_path, rng, capsys, monkeypatch):
