@@ -159,6 +159,29 @@ raises and the exit code is non-zero:
           exact_engine="theta" (the sorted engine): counts
           integer-equal to kernel D's (one launch); kernel_s, ms a pass,
           peak memory and its split.
+19. theta-mesh  KAT2B (g=8, m=4, not cut) through exact_engine="theta"
+          (the dense engine) on make_mesh(1, 1), (2, 2) and (4, 1) over
+          the card named k times: counts integer-equal to phase 5's kernel
+          A counts; device_resident on (2, 2) -> fit (C=1) -> score: AUC
+          0.904993 exactly; approx (delta=0.025, seed=0) on (4, 1) and
+          (2, 2): phase 5c's 70 iterations and counts, its sd trace within
+          rtol 1e-4. kernel_s, peak memory and the state of each entry.
+          Run after phase 5c, on its counts.
+20. sorted-mesh  phase 8's 2.19 set (alphabet 24, g=8, m=4) through
+          exact_engine="theta" (the sorted engine) on make_mesh(2, 2),
+          mesh_state "sharded" (row strips) and "replicated" (replicas):
+          counts integer-equal to kernel D's; kernel_s and each entry's
+          state. Run after phase 18.
+21. checkpoint  KAT2B exact_engine="theta", checkpoints every 16 thetas in
+          batches of 8, interrupted after the 5th batch, then resumed:
+          counts equal to kernel A's; the same device-resident, in approx
+          mode (70 iterations, 5c's counts) and on make_mesh(2, 2) (steps
+          of 8 thetas). Each save's seconds, the resumed kernel_s.
+22. multi-process  two processes on the card joined over gloo
+          (parallel/multihost.py; nccl refuses two ranks on one card),
+          global_mesh(rows=2, theta=1): KAT2B exact theta counts equal to
+          phase 5's; a device-resident fit and score gives 0.904993 on
+          both ranks; each process within a timeout; the two-process wall.
 
 The last three lines are the card's name and power limit (nvidia-smi),
 the per-kernel JSON record (every kernel's launches on its path, error
@@ -697,7 +720,7 @@ def approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte, cpu_iters: int = 8) -> dict:
     require(cpu_w.iters == fsk.iterations,
             f"Welford iterations: card {fsk.iterations}, CPU {cpu_w.iters}")
     require(w_equal, "approx Welford counts differ between the card and the CPU")
-    return fields
+    return fields, (fsk.kernel_counts, fsk.iterations, sd_card)
 
 
 def approx_219_phase(dev, full=(2564, 16, 905), cpu_iters: int = 2) -> dict:
@@ -789,6 +812,300 @@ def theta_sorted_phase(dev, medium=(400, 16, 905)) -> dict:
     require(d_launches == 1, f"kernel D launched {d_launches} times, not once")
     require(equal, "the sorted theta engine's counts differ from kernel D's")
     return fields
+
+
+def card_mesh(n_rows: int, n_theta: int):
+    """A (rows, theta) mesh over the one card, named n_rows * n_theta times."""
+    from fastsk_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n_rows, n_theta, devices=["cuda:0"] * (n_rows * n_theta))
+
+
+def theta_mesh_phase(dev, a_counts, Xtr, Xte, Ytr, Yte, approx_ref) -> dict:
+    """Phase 19: KAT2B (g=8, m=4) through exact_engine="theta" (the dense
+    engine) on make_mesh(1, 1), (2, 2) and (4, 1) over the card: counts
+    integer-equal to kernel A's of phase 5 (``a_counts``); then
+    device_resident on (2, 2) -> fit (C=1) -> score: AUC exactly
+    AUC_KAT2B; then approx (delta=0.025, seed=0) on (4, 1) and (2, 2):
+    phase 5c's iterations and counts, its sd trace within rtol 1e-4
+    (``approx_ref``: counts, iterations, sd trace)."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.kernel.engine import DenseGkmEngine
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    enc = encode_sequences(Xtr, Xte)
+    want = a_counts.cpu().numpy()
+    runs, ok = {}, True
+    for shape in ((1, 1), (2, 2), (4, 1)):
+        cfg = KernelConfig(device=dev, exact_engine="theta", mesh=card_mesh(*shape))
+        fsk = FastSK(8, 4, config=cfg)
+        eng = fsk._make_exact_engine(enc)
+        require(isinstance(eng, DenseGkmEngine), f"a theta mesh took {type(eng).__name__}")
+        (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, Xtr, Xte)
+        equal = bool(np.array_equal(fsk.kernel_counts, want))
+        ok &= equal
+        runs[f"exact_{shape[0]}x{shape[1]}"] = dict(
+            kernel_s=kernel_s, peak_mib=peak, counts_equal_kernel_a=equal,
+            n_padded=eng.n_padded, state_per_row_block=[eng.n_padded // shape[0], eng.n_padded],
+            step_thetas=eng._sharded_batch_sz(shape[1]),
+        )
+        del fsk, eng
+        torch.cuda.empty_cache()
+    fsk = FastSK(8, 4, config=KernelConfig(device=dev, exact_engine="theta",
+                                            device_resident=True, mesh=card_mesh(2, 2)))
+    (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, Xtr, Xte, Ytr, Yte)
+    resident = fsk._counts_dev is not None
+    dev_equal = resident and fsk._counts_dev.hi is None and torch.equal(fsk._counts_dev.counts, a_counts)
+    _, fit_s = wall(fsk.fit, C=1.0)
+    auc, score_s = wall(fsk.score, "auc")
+    runs["device_resident_2x2"] = dict(kernel_s=kernel_s, peak_mib=peak, resident=resident,
+                                       counts_equal_kernel_a=bool(dev_equal), fit_s=fit_s,
+                                       score_s=score_s, auc=auc)
+    del fsk
+    torch.cuda.empty_cache()
+    ref_counts, ref_iters, ref_sd = approx_ref
+    for shape in ((4, 1), (2, 2)):
+        fsk = FastSK(8, 4, approx=True, delta=0.025, seed=0,
+                     config=KernelConfig(device=dev, mesh=card_mesh(*shape)))
+        (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, Xtr, Xte)
+        sd = np.asarray(fsk.get_stdevs())
+        sd_rel = (float(np.max(np.abs(sd - ref_sd) / np.abs(ref_sd)))
+                  if len(sd) == len(ref_sd) else None)
+        runs[f"approx_{shape[0]}x{shape[1]}"] = dict(
+            kernel_s=kernel_s, peak_mib=peak, iterations=fsk.iterations,
+            counts_equal_5c=bool(np.array_equal(fsk.kernel_counts, ref_counts)),
+            sd_max_rel_diff_5c=sd_rel,
+        )
+        del fsk
+        torch.cuda.empty_cache()
+    emit("theta-mesh", dataset="KAT2B", g=8, m=4, devices="cuda:0 named k times", **runs)
+    require(ok, "a theta mesh's KAT2B counts differ from kernel A's")
+    require(resident and dev_equal, "the device-resident 2x2 mesh run's counts differ from kernel A's")
+    require(round(auc, 6) == AUC_KAT2B, f"the 2x2 mesh AUC {auc} is not {AUC_KAT2B}")
+    for shape in ("4x1", "2x2"):
+        r = runs[f"approx_{shape}"]
+        require(r["iterations"] == ref_iters == 70 and r["counts_equal_5c"],
+                f"approx on a {shape} mesh: {r['iterations']} iterations or counts off phase 5c's")
+        require(r["sd_max_rel_diff_5c"] is not None and r["sd_max_rel_diff_5c"] <= 1e-4,
+                f"approx on a {shape} mesh: sd trace off phase 5c's by {r['sd_max_rel_diff_5c']}")
+    return runs
+
+
+def checkpoint_phase(dev, a_counts, Xtr, Xte, approx_ref) -> dict:
+    """Phase 21: KAT2B exact_engine="theta" with checkpoints every 16
+    thetas in batches of 8, interrupted after the 5th batch (its update
+    raises, as tests/test_cli_persistence.py does), then resumed: counts
+    equal to kernel A's. The same device-resident, in approx mode (70
+    iterations, phase 5c's counts) and on make_mesh(2, 2) (steps of 8
+    thetas, 4 a theta entry). Each save's seconds and the resumed run's
+    kernel_s."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.ops import gkm
+    from fastsk_tpu_torch.parallel import sharding as shd
+    from fastsk_tpu_torch.utils.checkpoint import KernelCheckpoint
+
+    class Stop(Exception):
+        pass
+
+    saves = []
+    save = KernelCheckpoint.save
+
+    def timed_save(self, **arrays):
+        t0 = time.perf_counter()
+        save(self, **arrays)
+        saves.append(time.perf_counter() - t0)
+
+    want = a_counts.cpu().numpy()
+    cases = {
+        "exact": ({}, dict(exact_engine="theta", theta_batch=8), gkm, "exact_batch_update"),
+        "device_resident": ({}, dict(exact_engine="theta", theta_batch=8, device_resident=True),
+                            gkm, "exact_batch_update"),
+        "approx": (dict(approx=True, delta=0.025, seed=0), dict(theta_batch=8),
+                   gkm, "approx_batch_update"),
+        "mesh_2x2": ({}, dict(exact_engine="theta", theta_batch=4, mesh=card_mesh(2, 2)),
+                     shd, "exact_batch_update_sharded"),
+    }
+    out = {}
+    KernelCheckpoint.save = timed_save
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmpdir:
+            for name, (model_kw, cfg_kw, module, fn) in cases.items():
+                ck = os.path.join(tmpdir, f"{name}.npz")
+                cfg = KernelConfig(device=dev, checkpoint_path=ck, checkpoint_every=16, **cfg_kw)
+                orig, calls = getattr(module, fn), []
+
+                def stopping(*a, **kw):
+                    calls.append(1)
+                    if len(calls) > 5:
+                        raise Stop()
+                    return orig(*a, **kw)
+
+                saves.clear()
+                setattr(module, fn, stopping)
+                try:
+                    FastSK(8, 4, **model_kw, config=cfg).compute_kernel(Xtr, Xte)
+                    interrupted = False
+                except Stop:
+                    interrupted = True
+                finally:
+                    setattr(module, fn, orig)
+                first_saves = list(saves)
+                saves.clear()
+                fsk = FastSK(8, 4, **model_kw, config=cfg)
+                _, kernel_s = wall(fsk.compute_kernel, Xtr, Xte)
+                if name == "approx":
+                    equal = (fsk.iterations == approx_ref[1] == 70
+                             and bool(np.array_equal(fsk.kernel_counts, approx_ref[0])))
+                else:
+                    equal = bool(np.array_equal(fsk.kernel_counts, want))
+                out[name] = dict(
+                    interrupted=interrupted, saves_before_s=first_saves, resumed_kernel_s=kernel_s,
+                    resumed_saves_s=list(saves), file_mib=os.path.getsize(ck) / 2**20,
+                    resident=fsk._counts_dev is not None, counts_equal=equal,
+                )
+                del fsk
+                torch.cuda.empty_cache()
+    finally:
+        KernelCheckpoint.save = save
+    emit("checkpoint", dataset="KAT2B", g=8, m=4, checkpoint_every=16, **out)
+    for name, r in out.items():
+        require(r["interrupted"] and r["saves_before_s"],
+                f"the {name} checkpoint run was not interrupted after a save")
+        require(r["counts_equal"], f"the resumed {name} run's counts differ")
+    require(out["device_resident"]["resident"], "the resumed device-resident run left the card")
+    return out
+
+
+MULTIPROCESS_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+
+from fastsk_tpu_torch import FastSK, FastaUtility, KernelConfig
+from fastsk_tpu_torch.parallel import multihost
+
+coord, pid, tmpdir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+t0 = time.perf_counter()
+multihost.initialize(coordinator_address=coord, num_processes=2, process_id=pid, backend="gloo")
+mesh = multihost.global_mesh(rows=2, theta=1, local_devices=["cuda:0"])
+reader = FastaUtility()
+Xtr, Ytr = reader.read_data(f"{tmpdir}/train.fasta")
+Xte, Yte = reader.read_data(f"{tmpdir}/test.fasta")
+
+
+def timed(fn, *a, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+cfg = dict(device="cuda", mesh=mesh, exact_engine="theta")
+fsk = FastSK(8, 4, config=KernelConfig(**cfg))
+_, kernel_s = timed(fsk.compute_kernel, Xtr, Xte)
+if pid == 0:
+    np.save(f"{tmpdir}/counts.npy", fsk.kernel_counts.astype(np.int32))
+dev = FastSK(8, 4, config=KernelConfig(device_resident=True, **cfg))
+_, dev_kernel_s = timed(dev.compute_kernel, Xtr, Xte, Ytr, Yte)
+_, fit_s = timed(dev.fit, C=1.0)
+auc, score_s = timed(dev.score, "auc")
+print(json.dumps(dict(rank=pid, ranks=list(mesh.ranks), kernel_s=kernel_s,
+                      dev_kernel_s=dev_kernel_s, resident=dev._counts_dev is not None,
+                      fit_s=fit_s, score_s=score_s, auc=auc,
+                      wall_s=time.perf_counter() - t0)), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def multiprocess_phase(a_counts, timeout_s: int = 300) -> dict:
+    """Phase 22: two processes on the card, joined over gloo
+    (parallel/multihost.py; nccl refuses two ranks on one card), with
+    global_mesh(rows=2, theta=1): KAT2B exact_engine="theta" counts equal
+    to kernel A's of phase 5, and a device-resident fit (C=1) and score
+    giving AUC_KAT2B on both ranks. Each process has ``timeout_s``."""
+    import socket
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmpdir:
+        for split in ("train", "test"):
+            read_split_fasta(KAT2B, split, tmpdir)
+        script = os.path.join(tmpdir, "worker.py")
+        with open(script, "w") as f:
+            f.write(MULTIPROCESS_WORKER)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, script, f"127.0.0.1:{port}", str(pid), tmpdir],
+                cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for pid in range(2)
+        ]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout_s))
+        except subprocess.TimeoutExpired:
+            outs = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        require(outs is not None, f"a multi-process worker ran past {timeout_s} s")
+        for p, (out, err) in zip(procs, outs):
+            require(p.returncode == 0, f"a multi-process worker failed ({p.returncode}): {err[-3000:]}")
+        ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+        equal = bool(np.array_equal(np.load(os.path.join(tmpdir, "counts.npy")),
+                                    a_counts.cpu().numpy()))
+    fields = dict(dataset="KAT2B", g=8, m=4, processes=2, backend="gloo", mesh="2x1",
+                  wall_s=wall_s, counts_equal_kernel_a=equal, ranks=ranks)
+    emit("multi-process", **fields)
+    require(equal, "the two-process KAT2B counts differ from kernel A's")
+    for r in ranks:
+        require(r["resident"], f"rank {r['rank']} left the device-resident path")
+        require(round(r["auc"], 6) == AUC_KAT2B, f"rank {r['rank']} AUC {r['auc']} is not {AUC_KAT2B}")
+    return fields
+
+
+def sorted_mesh_phase(dev, full=(2564, 16, 905)) -> dict:
+    """Phase 20: the seeded 2.19 set of phase 8 (alphabet 24, g=8, m=4)
+    through exact_engine="theta" (the sorted engine) on make_mesh(2, 2)
+    over the card, mesh_state "sharded" (row strips) and "replicated"
+    (private replicas): counts integer-equal to kernel D's."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.kernel.sorted_engine import SortedGkmEngine
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    X = slice_219(full)[0]
+    dfsk = FastSK(8, 4, config=KernelConfig(device=dev, exact_engine="packed"))
+    _, d_kernel_s = wall(dfsk.compute_train, X)
+    want = dfsk.kernel_counts
+    del dfsk
+    runs = {}
+    for state in ("sharded", "replicated"):
+        fsk = FastSK(8, 4, config=KernelConfig(device=dev, exact_engine="theta",
+                                                mesh=card_mesh(2, 2), mesh_state=state))
+        eng = fsk._make_exact_engine(encode_sequences(X))
+        require(isinstance(eng, SortedGkmEngine), f"the 2.19 theta mesh took {type(eng).__name__}")
+        n_rows = -(-eng.n // 2)
+        (_, kernel_s), peak = peak_mib(wall, fsk.compute_train, X)
+        runs[state] = dict(
+            kernel_s=kernel_s, ms_a_pass=kernel_s * 1e3 / 70, peak_mib=peak,
+            theta_batch=eng.theta_batch,
+            state_per_entry=[n_rows, eng.n] if state == "sharded" else [eng.n, eng.n],
+            counts_equal_kernel_d=bool(np.array_equal(fsk.kernel_counts, want)),
+        )
+        del fsk, eng
+        torch.cuda.empty_cache()
+    emit("sorted-mesh", shape="2.19", g=8, m=4, mesh="2x2 over cuda:0", d_kernel_s=d_kernel_s, **runs)
+    for state, r in runs.items():
+        require(r["counts_equal_kernel_d"], f"the sorted {state} mesh's counts differ from kernel D's")
+    return runs
 
 
 def band_depth_sweep(dev, medium=(400, 16, 905), alphas=(8, 16, 24, 40, 56, 72, 88),
@@ -2007,8 +2324,13 @@ def main() -> None:
     del fsk, k_dev
     torch.cuda.empty_cache()
     theta_dense_phase(dev, a_counts, Xtr, Xte)
-    del a_counts
-    approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte)
+    _, approx_ref = approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte)
+    torch.cuda.empty_cache()
+    # the theta mesh, checkpoints and two processes, on the same counts
+    theta_mesh_phase(dev, a_counts, Xtr, Xte, Ytr, Yte, approx_ref)
+    checkpoint_phase(dev, a_counts, Xtr, Xte, approx_ref)
+    multiprocess_phase(a_counts)
+    del a_counts, approx_ref
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ golden
@@ -2053,6 +2375,7 @@ def main() -> None:
     # ------------------------------- the sorted theta engine, approx and exact
     approx_219_phase(dev)
     theta_sorted_phase(dev)
+    sorted_mesh_phase(dev)
 
     record = {
         "kernels": [

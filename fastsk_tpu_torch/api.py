@@ -11,10 +11,11 @@ package chooses; approx mode (``approx=True``, deterministic given
 ``hash_base**k <= b_max_dense`` and the sorted one otherwise. The SVM is
 any of the LIBSVM family (``svm_type`` c_svc, nu_svc, one_class,
 epsilon_svr, nu_svr; multiclass labels train one-vs-one), all on
-``KernelConfig.device``. Under ``KernelConfig.mesh`` the packed engine
-computes the kernel over the mesh's devices, and the fit runs on
-``KernelConfig.device``; the theta engines refuse a mesh
-(``NotImplementedError``, ROADMAP.md slice 3c).
+``KernelConfig.device``. Under ``KernelConfig.mesh`` the packed engine or
+the theta engines compute the kernel over the mesh's devices (across
+processes too, ``parallel/multihost.py``), and the fit runs on
+``KernelConfig.device``; ``KernelConfig.checkpoint_path`` lets a dense
+theta run resume after an interruption.
 """
 
 from __future__ import annotations
@@ -110,16 +111,29 @@ class FastSK:
         engine = self._make_engine(enc) if self.approx else self._make_exact_engine(enc)
         self._counts_dev = None
         self._K_dev = None
-        # under a mesh the packed engine accumulates to the host, as in the
-        # JAX package: device_resident is ignored there
-        use_dev = self.config.device_resident and self.config.mesh is None
+        # The JAX package's rules (fastsk_tpu/api.py:150-180): under a mesh
+        # only the dense engine stays device-resident (its row blocks are
+        # collapsed onto config.device; every process of a multi-process
+        # mesh assembles the whole matrix and fits the same replica); only
+        # the single-device dense engine checkpoints a device-resident run,
+        # so a checkpoint takes every other engine and mesh combination to
+        # its host path rather than being ignored; approx device_out needs
+        # one device and no checkpoint.
+        cfg = self.config
+        dense = isinstance(engine, DenseGkmEngine)
+        use_dev = cfg.device_resident
+        if cfg.mesh is not None and not dense:
+            use_dev = False
+        if cfg.checkpoint_path is not None and not (dense and cfg.mesh is None):
+            use_dev = False
         if self.approx:
+            dev_ok = use_dev and cfg.mesh is None and cfg.checkpoint_path is None
             res: ApproxResult = engine.approx(
                 conv_delta=self.delta,
                 max_iters=self.max_iters,
                 skip_variance=self.skip_variance,
                 seed=self.seed,
-                device_out=use_dev,
+                device_out=dev_ok,
             )
             self._stdevs = res.stdevs
             self._iters = res.iters

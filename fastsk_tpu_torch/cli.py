@@ -10,10 +10,11 @@ It runs the exact kernel, or approx mode (``-a``; ``-I``, ``--delta``,
 ``--skip-variance`` and ``--seed`` as in the JAX CLI), and any SVM type of
 the LIBSVM family on ``--device``: the card by default, the CPU only with
 ``--device cpu`` (without a card and without that flag it exits with an
-error). ``--checkpoint`` and ``--checkpoint-every``, which only the
-unported checkpoint slice reads (ROADMAP.md slice 5), raise
-``NotImplementedError`` when set instead of being ignored. ``-t`` is
-accepted and ignored, as in the JAX CLI.
+error). ``--checkpoint PATH`` checkpoints the kernel computation every
+``--checkpoint-every`` thetas and resumes from ``PATH`` when it holds this
+problem's checkpoint (the dense theta engine's runs; the JAX CLI's
+checkpoints resume here and back). ``-t`` is accepted and ignored, as in
+the JAX CLI.
 """
 
 from __future__ import annotations
@@ -64,11 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write per-test-point 'label value' lines (the "
                          "reference's auc_file.txt, opt-in)")
     ap.add_argument("--checkpoint", metavar="PATH",
-                    help="checkpoint kernel computation (not ported yet: "
-                         "raises, ROADMAP.md slice 5)")
+                    help="periodically checkpoint kernel computation; resumes if present")
     ap.add_argument("--checkpoint-every", type=int, default=512,
-                    help="thetas between checkpoints (not ported yet: raises "
-                         "if set, ROADMAP.md slice 5)")
+                    help="thetas between checkpoints")
     ap.add_argument("--device-resident", action="store_true",
                     help="keep the kernel on the device end to end (fit/score "
                          "without the O(N^2) device->host pull)")
@@ -83,20 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-# flags of the JAX CLI that only the unported slices read: setting one
-# raises rather than being ignored
-UNPORTED = {
-    "checkpoint": ("--checkpoint", "slice 5 (checkpoint/resume)"),
-    "checkpoint_every": ("--checkpoint-every", "slice 5 (checkpoint/resume)"),
-}
-
-
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, (flag, slice_) in UNPORTED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP.md {slice_}")
 
     import torch
 
@@ -120,7 +108,12 @@ def main(argv=None) -> int:
         print("--save-predictions requires a test file and a fitted SVM "
               "(drop --no-svm)", file=sys.stderr)
         return 2
-    config = KernelConfig(device=device, device_resident=args.device_resident)
+    config = KernelConfig(
+        device=device,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        device_resident=args.device_resident,
+    )
     fsk = FastSK(
         g=args.g,
         m=args.m,

@@ -1,9 +1,8 @@
 """Configuration for the gapped k-mer kernel engine.
 
 Counterpart of ``fastsk_tpu/kernel/config.py``: the knobs of the exact
-engines, of the two theta engines (dense and sorted) and of approx mode,
-with the JAX package's defaults. Checkpointing, the profiler and the TPU
-compile cache belong to slices that are not ported yet (ROADMAP.md).
+engines, of the two theta engines (dense and sorted), of approx mode, of
+the device mesh and of checkpoints, with the JAX package's defaults.
 """
 
 from __future__ import annotations
@@ -71,15 +70,26 @@ class KernelConfig:
     # host, bit-identical to the reference.
     device_resident: bool = False
 
-    # Multi-device exact kernel (parallel/sharding.py:make_mesh): the packed
-    # engine runs over the mesh's devices, which must be of ``device``'s
-    # type (the fit runs on ``device``). None = one device.
+    # Mid-computation checkpointing (utils/checkpoint.py): the dense theta
+    # engine persists its accumulator and work-queue cursor every
+    # `checkpoint_every` thetas, so a long exact or approx run resumes
+    # after an interruption. Across processes rank 0 writes the file and
+    # every rank reads it, so it must lie on storage they all share.
+    checkpoint_path: Optional[str] = None
+    checkpoint_every: int = 512
+
+    # Multi-device kernel (parallel/sharding.py:make_mesh, or
+    # parallel/multihost.py:global_mesh across processes): the packed and
+    # theta engines run over the mesh's devices, which must be of
+    # ``device``'s type (the fit runs on ``device``). None = one device.
     mesh: Optional[Mesh] = None
 
-    # Mesh memory layout of the packed engine: "sharded" keeps a kernel row
-    # block and a strip shard of the window table per device (the ring,
-    # O(N^2 / n_dev) a device); "replicated" keeps a full private replica
-    # per device and the whole table (round-robin strips).
+    # Mesh memory layout of the packed and sorted engines: "sharded" keeps
+    # a kernel row block per device (the packed ring, with a strip shard of
+    # the window table; the sorted engine's row strips, O(N^2 / rows) a
+    # device); "replicated" keeps a full private replica per device
+    # (round-robin strips; the sorted engine's theta-sharded passes). The
+    # dense theta engine always keeps row blocks.
     mesh_state: str = "sharded"
 
     quiet: bool = True

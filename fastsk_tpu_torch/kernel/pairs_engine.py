@@ -17,10 +17,11 @@ On a local card there is no transfer to hide, so ``exact()`` is the device
 path followed by ``.cpu()``: the TPU tile sizing and the byte-plane
 streaming of the JAX engine are not needed.
 
-Under ``KernelConfig.mesh`` only the packed engine runs, over the mesh's
-devices (``parallel/sharding.py``, kernel F), and its counts come back to
-the host: the ring (``mesh_state="sharded"``) or round-robin strips
-(``"replicated"``), as in the JAX engine.
+Under ``KernelConfig.mesh`` of one process only the packed engine of
+these two runs, over the mesh's devices (``parallel/sharding.py``, kernel
+F), and its counts come back to the host: the ring (``mesh_state=
+"sharded"``) or round-robin strips (``"replicated"``), as in the JAX
+engine. A mesh across processes goes to the theta engines.
 """
 
 from __future__ import annotations
@@ -186,6 +187,11 @@ class PackedPairsEngine:
         self.tile = self.TILE
         backend = self.config.pairs_backend
         self.mesh = self.config.mesh
+        if self.mesh is not None and self.mesh.multiprocess:
+            raise ValueError(
+                "the packed engine's mesh routes run in one process; a mesh "
+                "across processes takes the theta engines"
+            )
         self.route = "grouped" if backend == "pallas_grouped" else "band"
         if self.mesh is not None:
             self.route = "ring" if self.config.mesh_state == "sharded" else "round-robin"

@@ -10,8 +10,11 @@ The same semantics as DenseGkmEngine: ``exact()`` enumerates all
 C(g, m) subsets with int32 device accumulation and an int64 host spill
 (or the device ``hi`` plane), ``approx()`` samples the seeded stream with
 the reference's Welford stop rule (fastsk_kernel.cpp:108-143, 243-262),
-a pass at a time by default. The theta mesh functions are not ported yet
-(ROADMAP.md §1, slice 3c).
+a pass at a time by default. Under ``KernelConfig.mesh`` the exact sums
+(and approx's ``skip_variance`` sums) run over the mesh: row strips over
+rows x theta (``mesh_state="sharded"``) or private replicas over theta
+(``"replicated"``), parallel/sharding.py; the Welford path runs on
+``config.device``, as the JAX engine's never reads the mesh.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from ..ops.gkm import welford_step
 from ..ops.sorted_theta import hash_plan, sorted_theta_pass
 from .config import KernelConfig
 from .device_counts import DeviceCounts, _carry_spill
-from .engine import ApproxResult, refuse_mesh, theta_stream
+from ..parallel import sharding as shd
+from .engine import ApproxResult, theta_stream
 
 
 def window_table(enc: EncodedSeqs, g: int):
@@ -59,7 +63,6 @@ class SortedGkmEngine:
         self.m = m
         self.k = g - m
         self.config = config or KernelConfig()
-        refuse_mesh(self.config)
         self.base = enc.hash_base
         self.code_min = enc.code_min
         self.n = enc.n
@@ -79,6 +82,11 @@ class SortedGkmEngine:
         windows, seq_of = window_table(enc, g)
         self._windows = torch.as_tensor(windows, device=self.device)
         self._seq_of = torch.as_tensor(seq_of, device=self.device)
+        self.mesh = self.config.mesh
+        if self.mesh is not None:
+            # the table on each mesh entry's device (JAX's replicated P())
+            self._windows_e = shd.replicate(self.mesh, windows)
+            self._seq_of_e = shd.replicate(self.mesh, seq_of)
 
         # per-pass kernel entries are bounded by p_i * p_j <= p_max^2
         self._acc_limit = (1 << 31) - 1
@@ -89,8 +97,15 @@ class SortedGkmEngine:
         # actual max (one scalar read a batch) and spill only when the
         # next batch could overflow int32
         self._adaptive_spill = self.spill_every < 32
-        # thetas a batch: one pass at a time unless configured
-        tb = self.config.theta_batch or 1
+        # thetas a batch: one pass at a time on one device unless
+        # configured; a mesh entry's unit of work is a batch (the JAX
+        # engine's: up to 8, while a [n, n] int32 pass fits 256 MiB)
+        if self.config.theta_batch:
+            tb = self.config.theta_batch
+        elif self.mesh is None:
+            tb = 1
+        else:
+            tb = max(1, min(8, (256 << 20) // max(self.n * self.n * 4, 1)))
         batch_cap = (
             self._acc_limit // self._per_theta_bound
             if self._adaptive_spill
@@ -148,6 +163,10 @@ class SortedGkmEngine:
 
     def _sum_stream(self, thetas: np.ndarray) -> np.ndarray:
         """Exact integer sum over a theta stream, int64 on the host."""
+        if self.mesh is not None:
+            if self.config.mesh_state == "sharded":
+                return self._sum_stream_rowsharded(thetas)
+            return self._sum_stream_sharded(thetas)
         host = np.zeros((self.n, self.n), dtype=np.int64)
         k_acc = torch.zeros((self.n, self.n), dtype=torch.int32, device=self.device)
         since = 0
@@ -163,6 +182,102 @@ class SortedGkmEngine:
         host += k_acc.cpu().numpy()
         return host
 
+    def _mesh_must_spill(self, accs, next_t: int) -> bool:
+        """``_must_spill`` on the largest entry of every accumulator of the
+        mesh (the same answer on every process)."""
+        cur = torch.tensor([max(int(a.max()) for a in accs.values())] if accs else [0])
+        return int(shd.reduce_across(cur, self.mesh, op="max")) > (
+            self._acc_limit - next_t * self._per_theta_bound)
+
+    def _sum_stream_rowsharded(self, thetas: np.ndarray) -> np.ndarray:
+        """Rows x theta sharded exact sum with O(N^2 / R) state a row
+        block (KernelConfig.mesh_state="sharded", the default): entry (r,
+        t) adds kernel row strip r over theta shard t into the strip's
+        accumulator (parallel/sharding.py:sorted_batch_rowsharded).
+        Integer-identical to the single-device stream."""
+        mesh = self.mesh
+        n_rows = -(-self.n // mesh.n_rows)
+        host = np.zeros((self.n, self.n), dtype=np.int64)
+        k_rows = shd.row_accumulators(mesh, n_rows, self.n)
+
+        def spill():
+            shd.host_rows(k_rows, mesh, host, n_rows)
+            for a in k_rows.values():
+                a.zero_()
+
+        # a step lands n_theta * tb thetas on EVERY strip, so the int32
+        # headroom bound applies to the whole step
+        chunk_cap = max(1, (self._acc_limit // self._per_theta_bound) // mesh.n_theta)
+        per_step = mesh.n_theta * min(self.theta_batch, chunk_cap)
+        total = len(thetas)
+        since = 0
+        for i in range(0, total, per_step):
+            # spill BEFORE the add when the step could pass the int32
+            # headroom (the single-device stream caps t instead)
+            if not self._adaptive_spill and since + per_step > self.spill_every:
+                spill()
+                since = 0
+            chunk = thetas[i : i + per_step]
+            live = np.zeros(per_step, dtype=np.int32)
+            live[: len(chunk)] = 1
+            if len(chunk) < per_step:
+                chunk = np.concatenate([chunk, np.repeat(chunk[:1], per_step - len(chunk), 0)])
+            shd.sorted_batch_rowsharded(
+                k_rows, self._windows_e, self._seq_of_e, chunk, live, mesh=mesh,
+                n_rows=n_rows, **self._static_kwargs(),
+            )
+            since += per_step
+            if (self._adaptive_spill and i + per_step < total
+                    and self._mesh_must_spill(k_rows, per_step)):
+                spill()
+                since = 0
+        spill()
+        return host
+
+    def _sum_stream_sharded(self, thetas: np.ndarray) -> np.ndarray:
+        """Theta-sharded exact sum: each entry runs whole passes into a
+        private ``[n, n]`` replica, and the host sums the replicas
+        (KernelConfig.mesh_state="replicated": the least wall on small
+        meshes; an entry's memory does not shrink with the mesh)."""
+        mesh = self.mesh
+        n_dev = mesh.size
+        host = np.zeros((self.n, self.n), dtype=np.int64)
+        k_dev = {e: torch.zeros((self.n, self.n), dtype=torch.int32, device=mesh.devices[e])
+                 for e, _, _ in mesh.local_entries()}
+
+        def spill():
+            part = torch.zeros((self.n, self.n), dtype=torch.int64)
+            for a in k_dev.values():
+                part += a.cpu()
+                a.zero_()
+            host[...] += shd.reduce_across(part, mesh).numpy()
+
+        per_step = n_dev * self.theta_batch
+        total = len(thetas)
+        since = 0
+        for i in range(0, total, per_step):
+            chunk = thetas[i : i + per_step]
+            t_pad = -(-len(chunk) // n_dev) * n_dev
+            live = np.zeros(t_pad, dtype=np.int32)
+            live[: len(chunk)] = 1
+            if t_pad > len(chunk):
+                chunk = np.concatenate([chunk, np.repeat(chunk[:1], t_pad - len(chunk), 0)])
+            shd.sorted_batch_sharded(
+                k_dev, self._windows_e, self._seq_of_e, chunk.reshape(n_dev, -1, self.k),
+                live.reshape(n_dev, -1), mesh=mesh, **self._static_kwargs(),
+            )
+            since += t_pad // n_dev
+            if self._adaptive_spill:
+                # the largest entry over all replicas (conservative for each)
+                spill_now = i + per_step < total and self._mesh_must_spill(k_dev, self.theta_batch)
+            else:
+                spill_now = since >= self.spill_every
+            if spill_now:
+                spill()
+                since = 0
+        spill()
+        return host
+
     def _device_batch_cap(self) -> int:
         """A carry spill leaves a < 2^30 residue in lo (the host spill
         zeroes it), so a batch must fit the remaining headroom: residue +
@@ -173,6 +288,8 @@ class SortedGkmEngine:
         """Exact integer sum over a theta stream, on the device: spills
         carry completed 2**30-units into the ``hi`` plane
         (kernel/device_counts.py) instead of pulling to the host."""
+        if self.mesh is not None:
+            raise ValueError("device-resident accumulation is single-device")
         lo = torch.zeros((self.n, self.n), dtype=torch.int32, device=self.device)
         hi = None
         tb = min(self.theta_batch, self._device_batch_cap())
@@ -204,6 +321,8 @@ class SortedGkmEngine:
         seed: int = 0,
         device_out: bool = False,
     ) -> ApproxResult:
+        if device_out and self.mesh is not None:
+            raise ValueError("device_out requires a single device")
         stream = theta_stream(self.g, self.k, seed)
         total = len(stream)
 

@@ -147,16 +147,20 @@ def _counts_for_batch(
     return out
 
 
+def batch_rows(counts: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A ``[T, N, B]`` count batch as the ``[N, T * B]`` operand of its
+    batch product (the batch's buckets side by side), in ``dtype``."""
+    t, n, b = counts.shape
+    return counts.permute(1, 0, 2).reshape(n, t * b).to(dtype)
+
+
 def count_gram_int32(counts: torch.Tensor, count_split: bool) -> torch.Tensor:
-    """Exact int32 ``sum_t C_t @ C_t^T`` for a ``[T, N, B]`` count batch of
-    an exact operand dtype: one product over the batch's concatenated
+    """Exact int32 ``sum_t C_t @ C_t^T`` for a ``[T, N, B]`` count batch
+    of an exact operand dtype: one product over the batch's concatenated
     buckets. ``count_split`` (more than 4095 windows a sequence) takes it
     in f64, exact below 2^53; the JAX package's 8-bit digit grams give the
     same integers. The caller keeps the sum below 2^24 (plain) or 2^31."""
-    if count_split:
-        counts = counts.to(torch.float64)
-    t, n, b = counts.shape
-    c = counts.permute(1, 0, 2).reshape(n, t * b)
+    c = batch_rows(counts, torch.float64 if count_split else counts.dtype)
     return gram(c, c).to(torch.int32)
 
 
@@ -185,6 +189,37 @@ def exact_batch_update(
     return k_acc.add_(count_gram_int32(counts, count_split))
 
 
+def welford_partial(ks_int: torch.Tensor, mean: torch.Tensor, it_new: torch.Tensor, *,
+                    row0: int, n_train: int):
+    """The Welford update of one kernel row block (rows ``row0`` on) for
+    one pass: ``(new_mean, its share of the train-triangle sum)``. The
+    share reads the block's train rows against the train columns, its
+    diagonal entries counted twice, halved: summed over the row blocks it
+    is the reference's sum over packed train pairs."""
+    ks = ks_int.to(torch.float32)
+    delta = ks - mean
+    new_mean = mean + delta / it_new.to(torch.float32)
+    # the statistic reads the train block only: delta2 is formed there
+    nt = n_train
+    nr = max(0, min(ks.shape[0], nt - row0))
+    prod = delta[:nr, :nt] * (ks[:nr, :nt] - new_mean[:nr, :nt])
+    return new_mean, (prod.sum() + torch.diagonal(prod, offset=row0).sum()) / 2.0
+
+
+def welford_finish(tri_sum: torch.Tensor, it_new: torch.Tensor, done: torch.Tensor, *,
+                   n_train: int, conv_delta: float, max_iters: int):
+    """The stop rule on the whole train-triangle sum: ``(sd, new_done)``."""
+    # average over the packed triangular train pairs (diagonal included),
+    # the reference's n_train_pairs loop bound
+    tri_count = n_train * (n_train + 1) / 2.0
+    avg_var = tri_sum / tri_count
+    avg_var = torch.where(it_new == 1, 9999999.0, avg_var / torch.clamp(it_new - 1, min=1))
+    sd = torch.sqrt(avg_var / it_new)
+    converged = conv_delta / sd > 1.96
+    hit_max = max_iters != -1 and (it_new >= max_iters)
+    return sd, done | converged | hit_max
+
+
 def welford_step(state, ks_int: torch.Tensor, *, n_train: int, conv_delta: float,
                  max_iters: int):
     """One Monte-Carlo iteration of the reference stop rule
@@ -199,23 +234,10 @@ def welford_step(state, ks_int: torch.Tensor, *, n_train: int, conv_delta: float
     Returns ``(state, sd)``, sd NaN for a masked iteration.
     """
     k_sum, mean, it, done = state
-    ks = ks_int.to(torch.float32)
     it_new = it + 1
-    delta = ks - mean
-    new_mean = mean + delta / it_new.to(torch.float32)
-    # the statistic reads the train block only: delta2 is formed there
-    nt = n_train
-    prod = delta[:nt, :nt] * (ks[:nt, :nt] - new_mean[:nt, :nt])
-    # average over the packed triangular train pairs (diagonal included),
-    # the reference's n_train_pairs loop bound
-    tri_count = n_train * (n_train + 1) / 2.0
-    tri_sum = (prod.sum() + torch.diagonal(prod).sum()) / 2.0
-    avg_var = tri_sum / tri_count
-    avg_var = torch.where(it_new == 1, 9999999.0, avg_var / torch.clamp(it_new - 1, min=1))
-    sd = torch.sqrt(avg_var / it_new)
-    converged = conv_delta / sd > 1.96
-    hit_max = max_iters != -1 and (it_new >= max_iters)
-    new_done = done | converged | hit_max
+    new_mean, tri_sum = welford_partial(ks_int, mean, it_new, row0=0, n_train=n_train)
+    sd, new_done = welford_finish(tri_sum, it_new, done, n_train=n_train,
+                                  conv_delta=conv_delta, max_iters=max_iters)
     # masked update: once done, this theta never happened
     k_sum = torch.where(done, k_sum, k_sum + ks_int)
     mean = torch.where(done, mean, new_mean)

@@ -138,9 +138,18 @@ def _slab_counts(s, mseq, mrank, mcount, bnd, *, n, width, chunk, dtype) -> torc
     return c_s
 
 
-def pass_products(diag, mseq, mrank, mcount, *, n, run_width, slab, count_split):
-    """The slab products of one pass after phase 1: ``[n, n]`` int32."""
-    acc = torch.zeros((n, n), dtype=torch.float64 if count_split else torch.float32,
+def pass_products(diag, mseq, mrank, mcount, *, n, run_width, slab, count_split, row0=0,
+                  n_rows=None):
+    """The slab products of one pass after phase 1: rows ``[row0, row0 +
+    n_rows)`` of ``K_theta``, ``[n_rows, n]`` int32 (the whole ``[n, n]``
+    pass by default). A strip cuts each slab product's left operand to its
+    rows and the singleton-run diagonal to the strip, and never builds the
+    ``[n, n]`` pass; its rows past ``n`` are zero. The "runs"-layout
+    counterpart of ``fastsk_tpu/ops/sorted_theta.py:
+    sorted_theta_pass_batch_sum_rows`` for one pass."""
+    n_rows = n if n_rows is None else n_rows
+    r1 = max(row0, min(row0 + n_rows, n))
+    acc = torch.zeros((n_rows, n), dtype=torch.float64 if count_split else torch.float32,
                       device=diag.device)
     n_runs = 0
     if mrank.shape[0]:
@@ -160,9 +169,9 @@ def pass_products(diag, mseq, mrank, mcount, *, n, run_width, slab, count_split)
         for s in range(n_runs):
             c_s = _slab_counts(s, mseq, mrank, mcount, bnd, n=n, width=run_width,
                                chunk=slab, dtype=dtype)
-            acc += gram(c_s, c_s)
+            acc[: r1 - row0] += gram(c_s[row0:r1], c_s)
     ks = acc.to(torch.int32)
-    ks.diagonal().add_(diag.to(torch.int32))
+    ks.diagonal(offset=row0).add_(diag[row0:r1].to(torch.int32))
     return ks
 
 
@@ -179,12 +188,13 @@ def sorted_theta_pass(
     n_words: int,
     count_split: bool,
     run_width: int = 2048,
+    row0: int = 0,
+    n_rows=None,
 ) -> torch.Tensor:
-    """One exact counting pass ``K_theta [n, n]`` int32 over subset
-    ``theta``."""
+    """One exact counting pass over subset ``theta``: ``K_theta [n, n]``
+    int32, or its row strip ``[row0, row0 + n_rows)`` (``pass_products``)."""
     diag, mseq, mrank, mcount = _pass_phase1(
         windows, seq_of, theta, base=base, code_min=code_min, n=n, dpw=dpw, n_words=n_words,
     )
     return pass_products(diag, mseq, mrank, mcount, n=n, run_width=run_width, slab=slab,
-                         count_split=count_split)
-
+                         count_split=count_split, row0=row0, n_rows=n_rows)

@@ -119,9 +119,9 @@ def test_compute_train_matches_jax():
 
 
 def test_unported_routes_raise():
-    """The routes of later slices raise: the theta engines under a mesh
-    (slice 3c). The routes this test once refused now run: approx mode and
-    exact_engine="theta" (slice 3), the packed routes (packed, ragged auto,
+    """The routes this test once refused now run and give the JAX
+    package's results: approx mode and exact_engine="theta" (slice 3), both
+    also under a mesh (slice 3c), the packed routes (packed, ragged auto,
     pallas_grouped) and the nu-SVC fit."""
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
     from fastsk_tpu_torch.ops.encode import encode_sequences
@@ -140,11 +140,13 @@ def test_unported_routes_raise():
     theta.compute_kernel(Xtr, Xte)
     np.testing.assert_array_equal(theta.kernel_counts, want)
     mesh = make_mesh(1, 2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="slice 3c"):
-        T.FastSK(6, 2, config=T.KernelConfig(exact_engine="theta", mesh=mesh, **cpu)
-                 ).compute_kernel(Xtr, Xte)
-    with pytest.raises(NotImplementedError, match="slice 3c"):
-        T.FastSK(6, 2, approx=True, config=T.KernelConfig(mesh=mesh, **cpu)).compute_kernel(Xtr, Xte)
+    theta_mesh = T.FastSK(6, 2, config=T.KernelConfig(exact_engine="theta", mesh=mesh, **cpu))
+    theta_mesh.compute_kernel(Xtr, Xte)
+    np.testing.assert_array_equal(theta_mesh.kernel_counts, want)
+    approx_mesh = T.FastSK(6, 2, approx=True, config=T.KernelConfig(mesh=mesh, **cpu))
+    approx_mesh.compute_kernel(Xtr, Xte)
+    assert approx_mesh.iterations == j.iterations
+    np.testing.assert_array_equal(approx_mesh.kernel_counts, j.kernel_counts)
     for backend in ("auto", "pallas_grouped"):
         packed = T.FastSK(
             6, 2, config=T.KernelConfig(exact_engine="packed", pairs_backend=backend, **cpu)
@@ -166,13 +168,14 @@ def test_unported_routes_raise():
 
 
 def test_import_leaves_jax_out():
-    """The package, its two command-line modules and the theta engines'
-    modules load no jax."""
+    """The package, its two command-line modules, the theta engines'
+    modules, multi-process runs and checkpoints load no jax."""
     code = (
         "import sys, fastsk_tpu_torch, fastsk_tpu_torch.cli, "
         "fastsk_tpu_torch.predict_cli, fastsk_tpu_torch.ops.combinatorics, "
         "fastsk_tpu_torch.ops.gkm, fastsk_tpu_torch.ops.sorted_theta, "
-        "fastsk_tpu_torch.kernel.engine, fastsk_tpu_torch.kernel.sorted_engine; "
+        "fastsk_tpu_torch.kernel.engine, fastsk_tpu_torch.kernel.sorted_engine, "
+        "fastsk_tpu_torch.parallel.multihost, fastsk_tpu_torch.utils.checkpoint; "
         "print('jax' in sys.modules or 'fastsk_tpu' in sys.modules)"
     )
     out = subprocess.run(

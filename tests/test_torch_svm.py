@@ -525,8 +525,9 @@ def test_cli_model_file_and_predict_cli(rng, tmp_path, capsys):
 
 
 def test_cli_unported_flags_raise(tmp_path, rng, capsys):
-    """``--checkpoint`` (slice 5) still raises; ``-a`` (slice 3, ported)
-    runs approx mode and gives the JAX CLI's JSON."""
+    """The flags this test once refused run: ``-a`` (slice 3) gives the JAX
+    CLI's JSON, and so does ``--checkpoint`` (slice 5) with it, each CLI
+    writing its own checkpoint."""
     tr = _labelled_fasta(tmp_path / "tr.fasta", rng, 10)
     te = _labelled_fasta(tmp_path / "te.fasta", rng, 8)
     args = ["-g", "5", "-m", "2", "-a", "--json", "-q", tr, te]
@@ -535,8 +536,12 @@ def test_cli_unported_flags_raise(tmp_path, rng, capsys):
     assert tcli.main(["--device", "cpu", *args]) == 0
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert abs(got["auc"] - want["auc"]) <= 1e-6
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tcli.main(["-g", "5", "-m", "2", "--checkpoint", str(tmp_path / "ck"), tr])
+    for cli, dev in ((jcli, []), (tcli, ["--device", "cpu"])):
+        ck = str(tmp_path / f"{cli.__name__}.npz")
+        assert cli.main([*dev, "--checkpoint", ck, "--checkpoint-every", "1", *args]) == 0
+        assert os.path.exists(ck)
+        got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert abs(got["auc"] - want["auc"]) <= 1e-6
     assert "the CPU runs only with --device cpu" in " ".join(tcli.build_parser().format_help().split())
 
 
@@ -551,20 +556,17 @@ def test_cli_unported_flags_raise(tmp_path, rng, capsys):
     ],
 )
 def test_cli_unported_options_raise_when_set(tmp_path, rng, capsys, flag, slice_):
-    """The checkpoint options (slice 5, not ported) refuse a non-default
-    value instead of being ignored; the approx options (slice 3, ported)
-    reach FastSK with ``-a`` and give the JAX CLI's kernel."""
+    """The options this test once refused reach FastSK: the approx options
+    (slice 3) with ``-a``, and ``--checkpoint-every`` (slice 5) with
+    ``-a`` and ``--checkpoint``; each gives the JAX CLI's kernel."""
     tr = _labelled_fasta(tmp_path / "tr.fasta", rng, 10)
-    if slice_ == "slice 5":
-        with pytest.raises(NotImplementedError, match=slice_):
-            tcli.main(["-g", "5", "-m", "2", "--device", "cpu", *flag, tr])
-        return
     extra = ["-I", "4"] if flag == ["--skip-variance"] else []
     args = ["-g", "5", "-m", "2", "-a", "-q", "--no-svm", *extra, *flag]
     kernels = []
     for cli, dev in ((jcli, []), (tcli, ["--device", "cpu"])):
         out = str(tmp_path / f"{cli.__name__}.npy")
-        assert cli.main([*dev, *args, "--save-kernel", out, tr]) == 0
+        ck = ["--checkpoint", str(tmp_path / f"{cli.__name__}.npz")] if slice_ == "slice 5" else []
+        assert cli.main([*dev, *args, *ck, "--save-kernel", out, tr]) == 0
         kernels.append(np.load(out))
     np.testing.assert_array_equal(kernels[1], kernels[0])
 

@@ -235,13 +235,18 @@ def test_device_spill_into_hi(monkeypatch):
 
 
 def test_theta_engines_refuse_a_mesh():
+    """Once refused, a mesh now runs both theta engines, equal to the JAX
+    engines on the same (1, 2) mesh."""
+    from fastsk_tpu.kernel.sorted_engine import SortedGkmEngine as JSorted
+    from fastsk_tpu.parallel import make_mesh as j_make_mesh
     from fastsk_tpu_torch.parallel import make_mesh
 
     enc = encode_sequences(_dna(1))
     cfg = T.KernelConfig(device="cpu", mesh=make_mesh(1, 2, devices=["cpu"] * 2))
-    for engine in (TDense, TSorted):
-        with pytest.raises(NotImplementedError, match="slice 3c"):
-            engine(enc, 6, 3, cfg)
+    j_cfg = J.KernelConfig(mesh=j_make_mesh(1, 2))
+    for engine, j_engine in ((TDense, JDense), (TSorted, JSorted)):
+        np.testing.assert_array_equal(engine(enc, 6, 3, cfg).exact(),
+                                      j_engine(enc, 6, 3, j_cfg).exact())
 
 
 # ------------------------------------------------------------ API and CLI
