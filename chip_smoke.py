@@ -1,4 +1,4 @@
-"""Drive fastsk_tpu_torch's exact and approx paths on one CUDA card and check them.
+"""Drive fastsk_tpu_torch's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -183,6 +183,40 @@ raises and the exit code is non-zero:
           phase 5's; a device-resident fit and score gives 0.904993 on
           both ranks; each process within a timeout; the two-process wall.
 
+23. ekm   harness.FastskRunner (kernel rows -> balanced CalibratedLinearSVC
+          -> AUC) on KAT2B g13 m7 and EP300 g10 m4, C=1, from the in-repo
+          splits, the counters zeroed before each: kernel A once, kernel B
+          never; AUC within 0.002 of experiments/parity_full.json's
+          0.921559 and 0.990724; kernel_s, fit_s, each fold's Newton
+          steps and host reads (one a step). Then fold 0 of EP300's fit as
+          one LinearSVC on the card against the port on the CPU: coef_
+          within 1e-5 (of max(1, max |coef_|)).
+24. lasso harness.FastskRegressor(approx=False) at g6 m2 on EP300's 4,000
+          sequences (a seeded 80/20 split), labelled with their row sums
+          of the exact kernel: r2 >= 0.8, kernel A once; LassoCV's wall,
+          FISTA iterations and host reads. Then Lasso at its alpha_ on the
+          card against the CPU: 64 iterations, coef_ within 2e-5 of max
+          |coef_|; stopped at tol 1e-2, n_iter_ within 1% and coef_ within
+          2e-5; the CV's own fit (at max_iter, short of tol 1e-5),
+          objective within 1e-6 relative and test r2 within 5e-7.
+25. multiclass-runner  phase 12's 4-class set as a DSL TSV through
+          harness.FastskMulticlassRunner (exact, g8 m4): kernel D once a
+          run; linear_ovr and kernel_ovo (kernel B once a class pair, 6)
+          each >= 90% accurate; a KernelConfig(profile_dir=...) run's
+          torch.profiler trace names packed_bytes_kernel. Then
+          utils/roofline.py: kernel A's operations at KAT2B g8 m4, the
+          executed (padded) tile operations and the useful ones, and the
+          int8 share each reaches in phase 3's time; kernel A's bound_ms in
+          the record against the formula it had before the bounds moved
+          into the package, its operations equal to the useful count.
+26. baselines  CharCNN (8 epochs) and SeqLSTM (30) on KAT2B, Adam lr 1e-3,
+          batch 64, seed 0 (models/train.py:train_model): AUC >= 0.85 and
+          >= 0.80; the batch-size-1 plain-SGD LSTM at a quarter of the
+          training set, 1 epoch: its loss falls from the epoch's first
+          half to its second; logits of both models on the card equal the
+          CPU's from the same weights within 1e-4 (f32, no TF32); seconds
+          an epoch and peak MiB. No hand-written kernel runs.
+
 The last three lines are the card's name and power limit (nvidia-smi),
 the per-kernel JSON record (every kernel's launches on its path, error
 against its plain version, times, and the bound: the larger of its
@@ -214,10 +248,11 @@ AUC_KAT2B = 0.904993  # the port's KAT2B C-SVC AUC since the first card run: ker
 EP300_ANCHOR = 0.990146  # the same file, EP300 g10 m4
 MOTIF = [5, 17, 2, 11, 20, 8, 14, 3]  # planted in the ragged positives
 
-# published dense peaks of one H100 SXM (NVIDIA's data sheet), for bounds
-PEAK_INT8_OPS = 1979e12  # int8 tensor-core operations a second
-PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
-HBM_BYTES_S = 3.35e12
+# the H100's peaks and the bound helpers live in the package, one source for
+# the kernel record and for utils/roofline.py's users
+from fastsk_tpu_torch.utils.roofline import (  # noqa: E402
+    PEAK_INT8_OPS, bound, count_bound, smo_bound,
+)
 
 
 def emit(phase: str, **fields) -> None:
@@ -248,31 +283,6 @@ def wall(fn, *args, **kwargs):
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
-
-
-def bound(ops: float, nbytes: float, peak: float) -> dict:
-    """The least time the card could take for work of ``ops`` operations
-    (at ``peak`` a second) that must move ``nbytes`` (each input read once,
-    each output written once): the larger of the two times, and which."""
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
-    return {
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
-
-
-def count_bound(windows: int, width: int, nbytes: float) -> dict:
-    """Bound of an exact count matrix over ``windows`` valid windows: every
-    unordered window pair once, as an int8 product of ``width``-byte
-    one-hot rows (2 * width operations a pair)."""
-    return bound(2.0 * width * windows * (windows + 1) / 2, nbytes, PEAK_INT8_OPS)
-
-
-def smo_bound(n: int, iters: int) -> dict:
-    """Bound of an SMO solve of ``iters`` iterations at ``n`` rows: the
-    gradient update's two f32 multiply-adds per row an iteration, and Q
-    read once."""
-    return bound(4.0 * n * iters, 4.0 * n * n + 20.0 * n, PEAK_F32_FLOPS)
 
 
 def sm_clock_mhz() -> float:
@@ -2147,6 +2157,370 @@ def probe_phase(cases: dict, reps: int = 3) -> dict:
                           for shape, p in parts.items()}}
 
 
+# ------------------------------------------------ phases 23-26 (the EKM,
+# Lasso, the runners, observe and roofline, the baselines): torch ops on
+# the card around kernels A, B and D, no kernel of their own
+
+EKM_ANCHORS = {  # experiments/parity_full.json: exact AUCs of FastskRunner
+    "KAT2B": (KAT2B, 13, 7, 0.921559), "EP300": (EP300, 10, 4, 0.990724),
+}
+EKM_CPU_FOLD = "EP300"  # the set whose fold 0 is fitted on the card and the CPU
+LASSO_ROWS = 4000  # EP300's sequences, all of them
+LASSO_SHORT_ITERS = 64  # a fixed FISTA run, before the two f32 paths part
+LASSO_STOP_TOL = 1e-2  # a tol that the fit at alpha_ reaches (46 iterations on the H100)
+MC_RUNNER_SIZE = (1000, 16, 905)  # phase 12's ragged set: rows, shortest, longest
+CNN_EPOCHS, LSTM_EPOCHS = 8, 30  # experiments/results_dl's recipe
+B1_FRACTION = 0.25  # of KAT2B's training set, for the batch-size-1 LSTM epoch
+PARITY_ROWS = 64  # test rows whose logits are held card against CPU
+
+
+def _counters():
+    from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed_cuda
+    from fastsk_tpu_torch.svm import smo_cuda
+
+    return (pairs_cuda.pairs_counts, pairs_packed_cuda.packed_band, smo_cuda.smo_solve,
+            smo_cuda.smo_nu_solve)
+
+
+def zero_counts() -> None:
+    for c in _counters():
+        c.launches = 0
+    _counters()[0].bodies = {"mma": 0, "dp4a": 0}
+
+
+def read_counts() -> dict:
+    return {c.__name__: c.launches for c in _counters()}
+
+
+def split_pair(prefix: str, name: str, tmpdir: str) -> str:
+    """``prefix``'s pos/neg splits as ``<name>.train.fasta`` and
+    ``<name>.test.fasta`` in a directory of their own (the runners' layout);
+    returns the directory."""
+    d = os.path.join(tmpdir, name)
+    os.makedirs(d, exist_ok=True)
+    for split in ("train", "test"):
+        os.replace(read_split_fasta(prefix, split, d), os.path.join(d, f"{name}.{split}.fasta"))
+    return d
+
+
+def ekm_phase(dev, tmpdir: str) -> dict:
+    """Phase 23: FastskRunner (kernel rows -> balanced CalibratedLinearSVC
+    -> AUC) on KAT2B g13 m7 and EP300 g10 m4, C=1, each against its AUC
+    anchor, the counters zeroed before: kernel A once, kernel B never.
+    Then fold 0 of ``EKM_CPU_FOLD``'s calibrated fit as one LinearSVC on
+    the card against the port on the CPU from the same rows."""
+    from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.harness import FastskRunner
+    from fastsk_tpu_torch.svm.linear import LinearSVC, stratified_kfold_indices
+
+    out = {}
+    for name, (prefix, g, m, anchor) in EKM_ANCHORS.items():
+        runner = FastskRunner(name, data_locations=(split_pair(prefix, name, tmpdir),))
+        zero_counts()
+        res, wall_s = wall(runner.train_and_test, g=g, m=m, C=1.0, config=KernelConfig(device=dev))
+        launches = read_counts()
+        folds = runner.model_._models
+        fields = dict(
+            dataset=name, g=g, m=m, C=1.0, n_train=len(runner.Ytrain), n_test=len(runner.Ytest),
+            auc=res["auc"], auc_anchor=anchor, auc_diff=res["auc"] - anchor, acc=res["acc"],
+            wall_s=wall_s, **runner.timings_, launches=launches,
+            a_bodies=dict(_counters()[0].bodies),
+            newton_steps=[svc.n_iter_ for svc, _, _ in folds],
+            host_reads=[svc.host_reads_ for svc, _, _ in folds],
+        )
+        emit("ekm", **fields)
+        require(launches["pairs_counts"] == 1 and launches["smo_solve"] == 0
+                and launches["packed_band"] == 0,
+                f"{name}: the EKM run took {launches}, not kernel A once and kernel B never")
+        require(abs(res["auc"] - anchor) <= 0.002, f"{name}: EKM AUC {res['auc']} is off {anchor}")
+        require(all(r == s + 1 for r, s in zip(fields["host_reads"], fields["newton_steps"])),
+                f"{name}: a fold read the host more than once a Newton step")
+        out[name] = fields
+        del runner
+    # one fold on the card and on the CPU, from the same rows
+    prefix, g, m, _ = EKM_ANCHORS[EKM_CPU_FOLD]
+    runner = FastskRunner(EKM_CPU_FOLD, data_locations=(os.path.join(tmpdir, EKM_CPU_FOLD),))
+    fsk = runner.compute_kernel(g, m, config=KernelConfig(device=dev))
+    ntr = fsk.n_str_train
+    y = np.asarray(runner.Ytrain)
+    held = stratified_kfold_indices(y, 5)[0]
+    keep = np.setdiff1d(np.arange(ntr), held)
+    X = fsk.kernel[:ntr, :ntr][keep]
+    card, card_s = wall(LinearSVC(C=1.0, class_weight="balanced", device=dev).fit, X, y[keep])
+    t0 = time.perf_counter()
+    host = LinearSVC(C=1.0, class_weight="balanced", device="cpu").fit(X, y[keep])
+    host_s = time.perf_counter() - t0
+    scale = max(1.0, float(np.abs(host.coef_).max()))
+    fold = dict(dataset=EKM_CPU_FOLD, rows=list(X.shape), card_s=card_s, cpu_s=host_s,
+                newton_card=card.n_iter_, newton_cpu=host.n_iter_,
+                max_abs_dcoef=float(np.abs(card.coef_ - host.coef_).max()), coef_scale=scale,
+                dintercept=float(abs(card.intercept_[0] - host.intercept_[0])))
+    emit("ekm-fold", **fold)
+    require(fold["max_abs_dcoef"] <= 1e-5 * scale and fold["dintercept"] <= 1e-5 * scale,
+            f"the card's LinearSVC fold differs from the CPU's: {fold}")
+    out["fold"] = fold
+    return out
+
+
+def lasso_phase(dev, tmpdir: str) -> dict:
+    """Phase 24: FastskRegressor(approx=False) at g6 m2 on EP300's
+    ``LASSO_ROWS`` sequences (a seeded 80/20 split), each labelled with its
+    row sum of the exact kernel (tests/test_harness.py's labels): r² >= 0.8.
+    Then Lasso at the CV's alpha_ on the card against the port on the CPU,
+    from the same rows: ``LASSO_SHORT_ITERS`` iterations (tol 0), before
+    the two f32 paths part, coef_ close; a fit that stops at
+    ``LASSO_STOP_TOL``, n_iter_ within 1% and coef_ close; and the CV's own
+    fit, which stops at max_iter short of its tol, the objective and the
+    test r² close. No grid alpha but the largest (all coefficients 0)
+    reaches the CV's tol 1e-5 on these rows, on either device. The limits
+    are a few times the H100's readings (coef_ 5.6e-6 and 3.6e-6 of
+    max |coef_|, objective 1.9e-7 relative, r² 6.0e-8 apart)."""
+    from fastsk_tpu_torch import FastaUtility, FastSK, KernelConfig
+    from fastsk_tpu_torch.harness import FastskRegressor
+    from fastsk_tpu_torch.svm.lasso import Lasso
+
+    seqs = []
+    for split in ("train", "test"):
+        for part in ("pos", "neg"):
+            with open(f"{EP300}.{split}.{part}.fasta") as f:
+                seqs += [ln.strip() for ln in f if ln.strip() and not ln.startswith(">")]
+    seqs = seqs[:LASSO_ROWS]
+    d = os.path.join(tmpdir, "reg")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "all.fasta"), "w") as f:
+        f.writelines(f">0\n{s}\n" for s in seqs)
+    X, _ = FastaUtility().read_data(os.path.join(d, "all.fasta"))
+    lab = FastSK(6, 2, config=KernelConfig(device=dev))
+    lab.compute_train(X)
+    y = lab.kernel.sum(axis=1)
+    perm = np.random.default_rng(24).permutation(len(seqs))
+    n_tr = int(0.8 * len(seqs))
+    for split, idx in (("train", perm[:n_tr]), ("test", perm[n_tr:])):
+        with open(os.path.join(d, f"reg.{split}.fasta"), "w") as f:
+            f.writelines(f">{float(y[i])!r}\n{seqs[i]}\n" for i in idx)
+    reg = FastskRegressor("reg", data_locations=(d,))
+    zero_counts()
+    r2, wall_s = wall(reg.train_and_test, g=6, m=2, approx=False, config=KernelConfig(device=dev))
+    launches = read_counts()
+    cv = reg.model_
+    fields = dict(
+        dataset="EP300 row sums", g=6, m=2, n_train=n_tr, n_test=len(seqs) - n_tr, r2=r2,
+        wall_s=wall_s, kernel_s=reg.timings_["kernel_s"], lassocv_s=reg.timings_["fit_s"],
+        alpha=cv.alpha_, fista_iters=int(cv.n_iter_path_.sum()) + cv._model.n_iter_,
+        fista_iters_max_a_fold=[int(v) for v in cv.n_iter_path_.max(axis=1)],
+        final_fit_iters=cv._model.n_iter_, host_reads=cv.host_reads_, launches=launches,
+    )
+    require(r2 >= 0.8, f"the regressor's r2 {r2} < 0.8")
+    require(launches["pairs_counts"] == 1 and launches["smo_solve"] == 0,
+            f"the regression run took {launches}, not kernel A once")
+
+    fsk = FastSK(6, 2, config=KernelConfig(device=dev))
+    fsk.compute_kernel(reg.train_seq, reg.test_seq)
+    Xtr, Xte = fsk.kernel[:n_tr, :n_tr], fsk.kernel[n_tr:, :n_tr]
+
+    def both(**kw):  # one Lasso on the card and one on the CPU, from the same rows
+        card, card_s = wall(Lasso(**kw, device=dev).fit, Xtr, reg.Ytrain)
+        host, host_s = wall(Lasso(**kw, device="cpu").fit, Xtr, reg.Ytrain)
+        scale = float(np.abs(host.coef_).max())
+        return card, host, dict(
+            alpha=kw["alpha"], iters_card=card.n_iter_, iters_cpu=host.n_iter_,
+            card_s=card_s, cpu_s=host_s, host_reads_card=card.host_reads_, coef_scale=scale,
+            max_abs_dcoef=float(np.abs(card.coef_ - host.coef_).max()),
+            dcoef_share=float(np.abs(card.coef_ - host.coef_).max()) / max(scale, 1e-30),
+        )
+
+    _, _, short = both(alpha=cv.alpha_, max_iter=LASSO_SHORT_ITERS, tol=0.0)
+    fields["lasso_short"] = short
+    require(short["iters_card"] == short["iters_cpu"] == LASSO_SHORT_ITERS
+            and short["dcoef_share"] <= 2e-5,
+            f"the card's short Lasso run differs from the CPU's: {short}")
+
+    _, _, stop = both(alpha=cv.alpha_, max_iter=cv.max_iter, tol=LASSO_STOP_TOL)
+    fields["lasso_stop_at_tol"] = stop
+    require(stop["iters_cpu"] < cv.max_iter, f"the CPU's fit did not reach tol: {stop}")
+    require(abs(stop["iters_card"] - stop["iters_cpu"]) <= 0.01 * stop["iters_cpu"]
+            and stop["dcoef_share"] <= 2e-5,
+            f"the card's Lasso stopped at tol differs from the CPU's: {stop}")
+
+    card, host, full = both(alpha=cv.alpha_, max_iter=cv.max_iter, tol=cv.tol)
+
+    def objective(model):  # the Lasso objective, in f64 on the host
+        r = reg.Ytrain - Xtr @ model.coef_ - model.intercept_
+        return 0.5 * float(r @ r) / n_tr + cv.alpha_ * float(np.abs(model.coef_).sum())
+
+    full.update(objective_card=objective(card), objective_cpu=objective(host),
+                r2_card=card.score(Xte, reg.Ytest), r2_cpu=host.score(Xte, reg.Ytest))
+    full["objective_rel"] = abs(full["objective_card"] / full["objective_cpu"] - 1)
+    fields["lasso_full"] = full
+    # stopped at max_iter short of tol, the two devices' f32 paths leave the
+    # coefficients apart along the objective's flat directions; the
+    # objective and the fitted function must agree
+    require(full["objective_rel"] <= 1e-6 and abs(full["r2_card"] - full["r2_cpu"]) <= 5e-7,
+            f"the card's Lasso at alpha_ differs from the CPU's: {full}")
+    emit("lasso", **fields)
+    return fields
+
+
+def multiclass_runner_phase(dev, tmpdir: str, a_ms=None, kat2b_engine=None, a_bound=None,
+                            slice_kernel_s=None) -> dict:
+    """Phase 25: phase 12's seeded 4-class ragged set as a DSL TSV through
+    FastskMulticlassRunner (exact, g8 m4): kernel D once a run; linear_ovr
+    and kernel_ovo (kernel B once a class pair) each >= 90% accurate; a
+    profile_dir run's trace names the count kernel. Then roofline's counts
+    of kernel A's work at KAT2B (``kat2b_engine``), the executed (padded)
+    tile operations and the useful ones, against kernel A's phase-3 time
+    ``a_ms`` and phase 5's kernel_s, and the record's bound (``a_bound``:
+    its dict, windows, width and bytes) against the formula it had before
+    the bounds moved into utils/roofline.py, its operations against the
+    useful count."""
+    import glob
+
+    from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.harness.runner import FastskMulticlassRunner
+    from fastsk_tpu_torch.utils import roofline
+
+    motifs = np.random.default_rng(12).integers(1, 25, size=(4, 8))
+    X, y = ragged_set(412, *MC_RUNNER_SIZE, motifs=motifs)
+    perm = np.random.default_rng(4120).permutation(len(X))
+    n_tr = int(0.8 * len(X))
+    files = {}
+    for split, idx in (("train", perm[:n_tr]), ("test", perm[n_tr:])):
+        files[split] = os.path.join(tmpdir, f"mc.{split}.tsv")
+        with open(files[split], "w") as f:
+            f.writelines("".join(chr(96 + c) for c in X[i]) + f"\tclass{y[i]}\n" for i in idx)
+    runner = FastskMulticlassRunner(files["train"], files["test"])
+    out = {}
+    trace_dir = os.path.join(tmpdir, "mc_trace")
+    for svm, profile in (("linear_ovr", None), ("kernel_ovo", None), ("linear_ovr", trace_dir)):
+        zero_counts()
+        cfg = KernelConfig(device=dev, profile_dir=profile)
+        res, wall_s = wall(runner.train_and_test, g=8, m=4, approx=False, C=1.0, svm=svm, config=cfg)
+        launches = read_counts()
+        key = svm + ("_profiled" if profile else "")
+        out[key] = dict(accuracy=res["acc"], wall_s=wall_s, launches=launches)
+        want_b = 6 if svm == "kernel_ovo" else 0
+        require(launches["packed_band"] == 1 and launches["pairs_counts"] == 0
+                and launches["smo_solve"] == want_b and launches["smo_nu_solve"] == 0,
+                f"{key}: launches {launches}, expected kernel D once and B {want_b} times")
+        require(res["acc"] >= 0.9, f"{key}: accuracy {res['acc']} < 0.9")
+    traces = glob.glob(os.path.join(trace_dir, "*.json"))
+    names = set()
+    for t in traces:
+        with open(t) as f:
+            names |= {e.get("name", "") for e in json.load(f).get("traceEvents", [])}
+    out["trace_files"] = len(traces)
+    out["trace_names_count_kernel"] = any("packed_bytes_kernel" in nm for nm in names)
+    require(len(traces) == 1 and out["trace_names_count_kernel"],
+            f"the profile_dir run's trace does not name packed_bytes_kernel ({len(traces)} files)")
+    if kat2b_engine is not None:
+        eng = kat2b_engine
+        rl = roofline.pairs_engine_flops(eng)
+
+        def share(ops, s):
+            return roofline.mfu(ops, s, dev, "int8")
+
+        out["kernel_a_kat2b"] = dict(
+            executed_flops=rl["flops"], useful_flops=rl["useful_flops"], body=rl["body"],
+            tile=rl["tile"], ms=a_ms, slice_kernel_s=slice_kernel_s,
+            int8_share_executed=share(rl["flops"], a_ms / 1e3),
+            int8_share_useful=share(rl["useful_flops"], a_ms / 1e3),
+            int8_share_executed_slice=share(rl["flops"], slice_kernel_s),
+            int8_share_useful_slice=share(rl["useful_flops"], slice_kernel_s),
+            line=roofline.format_mfu_line(
+                "kernel A KAT2B, executed (padded) tile ops", rl["flops"], a_ms / 1e3, dev, "int8"),
+            line_useful=roofline.format_mfu_line(
+                "kernel A KAT2B, useful ops", rl["useful_flops"], a_ms / 1e3, dev, "int8"),
+        )
+    if a_bound is not None:
+        rec, windows, width, nbytes = a_bound
+        ops = 2.0 * width * windows * (windows + 1) / 2
+        before = max(ops / 1979e12 * 1e3, nbytes / 3.35e12 * 1e3)
+        out["kernel_a_bound_ms"] = dict(record=rec["bound_ms"], formula=before)
+        require(rec["bound_ms"] == before,
+                f"kernel A's bound_ms moved: {rec['bound_ms']} != {before}")
+        if kat2b_engine is not None:
+            require(out["kernel_a_kat2b"]["useful_flops"] == ops,
+                    f"roofline's useful count {out['kernel_a_kat2b']['useful_flops']} is not "
+                    f"the bound's {ops} operations")
+    emit("multiclass-runner", classes=4, n_train=n_tr, n_test=len(X) - n_tr, **out)
+    return out
+
+
+def baselines_phase(dev, tmpdir: str) -> dict:
+    """Phase 26: CharCNN (8 epochs) and SeqLSTM (30) on KAT2B, Adam lr 1e-3,
+    batch 64, seed 0, against the JAX package's mean AUCs; the batch-size-1
+    plain-SGD LSTM at a quarter of the training set for one epoch (its
+    loss falls from the epoch's first half of steps to its second); and
+    both models' logits on the card from the same weights as on the CPU.
+    No hand-written kernel runs here."""
+    from fastsk_tpu_torch import FastaUtility
+    from fastsk_tpu_torch.models import CharCNN, SeqLSTM
+    from fastsk_tpu_torch.models.train import encode_dataset, flax_init_, train_model
+
+    d = split_pair(KAT2B, "kat2b_dl", tmpdir)
+    tr_file, te_file = (os.path.join(d, f"kat2b_dl.{s}.fasta") for s in ("train", "test"))
+    out = {}
+    for kind, epochs, floor, kw in (
+        ("cnn", CNN_EPOCHS, 0.85, {}),
+        ("lstm", LSTM_EPOCHS, 0.80, {}),
+        ("lstm_b1", 1, None, dict(batch_size=1, optimizer="sgd", momentum=None, lr=0.05,
+                                  train_fraction=B1_FRACTION)),
+    ):
+        zero_counts()
+        args = dict(epochs=epochs, batch_size=64, lr=1e-3, seed=0, device=dev) | kw
+        res, peak = peak_mib(train_model, kind.split("_")[0], tr_file, te_file, **args)
+        out[kind] = dict(auc=res.auc, acc=res.acc, epochs=epochs, train_s=res.train_time_s,
+                         s_an_epoch=res.train_time_s / epochs, peak_mib=peak,
+                         first_loss=res.history[0], last_loss=res.history[-1]["loss"],
+                         launches=read_counts(), **{k: v for k, v in kw.items() if k != "optimizer"})
+        require(all(v == 0 for v in out[kind]["launches"].values()),
+                f"{kind}: a hand-written kernel ran: {out[kind]['launches']}")
+        if floor is not None:
+            require(res.auc >= floor, f"{kind}: AUC {res.auc} < {floor}")
+        else:
+            h = res.history[0]
+            require(h["loss_second_half"] < h["loss_first_half"],
+                    f"the B=1 LSTM's loss did not fall: {h}")
+    # the same weights on the card and on the CPU, f32 convolutions and
+    # recurrences (no TF32)
+    reader = FastaUtility()
+    Xte, Yte = reader.read_data(te_file)
+    letters = len(reader.vocab) - 1
+    toks, lengths, _, _ = encode_dataset(Xte[:PARITY_ROWS], Yte[:PARITY_ROWS], 200, letters + 1)
+    onehot = torch.nn.functional.one_hot(
+        torch.from_numpy(toks).long().sub(1).clamp_min(0), letters).float()
+    onehot *= torch.from_numpy(toks > 0)[..., None]
+    gen = torch.Generator().manual_seed(26)
+    cnn = CharCNN().init_params(onehot[:2], gen).eval()
+    lstm = SeqLSTM(vocab_size=letters + 1).eval()
+    flax_init_(lstm, gen)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            pairs = {
+                "cnn": (cnn(onehot), copy_to(cnn, dev)(onehot.to(dev))),
+                "lstm": (lstm(torch.from_numpy(toks).long(), torch.from_numpy(lengths)),
+                         copy_to(lstm, dev)(torch.from_numpy(toks).long().to(dev),
+                                            torch.from_numpy(lengths))),
+            }
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for kind, (host, card) in pairs.items():
+        out[f"{kind}_max_abs_dlogit"] = float((card.cpu() - host).abs().max())
+        require(out[f"{kind}_max_abs_dlogit"] <= 1e-4,
+                f"{kind}: card logits off the CPU's by {out[f'{kind}_max_abs_dlogit']}")
+    emit("baselines", dataset="KAT2B", **out)
+    return out
+
+
+def copy_to(model, dev):
+    """A copy of ``model`` with the same weights on ``dev``, in eval mode."""
+    import copy
+
+    return copy.deepcopy(model).to(dev).eval()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; there is no CPU run")
@@ -2225,6 +2599,7 @@ def main() -> None:
     dna = np.random.default_rng(1).integers(1, 5, size=(7230, 200)).tolist()
     pairs_times = {}
     probe_cases = {}  # kernel A's operands and plain counts, for phase 16
+    a_bound_inputs = {}  # kernel A's windows, width and bytes, for phase 25
     kat2b_counts = None
     for name, seqs, g, m in (
         ("KAT2B", (Xtr, Xte), 8, 4),
@@ -2261,6 +2636,7 @@ def main() -> None:
             count_bound(windows, width, x.numel() + eng.n_pad**2 * 4), ms_by,
         )
         probe_cases[name] = (x, g, g - m, eng.p_pad, want, windows, width)
+        a_bound_inputs[name] = (windows, width, x.numel() + eng.n_pad**2 * 4)
         del x, want
     torch.cuda.empty_cache()
     d_kat2b = kat2b_on_d(dev, Xtr, Xte, kat2b_counts)
@@ -2376,6 +2752,20 @@ def main() -> None:
     approx_219_phase(dev)
     theta_sorted_phase(dev)
     sorted_mesh_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ------------- the EKM, Lasso, the runners, observe/roofline, baselines
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ekm_") as tmpdir:
+        ekm_phase(dev, tmpdir)
+        torch.cuda.empty_cache()
+        lasso_phase(dev, tmpdir)
+        torch.cuda.empty_cache()
+        kat2b_eng = PairsGkmEngine(encode_sequences(Xtr, Xte), 8, 4, KernelConfig(device=dev))
+        multiclass_runner_phase(
+            dev, tmpdir, a_ms=pairs_times["KAT2B"][0], kat2b_engine=kat2b_eng,
+            a_bound=(pairs_times["KAT2B"][3], *a_bound_inputs["KAT2B"]), slice_kernel_s=kernel_s,
+        )
+        baselines_phase(dev, tmpdir)
 
     record = {
         "kernels": [

@@ -15,6 +15,18 @@ import torch
 from ..parallel.sharding import Mesh
 
 
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device with no card raises
+    instead of falling back to the CPU (pass ``device="cpu"`` for that)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found; pass device='cpu' (or "
+            "KernelConfig(device='cpu')) to run on the CPU"
+        )
+    return device
+
+
 @dataclass
 class KernelConfig:
     """Knobs of the kernel engines."""
@@ -91,6 +103,10 @@ class KernelConfig:
     # (round-robin strips; the sorted engine's theta-sharded passes). The
     # dense theta engine always keeps row blocks.
     mesh_state: str = "sharded"
+
+    # Write a torch.profiler trace (Chrome JSON) of the kernel computation
+    # into this directory (utils/observe.py:profiler_trace).
+    profile_dir: Optional[str] = None
 
     quiet: bool = True
 

@@ -9,7 +9,9 @@ reference's Welford stop rule, deterministic given the seed. Under
 only (parallel/sharding.py). ``KernelConfig.checkpoint_path`` persists the
 accumulator and the queue's cursor (utils/checkpoint.py), in the JAX
 engine's layout and under its digests: either package resumes the other's
-checkpoint.
+checkpoint. Progress lines go through ``utils/observe.Progress`` (gated by
+``KernelConfig.quiet``), and ``KernelConfig.profile_dir`` takes a
+``torch.profiler`` trace of each exact run, where the JAX engine traces.
 
 Integer exactness, as in the JAX engine: each batch's partial kernel is
 exact (``theta_batch * p_max^2 < 2^24`` in f32, or below 2^31 in f64 past
@@ -33,6 +35,7 @@ from ..ops.combinatorics import enumerate_combinations, sample_combinations
 from ..ops.encode import EncodedSeqs
 from ..parallel import sharding as shd
 from ..utils.checkpoint import KernelCheckpoint, problem_digest, theta_tag
+from ..utils.observe import Progress, profiler_trace, timed
 from .config import KernelConfig
 from .device_counts import _CARRY_SHIFT, DeviceCounts, _carry_spill
 
@@ -74,6 +77,7 @@ class DenseGkmEngine:
         self.m = m
         self.k = g - m
         self.config = config or KernelConfig()
+        self.progress = Progress(quiet=self.config.quiet)
         self.base = enc.hash_base
         self.code_min = enc.code_min
 
@@ -152,10 +156,6 @@ class DenseGkmEngine:
 
     def _batch(self, thetas: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(thetas, dtype=np.int64), device=self.device)
-
-    def _log(self, msg: str) -> None:
-        if not self.config.quiet:
-            print(msg)
 
     # ---------------------------------------------------------- exact
 
@@ -324,10 +324,13 @@ class DenseGkmEngine:
         """Exact unnormalized kernel as device-resident ``DeviceCounts``
         (one device, or collapsed from a mesh's row blocks)."""
         thetas = enumerate_combinations(self.g, self.k)
-        self._log(f"dense exact (device-resident): {len(thetas)} passes over {self.n} sequences")
-        if self.mesh is not None:
-            return self._sum_thetas_sharded_device(thetas)
-        return self._sum_thetas_device(thetas)
+        self.progress.log(
+            f"dense exact (device-resident): {len(thetas)} passes over {self.n} sequences"
+        )
+        with profiler_trace(self.config.profile_dir):
+            if self.mesh is not None:
+                return self._sum_thetas_sharded_device(thetas)
+            return self._sum_thetas_device(thetas)
 
     def _sum_thetas_sharded(self, thetas: np.ndarray) -> np.ndarray:
         """Mesh-parallel exact sum: rows x theta sharding, psum merge.
@@ -366,11 +369,16 @@ class DenseGkmEngine:
     def exact(self) -> np.ndarray:
         """Exact unnormalized kernel (int64 [N, N]) over all C(g, m) subsets."""
         thetas = enumerate_combinations(self.g, self.k)
-        self._log(
+        self.progress.log(
             f"dense exact: {len(thetas)} passes over {self.n} sequences "
             f"(B={self.b_total}, batch={self.theta_batch})"
         )
-        return self._sum_thetas(thetas)
+        pairs_total = self.n * (self.n + 1) / 2 * len(thetas)
+        with profiler_trace(self.config.profile_dir), timed(
+            self.progress, "dense exact kernel", pairs_total, "pairs",
+            device=None if self.config.quiet else self.device,
+        ):
+            return self._sum_thetas(thetas)
 
     # ---------------------------------------------------------- approx
 
@@ -472,7 +480,7 @@ class DenseGkmEngine:
                            next_theta=np.int64(i), stdevs=np.asarray(stdevs, dtype=np.float64))
 
         it, done_flag = int(state[2]), bool(state[3])
-        self._log(f"approx: {'converged' if done_flag else 'stopped'} after {it} iterations")
+        self.progress.log(f"approx: {'converged' if done_flag else 'stopped'} after {it} iterations")
         # the variance-tracked loop sums k_sum in int32 with no spill, as
         # the JAX engine does (the stream's length bounds it)
         if device_out:

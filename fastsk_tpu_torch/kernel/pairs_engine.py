@@ -22,13 +22,16 @@ these two runs, over the mesh's devices (``parallel/sharding.py``, kernel
 F), and its counts come back to the host: the ring (``mesh_state=
 "sharded"``) or round-robin strips (``"replicated"``), as in the JAX
 engine. A mesh across processes goes to the theta engines.
+
+Progress lines go through ``utils/observe.Progress`` (gated by
+``KernelConfig.quiet``), and ``KernelConfig.profile_dir`` takes a
+``torch.profiler`` trace of each exact run of both engines.
 """
 
 from __future__ import annotations
 
 import math
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -41,6 +44,7 @@ from ..ops.pairs_packed_cuda import (
     PackedRows, packed_band, packed_grouped, packed_pairlist,
 )
 from ..parallel import sharding as shd
+from ..utils.observe import Progress, profiler_trace, timed
 from .config import KernelConfig
 from .device_counts import DeviceCounts
 
@@ -113,16 +117,15 @@ class PairsGkmEngine:
     def exact_device(self) -> DeviceCounts:
         """Exact unnormalized kernel as ``DeviceCounts`` on the configured
         device (kernel A on a CUDA device)."""
-        t0 = time.perf_counter()
-        full = pairs_counts(self._build_x(), g=self.g, k=self.k, p_pad=self.p_pad)
-        counts = full[: self.n, : self.n].contiguous()
-        if not self.config.quiet:
-            if counts.is_cuda:
-                torch.cuda.synchronize(counts.device)
-            print(
-                f"pairs exact: {self.n} sequences, p_pad={self.p_pad}, "
-                f"{time.perf_counter() - t0:.3f} s on {counts.device}"
-            )
+        progress = Progress(quiet=self.config.quiet)
+        progress.log(f"pairs exact: {self.n} sequences, p_pad={self.p_pad}")
+        pairs_total = self.n * (self.n + 1) / 2 * math.comb(self.g, self.k)
+        with profiler_trace(self.config.profile_dir), timed(
+            progress, "pairs exact kernel", pairs_total, "pairs",
+            device=None if self.config.quiet else self.config.device,
+        ):
+            full = pairs_counts(self._build_x(), g=self.g, k=self.k, p_pad=self.p_pad)
+            counts = full[: self.n, : self.n].contiguous()
         return DeviceCounts(counts)
 
     def exact(self) -> np.ndarray:
@@ -260,22 +263,23 @@ class PackedPairsEngine:
     def _counts(self) -> torch.Tensor:
         """Exact int64 counts ``[n, n]`` in the input order, on the device
         (the length sort is undone there)."""
-        t0 = time.perf_counter()
-        k_sorted = self.counts_sorted()
-        pos = np.empty(self.n, dtype=np.int64)
-        pos[self.order] = np.arange(self.n)
-        pos_t = torch.from_numpy(pos).to(k_sorted.device)
-        full = k_sorted.index_select(0, pos_t).index_select(1, pos_t)
-        if not self.config.quiet:
-            if full.is_cuda:
-                torch.cuda.synchronize(full.device)
-            print(
-                f"packed pairs exact ({self.route}): {self.n} sequences, "
-                f"{self.total_rows} window rows, strips={self.n_strips}, "
-                f"c_max={self.c_max}, {time.perf_counter() - t0:.3f} s on "
-                f"{full.device}"
-            )
-        return full
+        progress = Progress(quiet=self.config.quiet)
+        progress.log(
+            f"packed pairs exact ({self.route}): {self.n} sequences, "
+            f"{self.total_rows} window rows, strips={self.n_strips}, c_max={self.c_max}"
+        )
+        with profiler_trace(self.config.profile_dir), timed(
+            progress, "packed pairs kernel", self._pairs_total(), "pairs",
+            device=None if self.config.quiet else self.config.device,
+        ):
+            k_sorted = self.counts_sorted()
+            pos = np.empty(self.n, dtype=np.int64)
+            pos[self.order] = np.arange(self.n)
+            pos_t = torch.from_numpy(pos).to(k_sorted.device)
+            return k_sorted.index_select(0, pos_t).index_select(1, pos_t)
+
+    def _pairs_total(self) -> float:
+        return self.n * (self.n + 1) / 2 * math.comb(self.g, self.k)
 
     def exact_device(self):
         """Exact unnormalized kernel: ``DeviceCounts`` (int32, on the
@@ -292,18 +296,19 @@ class PackedPairsEngine:
         """Exact unnormalized kernel, int64 [N, N] on the host."""
         if self.mesh is None:
             return self._counts().cpu().numpy()
-        t0 = time.perf_counter()
-        if self.config.mesh_state == "sharded":
-            k_sorted = self._exact_sharded_planes_rows()
-        else:
-            k_sorted = self._exact_sharded_planes()
-        if not self.config.quiet:
-            print(
-                f"packed pairs exact ({self.route}, {self.mesh.size} devices): "
-                f"{self.n} sequences, {self.total_rows} window rows, "
-                f"strips={self.n_strips}, c_max={self.c_max}, "
-                f"{time.perf_counter() - t0:.3f} s"
-            )
+        progress = Progress(quiet=self.config.quiet)
+        progress.log(
+            f"packed pairs exact ({self.route}, {self.mesh.size} devices): "
+            f"{self.n} sequences, {self.total_rows} window rows, "
+            f"strips={self.n_strips}, c_max={self.c_max}"
+        )
+        with profiler_trace(self.config.profile_dir), timed(
+            progress, "packed pairs kernel (mesh)", self._pairs_total(), "pairs"
+        ):
+            if self.config.mesh_state == "sharded":
+                k_sorted = self._exact_sharded_planes_rows()
+            else:
+                k_sorted = self._exact_sharded_planes()
         pos = np.empty(self.n, dtype=np.int64)
         pos[self.order] = np.arange(self.n)
         return k_sorted[np.ix_(pos, pos)]

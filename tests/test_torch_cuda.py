@@ -87,6 +87,8 @@ def test_kernel_a_default_body_by_depth(cuda, g, m, alpha, n, length, body):
     np.testing.assert_array_equal(got, oracle.exact_counts(X, g, m))
 
 
+# tests/test_torch_observe.py holds its CPU stand-in of the sizing rule to
+# the same table
 @pytest.mark.parametrize(
     "n_pad,p_pad,depth,tile",
     [

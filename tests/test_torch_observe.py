@@ -1,0 +1,276 @@
+"""The port's observability and roofline accounting, on the CPU.
+
+``fastsk_tpu_torch/utils/observe.py`` (``Progress``, ``timed``,
+``profiler_trace``, the ``profile_dir`` knob on seeded
+``compute_kernel`` runs) and ``utils/roofline.py`` (device classes on
+card names, ``mfu``, the bound helpers ``chip_smoke.py`` takes from it,
+and kernel A's and kernel D's work against brute-force counts of the
+port's tiles on seeded sequences; the JAX test of the same kind reads the
+absent reference data dir, this one does not). Also the package-level
+checks: the port imports no JAX, and every public name of the JAX files
+this slice ports exists in the port unless ROADMAP.md lists it as not
+ported.
+
+Counts are exact: work and tile counts equal, kernels with and without a
+trace equal.
+"""
+
+import ast
+import glob
+import io
+import json
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from fastsk_tpu_torch import FastSK, KernelConfig
+from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
+from fastsk_tpu_torch.ops import pairs_cuda
+from fastsk_tpu_torch.ops.encode import encode_sequences
+from fastsk_tpu_torch.ops.pairs_cuda import mma_depth, padded_width, tile_sequences
+from fastsk_tpu_torch.ops.pairs_packed_cuda import ROW_TILE, code_planes
+from fastsk_tpu_torch.utils import roofline
+from fastsk_tpu_torch.utils.observe import Progress, profiler_trace, timed
+
+from conftest import random_ragged_seqs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# ------------------------------------------------------------- observe
+
+
+def test_progress_quiet_gating():
+    buf = io.StringIO()
+    Progress(quiet=True, stream=buf).log("hidden")
+    assert buf.getvalue() == ""
+    buf2 = io.StringIO()
+    Progress(quiet=False, stream=buf2).log("shown")
+    out = buf2.getvalue()
+    assert "shown" in out and out.startswith("[fastsk +")
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_timed_reports_wall_and_rate(device):
+    buf = io.StringIO()
+    p = Progress(quiet=False, stream=buf)
+    with timed(p, "span", work_items=100, unit="pairs", device=device) as info:
+        pass
+    assert info["wall_s"] >= 0 and info["rate"] > 0
+    assert "pairs/s" in buf.getvalue()
+    with timed(p, "plain") as info2:
+        pass
+    assert "rate" not in info2 and "plain:" in buf.getvalue()
+
+
+def _traces(path):
+    return sorted(glob.glob(os.path.join(path, "*.json")))
+
+
+def test_profiler_trace_noop_and_file(tmp_path):
+    with profiler_trace(None):
+        x = 1
+    assert x == 1
+    with profiler_trace(str(tmp_path / "tr")):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    (path,) = _traces(tmp_path / "tr")
+    events = json.load(open(path))["traceEvents"]
+    assert any("mm" in e.get("name", "") for e in events)
+
+
+@pytest.mark.parametrize("engine", ["pairs", "packed", "theta"])
+def test_profile_dir_traces_a_seeded_compute_kernel(tmp_path, rng, capsys, engine):
+    """Each exact engine writes a trace under profile_dir, logs through
+    Progress when not quiet, and computes the same counts as without."""
+    X = random_ragged_seqs(rng, 9, 12, 20, 4)
+    plain = FastSK(6, 2, config=KernelConfig(device="cpu", exact_engine=engine))
+    plain.compute_kernel(X[:6], X[6:])
+    cfg = KernelConfig(device="cpu", exact_engine=engine, profile_dir=str(tmp_path), quiet=False)
+    fsk = FastSK(6, 2, config=cfg)
+    fsk.compute_kernel(X[:6], X[6:])
+    np.testing.assert_array_equal(fsk.kernel_counts, plain.kernel_counts)
+    assert len(_traces(tmp_path)) == 1
+    err = capsys.readouterr().err
+    assert "[fastsk +" in err and "pairs/s" in err
+
+
+# ------------------------------------------------------------ roofline
+
+
+def test_classify_device_and_mfu():
+    assert roofline.classify_device("NVIDIA H100 80GB HBM3") == "h100"
+    assert roofline.classify_device("NVIDIA H100 PCIe") == "h100"
+    assert roofline.classify_device("NVIDIA A100-SXM4-80GB") is None
+    assert roofline.classify_device(torch.device("cpu")) is None
+    assert roofline.classify_device("cpu") is None
+    h100 = "NVIDIA H100 80GB HBM3"
+    assert roofline.device_peak_flops(h100, "int8") == 1979e12
+    assert roofline.device_hbm_bw(h100) == 3.35e12
+    assert abs(roofline.mfu(989e12, 1.0, h100, "bf16") - 1.0) < 1e-12
+    assert roofline.mfu(1e12, 1.0, "cpu") is None
+    line = roofline.format_mfu_line("x", 989e12, 2.0, h100, "bf16")
+    assert "50.0%" in line and "h100" in line
+    assert "unknown device peak" in roofline.format_mfu_line("x", 1e9, 1.0, "cpu", "bf16")
+
+
+def test_bounds_are_the_smoke_record_s():
+    """chip_smoke.py takes its peaks and bounds from the package, and they
+    keep the values the kernel record used before the move."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.count_bound is roofline.count_bound and smoke.smo_bound is roofline.smo_bound
+    assert smoke.bound is roofline.bound
+    b = roofline.count_bound(1000, 40, 1e3)
+    assert b["bound_ms"] == 2.0 * 40 * 1000 * 1001 / 2 / 1979e12 * 1e3
+    assert b["bound_by"] == "operations"
+    s = roofline.smo_bound(100, 10)
+    assert s == {"bound_ms": (4.0 * 100 * 100 + 2000.0) / 3.35e12 * 1e3, "bound_by": "bytes"}
+
+
+def _mma_tile_rule(n_pad, p_pad, depth):
+    """csrc/pairs.cu:pairs_mma_tile's sizing of the tensor-core tile, the
+    built library's answer, which the CPU cannot ask: 128-row chunks, two
+    blocks an SM in 113 KB each, or one in 227 KB. A stand-in for these
+    tests only, held to the table that tests/test_torch_cuda.py holds the
+    library to."""
+    if n_pad < 1 or p_pad < 8 or depth < 64:
+        return 0
+
+    def smem(s):
+        return (-(-s * p_pad // 128) + 2) * 128 * depth + (s * s + 32) * 4
+
+    for s in (8, 4, 2, 1):
+        if n_pad % s == 0 and smem(s) <= 113 * 1024:
+            return s
+    return 1 if smem(1) <= 227 * 1024 else 0
+
+
+@pytest.mark.parametrize("n_pad,p_pad,depth,tile", [
+    (7024, 200, 64, 4), (7232, 192, 64, 8), (24, 96, 64, 8), (12, 8, 64, 4), (8, 200, 192, 1),
+    (8, 200, 320, 1), (8, 200, 448, 1), (8, 200, 512, 0), (8, 904, 320, 0),
+])
+def test_tile_rule_is_the_library_s(n_pad, p_pad, depth, tile):
+    """The same table as tests/test_torch_cuda.py::test_kernel_a_mma_tiling."""
+    assert _mma_tile_rule(n_pad, p_pad, depth) == tile
+
+
+def _brute_kernel_a(eng):
+    """Kernel A's int8 MACs, block by block, chunk by chunk, as
+    csrc/pairs.cu walks them."""
+    f = eng.g * eng.alpha
+    depth = mma_depth(f)
+    s = _mma_tile_rule(eng.n_pad, eng.p_pad, depth)
+    macs = 0
+    if s:
+        rows = s * eng.p_pad
+        nc = -(-rows // 128)
+        nt = eng.n_pad // s
+        for bi in range(nt):
+            for bj in range(bi, nt):
+                for ci in range(nc):
+                    for wg in range(2):
+                        if ci * 128 + 64 * wg < rows:  # a live warpgroup
+                            macs += nc * 64 * 128 * depth
+        return macs, "mma"
+    width = padded_width(f)
+    s = tile_sequences(eng.n_pad, eng.p_pad, width)
+    nt = eng.n_pad // s
+    for bi in range(nt):
+        for bj in range(nt):
+            if bj >= bi:  # the lower block triangle returns at once
+                macs += (s * eng.p_pad) ** 2 * width
+    return macs, "dp4a"
+
+
+@pytest.mark.parametrize("n,length,g,m,body", [
+    (13, 30, 6, 2, "mma"), (40, 200, 8, 4, "mma"), (9, 57, 10, 6, "mma"), (3, 4010, 8, 4, "dp4a"),
+])
+def test_pairs_engine_flops_counts_kernel_a_s_tiles(n, length, g, m, body, monkeypatch):
+    monkeypatch.setattr(pairs_cuda, "mma_tile_sequences", _mma_tile_rule)
+    rng = np.random.default_rng(n)
+    X = rng.integers(1, 5, size=(n, length)).tolist()
+    eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device="cpu"))
+    rl = roofline.pairs_engine_flops(eng)
+    macs, brute_body = _brute_kernel_a(eng)
+    assert rl["body"] == brute_body == body
+    assert rl["flops"] == 2.0 * macs
+    windows = n * (length - g + 1)
+    useful = sum(2 * g * eng.alpha for a in range(windows) for b in range(a, windows))
+    assert rl["useful_flops"] == useful <= rl["flops"]
+    assert roofline.count_bound(windows, g * eng.alpha, 1.0)["bound_ms"] == useful / 1979e12 * 1e3
+    assert rl["ai"] > 0 and rl["bytes_hbm"] > 0 and rl["dtype"] == "int8"
+
+
+@pytest.mark.parametrize("n,alpha", [(30, 4), (60, 24)])
+def test_packed_engine_flops_counts_kernel_d_s_pairs(n, alpha):
+    rng = np.random.default_rng(alpha)
+    X = random_ragged_seqs(rng, n, 16, 300, alpha)
+    eng = PackedPairsEngine(encode_sequences(X), 8, 4, KernelConfig(device="cpu"))
+    rl = roofline.packed_engine_flops(eng)
+    planes = eng.rows().planes
+    n_tiles = planes.shape[0] // ROW_TILE
+    tile_pairs = sum(1 for a in range(n_tiles) for b in range(n_tiles) if b >= a)
+    assert rl["tile_pairs"] == tile_pairs
+    assert rl["window_pairs"] == tile_pairs * ROW_TILE**2
+    nb = code_planes(eng.alpha)
+    assert rl["code_planes"] == nb and rl["bit_ops"] == rl["window_pairs"] * (nb + 1)
+    assert rl["flops"] == 2.0 * 8 * eng.alpha * rl["window_pairs"]
+    assert rl["bytes_hbm"] == planes.numel() * 4 + planes.shape[0] * 4 + eng.n**2 * 8
+
+
+# ------------------------------------------------------------- package
+
+_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|fastsk_tpu)\b", re.M)
+
+
+def test_the_port_imports_no_jax():
+    files = glob.glob(os.path.join(REPO, "fastsk_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    offenders = [f for f in files if _JAX_IMPORT.search(open(f).read())]
+    assert len(files) > 40 and offenders == []
+
+
+# this slice's JAX files, and what ROADMAP.md lists as not ported from them
+PORTED = {
+    "svm/linear.py": set(), "svm/lasso.py": set(), "__main__.py": set(),
+    "utils/observe.py": {"enable_compilation_cache"},
+    "utils/roofline.py": {
+        "TPU_PEAKS", "TPU_HBM_BW", "TPU_VPU_OPS", "TPU_VPU_OPS_MEASURED", "vpu_rate",
+        "ffact_vpu_ops", "pairs_kernel_composite", "packed_band_composite",
+        "format_composite_line",
+    },
+    "io/readers.py": set(), "harness/__init__.py": set(), "harness/runner.py": set(),
+    "harness/baselines.py": set(), "models/__init__.py": set(), "models/charcnn.py": set(),
+    "models/lstm.py": set(), "models/train.py": set(),
+}
+
+
+def _public(path):
+    tree = ast.parse(open(path).read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names.update(t.id for t in targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", sorted(PORTED))
+def test_every_public_name_is_ported(rel):
+    jax_file = os.path.join(REPO, "fastsk_tpu", rel)
+    port_file = os.path.join(REPO, "fastsk_tpu_torch", rel)
+    assert os.path.exists(port_file)
+    missing = _public(jax_file) - _public(port_file) - PORTED[rel]
+    # the JAX files' own imports of jax, flax, optax and functools are not API
+    missing -= {"jax", "jnp", "nn", "optax", "functools", "annotations"}
+    assert missing == set(), missing

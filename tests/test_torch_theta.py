@@ -234,9 +234,9 @@ def test_device_spill_into_hi(monkeypatch):
                                    k / np.sqrt(np.outer(np.diag(k), np.diag(k))), rtol=1e-6)
 
 
-def test_theta_engines_refuse_a_mesh():
-    """Once refused, a mesh now runs both theta engines, equal to the JAX
-    engines on the same (1, 2) mesh."""
+def test_theta_engines_on_a_mesh_match_jax():
+    """Both theta engines run on a (1, 2) mesh, equal to the JAX engines on
+    the same mesh."""
     from fastsk_tpu.kernel.sorted_engine import SortedGkmEngine as JSorted
     from fastsk_tpu.parallel import make_mesh as j_make_mesh
     from fastsk_tpu_torch.parallel import make_mesh
