@@ -181,7 +181,19 @@ raises and the exit code is non-zero:
           (parallel/multihost.py; nccl refuses two ranks on one card),
           global_mesh(rows=2, theta=1): KAT2B exact theta counts equal to
           phase 5's; a device-resident fit and score gives 0.904993 on
-          both ranks; each process within a timeout; the two-process wall.
+          both ranks. Then kernel F's mesh routes, each rank launching
+          its own entry: KAT2B through exact_engine="auto" (both ranks
+          take the packed engine's ring, as the JAX package routes a
+          mesh) equal to kernel A's counts, fit (C=1; kernel B twice for
+          6 problems) and scored at the AUC of the same host path in one
+          process (a mesh keeps the packed counts on the host, as in the
+          JAX package; that path does not score 0.904993); the 2.19 set
+          through exact_engine="packed", mesh_state "sharded" then
+          "replicated", equal to phase 8's kernel D counts; each rank's
+          kernel F launches (the ranks' adding up to one process's), route
+          ms, kernel_s, fit_s and MiB sent through the ring and the merge.
+          Each process within a timeout; the two-process wall. Run after
+          phase 9, on phase 5's and 8's counts.
 
 23. ekm   harness.FastskRunner (kernel rows -> balanced CalibratedLinearSVC
           -> AUC) on KAT2B g13 m7 and EP300 g10 m4, C=1, from the in-repo
@@ -992,7 +1004,10 @@ import numpy as np
 import torch
 
 from fastsk_tpu_torch import FastSK, FastaUtility, KernelConfig
+from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed_cuda
 from fastsk_tpu_torch.parallel import multihost
+from fastsk_tpu_torch.parallel import sharding as shd
+from fastsk_tpu_torch.svm import smo_cuda
 
 coord, pid, tmpdir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 t0 = time.perf_counter()
@@ -1001,6 +1016,10 @@ mesh = multihost.global_mesh(rows=2, theta=1, local_devices=["cuda:0"])
 reader = FastaUtility()
 Xtr, Ytr = reader.read_data(f"{tmpdir}/train.fasta")
 Xte, Yte = reader.read_data(f"{tmpdir}/test.fasta")
+a_ref = np.load(f"{tmpdir}/a_counts.npy")
+d_ref = np.load(f"{tmpdir}/d219.npy")
+with open(f"{tmpdir}/x219.json") as f:
+    X219 = json.load(f)
 
 
 def timed(fn, *a, **kw):
@@ -1011,34 +1030,138 @@ def timed(fn, *a, **kw):
     return out, time.perf_counter() - t
 
 
+# the dense theta engine
 cfg = dict(device="cuda", mesh=mesh, exact_engine="theta")
 fsk = FastSK(8, 4, config=KernelConfig(**cfg))
 _, kernel_s = timed(fsk.compute_kernel, Xtr, Xte)
-if pid == 0:
-    np.save(f"{tmpdir}/counts.npy", fsk.kernel_counts.astype(np.int32))
+theta = dict(kernel_s=kernel_s, counts_equal_a=bool(np.array_equal(fsk.kernel_counts, a_ref)))
 dev = FastSK(8, 4, config=KernelConfig(device_resident=True, **cfg))
-_, dev_kernel_s = timed(dev.compute_kernel, Xtr, Xte, Ytr, Yte)
-_, fit_s = timed(dev.fit, C=1.0)
-auc, score_s = timed(dev.score, "auc")
-print(json.dumps(dict(rank=pid, ranks=list(mesh.ranks), kernel_s=kernel_s,
-                      dev_kernel_s=dev_kernel_s, resident=dev._counts_dev is not None,
-                      fit_s=fit_s, score_s=score_s, auc=auc,
+_, theta["dev_kernel_s"] = timed(dev.compute_kernel, Xtr, Xte, Ytr, Yte)
+theta["resident"] = dev._counts_dev is not None
+_, theta["fit_s"] = timed(dev.fit, C=1.0)
+theta["auc"], theta["score_s"] = timed(dev.score, "auc")
+del fsk, dev
+
+# the packed engine: kernel F's routes, this process launching its own entries
+counters = (
+    pairs_packed_cuda.packed_block, pairs_packed_cuda.packed_band,
+    pairs_packed_cuda.packed_pairlist, pairs_packed_cuda.packed_grouped,
+    pairs_packed_cuda.packed_s1, pairs_cuda.pairs_counts, smo_cuda.smo_solve,
+)
+made, route_ms = [], []
+make_exact = FastSK._make_exact_engine
+FastSK._make_exact_engine = lambda self, enc: made.append(make_exact(self, enc)) or made[-1]
+
+
+def spy(fn):
+    def call(*a, **kw):  # the route's launches and ring shifts, synchronized
+        out, s = timed(fn, *a, **kw)
+        route_ms.append(s * 1e3)
+        return out
+    return call
+
+
+shd.packed_ring_rowsharded = spy(shd.packed_ring_rowsharded)
+shd.packed_round_sharded = spy(shd.packed_round_sharded)
+
+
+def packed_run(compute, ref, **kw):
+    made.clear()
+    route_ms.clear()
+    shd.ring_shift.sent_bytes = shd.reduce_across.bytes = 0
+    for c in counters:
+        c.launches = 0
+    fsk = FastSK(8, 4, config=KernelConfig(device="cuda", mesh=mesh, **kw))
+    _, kernel_s = timed(compute, fsk)
+    eng = made[-1]
+    return fsk, dict(
+        engine=type(eng).__name__, route=eng.route, mesh_state=eng.config.mesh_state,
+        strips=eng.n_strips, kernel_s=kernel_s,
+        route_ms=sum(route_ms), launches={c.__name__: c.launches for c in counters},
+        ring_mib=shd.ring_shift.sent_bytes / 2**20, merge_mib=shd.reduce_across.bytes / 2**20,
+        counts_equal=bool(np.array_equal(fsk.kernel_counts, ref)),
+    )
+
+
+runs = {}
+fsk, run = packed_run(lambda f: f.compute_kernel(Xtr, Xte, Ytr, Yte), a_ref)  # "auto"
+smo_cuda.smo_solve.launches = smo_cuda.smo_solve.problems = 0
+_, run["fit_s"] = timed(fsk.fit, C=1.0)
+run["auc"], run["score_s"] = timed(fsk.score, "auc")
+run["fit_launches"] = [smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems]
+runs["KAT2B auto"] = run
+del fsk
+for state in ("sharded", "replicated"):
+    fsk, runs[f"2.19 {state}"] = packed_run(
+        lambda f: f.compute_train(X219), d_ref, exact_engine="packed", mesh_state=state)
+    del fsk
+print(json.dumps(dict(rank=pid, ranks=list(mesh.ranks), theta=theta, packed=runs,
                       wall_s=time.perf_counter() - t0)), flush=True)
 torch.distributed.destroy_process_group()
 """
 
 
-def multiprocess_phase(a_counts, timeout_s: int = 300) -> dict:
+def packed_route_bound(seqs, n_dev: int, state: str) -> dict:
+    """``route_bound`` of one mesh run of the packed engine (g=8, m=4) on
+    ``seqs`` (train, test or the one set), from its host-side layout."""
+    from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    eng = PackedPairsEngine(encode_sequences(*seqs), 8, 4, KernelConfig(device="cpu"))
+    sw = (eng.pack["seq_of"] >= 0).reshape(eng.n_strips, eng.tile).sum(1).tolist()
+    layout = dict(strip_windows=sw, width=8 * eng.alpha,
+                  nbytes=eng.total_rows * 12 + eng.n**2 * 8)
+    return route_bound(layout, n_dev, state)
+
+
+def rank_launches(n_strips: int, n_dev: int, state: str, entry: int) -> int:
+    """Kernel F's launches of one mesh entry: the ring's one a step whose
+    own and visiting shards both hold live strips, or the round-robin's
+    one a strip it owns."""
+    if state == "replicated":
+        return len(range(entry, n_strips, n_dev))
+    spd = -(-n_strips // n_dev)
+    live = sum(d * spd < n_strips for d in range(n_dev))
+    return live if entry * spd < n_strips else 0
+
+
+def multiprocess_phase(kat2b, a_counts: np.ndarray, X219, d219: np.ndarray,
+                       timeout_s: int = 420) -> dict:
     """Phase 22: two processes on the card, joined over gloo
     (parallel/multihost.py; nccl refuses two ranks on one card), with
-    global_mesh(rows=2, theta=1): KAT2B exact_engine="theta" counts equal
-    to kernel A's of phase 5, and a device-resident fit (C=1) and score
-    giving AUC_KAT2B on both ranks. Each process has ``timeout_s``."""
+    global_mesh(rows=2, theta=1), each within ``timeout_s``. KAT2B
+    (``kat2b``: train and test sequences and labels) through
+    exact_engine="theta": counts equal to kernel A's (``a_counts``, phase
+    5) and a device-resident fit (C=1) and score giving AUC_KAT2B on both
+    ranks. Then the packed engine's mesh routes (kernel F), each rank
+    launching its own entry only: KAT2B through exact_engine="auto" (the
+    packed engine's ring, as the JAX package routes a mesh) equal to
+    kernel A's counts, fit (C=1; kernel B twice for 6 problems) and scored
+    on both ranks at the AUC of the same host path in one process (a mesh
+    keeps the packed engine's counts on the host, as in the JAX package;
+    its f64 Gram, rounded to f32, is not the device-resident path's f32
+    Gram, so it does not score AUC_KAT2B); the 2.19 set ``X219`` through
+    exact_engine="packed" in both mesh states equal to kernel D's
+    (``d219``, phase 8). Each rank's kernel F launches, route ms, kernel_s
+    and the MiB it sent through the ring and the merge."""
     import socket
 
+    from fastsk_tpu_torch import FastSK, KernelConfig
+
+    Xtr, Xte, Ytr, Yte = kat2b
+    one = FastSK(8, 4, config=KernelConfig(device="cuda"))  # the host path, one process
+    one.compute_kernel(Xtr, Xte, Ytr, Yte)
+    one.fit(C=1.0)
+    host_auc = one.score("auc")
+    del one
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmpdir:
         for split in ("train", "test"):
             read_split_fasta(KAT2B, split, tmpdir)
+        np.save(os.path.join(tmpdir, "a_counts.npy"), a_counts)
+        np.save(os.path.join(tmpdir, "d219.npy"), d219)
+        with open(os.path.join(tmpdir, "x219.json"), "w") as f:
+            json.dump(X219, f)
         script = os.path.join(tmpdir, "worker.py")
         with open(script, "w") as f:
             f.write(MULTIPROCESS_WORKER)
@@ -1070,16 +1193,53 @@ def multiprocess_phase(a_counts, timeout_s: int = 300) -> dict:
         for p, (out, err) in zip(procs, outs):
             require(p.returncode == 0, f"a multi-process worker failed ({p.returncode}): {err[-3000:]}")
         ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
-        equal = bool(np.array_equal(np.load(os.path.join(tmpdir, "counts.npy")),
-                                    a_counts.cpu().numpy()))
-    fields = dict(dataset="KAT2B", g=8, m=4, processes=2, backend="gloo", mesh="2x1",
-                  wall_s=wall_s, counts_equal_kernel_a=equal, ranks=ranks)
-    emit("multi-process", **fields)
-    require(equal, "the two-process KAT2B counts differ from kernel A's")
+    emit("multi-process", dataset="KAT2B", g=8, m=4, processes=2, backend="gloo", mesh="2x1",
+         wall_s=wall_s, ranks=[dict(rank=r["rank"], ranks=r["ranks"], wall_s=r["wall_s"],
+                                    **r["theta"]) for r in ranks])
+    n_dev = len(ranks[0]["ranks"])
+    seqs = {"KAT2B": (Xtr, Xte), "2.19": (X219,)}
+    runs, checks = {}, []
+    for name in ranks[0]["packed"]:
+        per_rank = [r["packed"][name] for r in ranks]
+        data, state = name.split()[0], per_rank[0]["mesh_state"]
+        rb = packed_route_bound(seqs[data], n_dev, state)
+        runs[name] = dict(
+            ms_by_rank=[r["route_ms"] for r in per_rank],
+            launches_by_rank=[r["launches"]["packed_block"] for r in per_rank],
+            kernel_s_by_rank=[r["kernel_s"] for r in per_rank], **rb,
+        )
+        emit("multi-process-packed", run=name, mesh="2x1", mesh_state=state, wall_s=wall_s,
+             route_bound=rb, auc_host_path_one_process=host_auc if data == "KAT2B" else None,
+             ranks=[dict(rank=r["rank"], **p) for r, p in zip(ranks, per_rank)])
+        checks.append((name, data, state, per_rank))
+
     for r in ranks:
-        require(r["resident"], f"rank {r['rank']} left the device-resident path")
-        require(round(r["auc"], 6) == AUC_KAT2B, f"rank {r['rank']} AUC {r['auc']} is not {AUC_KAT2B}")
-    return fields
+        t = r["theta"]
+        require(t["counts_equal_a"], f"rank {r['rank']}: the theta engine's KAT2B counts differ from kernel A's")
+        require(t["resident"], f"rank {r['rank']} left the device-resident path")
+        require(round(t["auc"], 6) == AUC_KAT2B, f"rank {r['rank']} AUC {t['auc']} is not {AUC_KAT2B}")
+    require(abs(host_auc - AUC_ANCHOR) <= 0.005, f"the host path's AUC {host_auc} is off the anchor {AUC_ANCHOR}")
+    other = ("packed_band", "packed_pairlist", "packed_grouped", "packed_s1", "pairs_counts")
+    for name, data, state, per_rank in checks:
+        route = "ring" if state == "sharded" else "round-robin"
+        for r, p in zip(ranks, per_rank):
+            want = rank_launches(p["strips"], n_dev, state, r["ranks"].index(r["rank"]))
+            tag = f"{name}, rank {r['rank']}"
+            require(p["engine"] == "PackedPairsEngine" and p["route"] == route,
+                    f"{tag}: took {p['engine']} ({p['route']}), not the packed engine's {route}")
+            require(p["counts_equal"], f"{tag}: counts differ from kernel {'A' if data == 'KAT2B' else 'D'}'s")
+            require(p["launches"]["packed_block"] == want,
+                    f"{tag}: kernel F launched {p['launches']['packed_block']} times, not {want}")
+            require(all(p["launches"][c] == 0 for c in other), f"{tag}: another count kernel launched: {p['launches']}")
+            require(p["merge_mib"] > 0 and (p["ring_mib"] > 0) == (state == "sharded"),
+                    f"{tag}: sent {p['ring_mib']} MiB through the ring and {p['merge_mib']} through the merge")
+            if "auc" in p:
+                require(p["fit_launches"] == [2, 6],
+                        f"{tag}: kernel B {p['fit_launches'][0]} launches for {p['fit_launches'][1]} problems, not 2 for 6")
+                require(p["auc"] == host_auc, f"{tag}: AUC {p['auc']} is not the one-process host path's {host_auc}")
+        require(sum(runs[name]["launches_by_rank"]) == mesh_launches(per_rank[0]["strips"], n_dev, state),
+                f"{name}: the ranks' kernel F launches {runs[name]['launches_by_rank']} do not add up")
+    return dict(wall_s=wall_s, host_auc=host_auc, runs=runs)
 
 
 def sorted_mesh_phase(dev, full=(2564, 16, 905)) -> dict:
@@ -1182,8 +1342,9 @@ def packed_phases(dev, sass: dict, small=(24, 100, 905), medium=(400, 16, 905),
     """Phases 7-9 (the packed engine and kernels D, E, G); each size is
     (sequences, shortest, longest); ``sass`` is the kernel's inner loop as
     phase 2 read it (experiments/sass_loop.py:loop_stats). Returns the
-    kernels' JSON records and kernel B's twin check on the ragged slice's
-    main solve."""
+    kernels' JSON records, kernel B's twin check on the ragged slice's
+    main solve, the slice's model, and the 2.19 set with kernel D's host
+    counts of it (phase 22's reference)."""
     from fastsk_tpu_torch import FastSK, KernelConfig
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
     from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed, pairs_packed_cuda
@@ -1296,6 +1457,7 @@ def packed_phases(dev, sass: dict, small=(24, 100, 905), medium=(400, 16, 905),
     a_counts = a_full[: eng_a.n, : eng_a.n].long()
     errs = {name: int((got - d_counts).abs().max()) for name, (got, _) in res.items()}
     errs["A"] = int((a_counts - d_counts).abs().max())
+    d219 = d_counts.cpu().numpy()  # phase 22's reference
     rows = band.rows()
     plain_sorted, full_plain_ms = cuda_ms(
         pairs_packed.packed_counts_plain, rows.onehot, rows.seq_of, rows.first_seq,
@@ -1439,7 +1601,7 @@ def packed_phases(dev, sass: dict, small=(24, 100, 905), medium=(400, 16, 905),
             ("G", pairs_packed_cuda.packed_grouped, 257),
         )
     ]
-    return packed_rec, smo_219, rfsk
+    return packed_rec, smo_219, rfsk, (X219, d219)
 
 
 def smo_nu_twin(shape: str, gram, labels, nu: float, max_iter: int, clusters=()) -> dict:
@@ -2019,7 +2181,7 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
 
     def spy(fn):
         def call(state, *args, **kwargs):
-            seen.setdefault("state", sorted({tuple(t.shape) for t in state}))
+            seen.setdefault("state", sorted({tuple(t.shape) for t in state.values()}))
             out, ms = cuda_ms(fn, state, *args, **kwargs)  # the route's launches
             seen["route_ms"] = seen.get("route_ms", 0.0) + ms
             return out
@@ -2705,7 +2867,7 @@ def main() -> None:
     # the theta mesh, checkpoints and two processes, on the same counts
     theta_mesh_phase(dev, a_counts, Xtr, Xte, Ytr, Yte, approx_ref)
     checkpoint_phase(dev, a_counts, Xtr, Xte, approx_ref)
-    multiprocess_phase(a_counts)
+    a_host = a_counts.cpu().numpy()  # phase 22's reference
     del a_counts, approx_ref
     torch.cuda.empty_cache()
 
@@ -2720,7 +2882,10 @@ def main() -> None:
     emit("golden", n=golden.shape[0], bit_identical=golden_ok)
     require(golden_ok, "the ep_sl kernel differs from the reference golden")
 
-    packed_rec, smo_219, rfsk = packed_phases(dev, sass)
+    packed_rec, smo_219, rfsk, (X219, d219) = packed_phases(dev, sass)
+    # two processes on the card: the theta engine and kernel F's mesh routes
+    two_process = multiprocess_phase((Xtr, Xte, Ytr, Yte), a_host, X219, d219)
+    del a_host, X219, d219
 
     # ------------------------------------------------ kernel C vs its twin
     nu_kat2b = smo_nu_twin("KAT2B nu-SVC main solve", gram, Ytr, 0.5, 20_000, clusters=(8, 16))
@@ -2866,6 +3031,9 @@ def main() -> None:
                    for key in ("ms", "launches", "bound_ms")},
                 "d_ms_2_19": mesh["f_full"]["d_ms"],
                 "mesh_runs": mesh["runs"],
+                # phase 22: each two-process run's route ms, kernel F
+                # launches and kernel_s a rank, and its bound
+                "two_process_runs": two_process["runs"],
                 **{f"s1_{key}": s1["medium"]["s1"][key] for key in (
                     "ms", "plain_ms", "max_abs_err", "bound_ms")},
                 "s1_launches": mesh["launches"]["packed_s1"],

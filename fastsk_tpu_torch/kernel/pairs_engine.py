@@ -17,11 +17,14 @@ On a local card there is no transfer to hide, so ``exact()`` is the device
 path followed by ``.cpu()``: the TPU tile sizing and the byte-plane
 streaming of the JAX engine are not needed.
 
-Under ``KernelConfig.mesh`` of one process only the packed engine of
-these two runs, over the mesh's devices (``parallel/sharding.py``, kernel
-F), and its counts come back to the host: the ring (``mesh_state=
-"sharded"``) or round-robin strips (``"replicated"``), as in the JAX
-engine. A mesh across processes goes to the theta engines.
+Under ``KernelConfig.mesh`` only the packed engine of these two runs,
+over the mesh's devices (``parallel/sharding.py``, kernel F), and its
+counts come back to the host: the ring (``mesh_state="sharded"``) or
+round-robin strips (``"replicated"``), as in the JAX engine. A mesh
+across processes (``parallel/multihost.py``) runs the same routes: each
+process builds and launches its own entries only, the ring's shards
+cross between processes point to point, and one sum over the processes
+merges the host matrices, so every rank holds the whole count matrix.
 
 Progress lines go through ``utils/observe.Progress`` (gated by
 ``KernelConfig.quiet``), and ``KernelConfig.profile_dir`` takes a
@@ -190,11 +193,6 @@ class PackedPairsEngine:
         self.tile = self.TILE
         backend = self.config.pairs_backend
         self.mesh = self.config.mesh
-        if self.mesh is not None and self.mesh.multiprocess:
-            raise ValueError(
-                "the packed engine's mesh routes run in one process; a mesh "
-                "across processes takes the theta engines"
-            )
         self.route = "grouped" if backend == "pallas_grouped" else "band"
         if self.mesh is not None:
             self.route = "ring" if self.config.mesh_state == "sharded" else "round-robin"
@@ -313,29 +311,34 @@ class PackedPairsEngine:
         pos[self.order] = np.arange(self.n)
         return k_sorted[np.ix_(pos, pos)]
 
-    def _per_device(self, make) -> list:
-        """``make(device)`` for each mesh device, made once per distinct
-        device (a repeated device shares its tensors, as JAX's replicated
-        operands are one buffer per device)."""
-        made = {}
-        for dev in self.mesh.devices:
+    def _per_device(self, make) -> dict:
+        """``make(device)`` for each of this process's mesh entries, by
+        entry, made once per distinct device (a repeated device shares its
+        tensors, as JAX's replicated operands are one buffer per device).
+        Another process's entries are not made: their device names that
+        process's card."""
+        made, out = {}, {}
+        for e, _, _ in self.mesh.local_entries():
+            dev = self.mesh.devices[e]
             if dev not in made:
                 made[dev] = make(dev)
-        return [made[dev] for dev in self.mesh.devices]
+            out[e] = made[dev]
+        return out
 
     def _exact_sharded_planes_rows(self) -> np.ndarray:
         """Ring-sharded mesh run (``mesh_state="sharded"``, the default):
-        the window table is strip-sharded to match each device's kernel
-        row block and travels the ring once while every device sweeps its
+        the window table is strip-sharded to match each entry's kernel
+        row block and travels the ring once while every entry sweeps its
         own strips against each visiting shard
-        (``parallel/sharding.py:packed_ring_rowsharded``). Per-device
+        (``parallel/sharding.py:packed_ring_rowsharded``). Per-entry
         memory is the [blk, Np] block plus two shards; overlapping row
-        blocks (sequences straddling them) add on the host. The block
-        sizes are the JAX engine's."""
+        blocks (sequences straddling them) add on the host, and across
+        processes one sum merges the hosts' matrices. The block sizes are
+        the JAX engine's."""
         mesh = self.mesh
         n_dev = mesh.size
         n_pad = self.n + self.c_pad
-        spd = -(-self.n_strips // n_dev)  # own strips per device
+        spd = -(-self.n_strips // n_dev)  # own strips per entry
         fs = np.asarray(self.pack["first_seq"])
         row0 = np.zeros(n_dev, np.int64)
         blk = self.c_max
@@ -357,40 +360,44 @@ class PackedPairsEngine:
             full.first_seq, (0, n_dev * spd - self.n_strips), value=self.n
         )
         rows_d = spd * self.tile
-        shards = [
-            PackedRows(
+        local = [(d, mesh.devices[d]) for d, _, _ in mesh.local_entries()]
+        shards = {
+            d: PackedRows(
                 codes=codes[d * rows_d : (d + 1) * rows_d].to(dev),
                 seq_of=seq_of[d * rows_d : (d + 1) * rows_d].to(dev),
                 first_seq=first[d * spd : (d + 1) * spd].to(dev),
                 tile=self.tile, c_pad=self.c_pad, alpha=self.alpha,
             )
-            for d, dev in enumerate(mesh.devices)
-        ]
-        blocks = [torch.zeros((blk, n_pad), dtype=torch.int64, device=dev)
-                  for dev in mesh.devices]
+            for d, dev in local
+        }
+        blocks = {d: torch.zeros((blk, n_pad), dtype=torch.int64, device=dev)
+                  for d, dev in local}
         blocks = shd.packed_ring_rowsharded(
             blocks, shards, [int(r) for r in row0], mesh=mesh, spd=spd, k=self.k,
             n_strips=self.n_strips,
         )
-        blocks_host = shd.host_gather(blocks)
         rows_total = max(int(row0.max()) + blk, n_pad)
         k_full = np.zeros((rows_total, n_pad), np.int64)
-        for d in range(n_dev):
-            k_full[row0[d] : row0[d] + blk] += blocks_host[d]
+        for d, b in blocks.items():
+            k_full[row0[d] : row0[d] + blk] += b.cpu().numpy()
+        shd.reduce_across(torch.from_numpy(k_full), mesh)
         return k_full[: self.n, : self.n]
 
     def _exact_sharded_planes(self) -> np.ndarray:
         """Mesh-parallel strips, round-robin (``mesh_state="replicated"``):
-        each device adds its strips' part blocks into a private full-size
-        replica; the host sums the replicas (each (a, b) pair lands on
-        exactly one device)."""
+        each entry adds its strips' part blocks into a private full-size
+        replica; the host sums this process's replicas and one sum merges
+        the processes' (each (a, b) pair lands on exactly one entry)."""
         mesh = self.mesh
         n_pad = self.n + self.c_pad
         rows = self._per_device(self.rows)
-        mats = [torch.zeros((n_pad, n_pad), dtype=torch.int64, device=dev)
-                for dev in mesh.devices]
+        mats = {e: torch.zeros((n_pad, n_pad), dtype=torch.int64, device=mesh.devices[e])
+                for e in rows}
         for ridx in range(-(-self.n_strips // mesh.size)):
             mats = shd.packed_round_sharded(
                 mats, rows, ridx, mesh=mesh, k=self.k, n_strips=self.n_strips,
             )
-        return shd.host_gather(mats).sum(axis=0)[: self.n, : self.n]
+        total = torch.zeros((n_pad, n_pad), dtype=torch.int64)
+        for m in mats.values():
+            total += m.cpu()
+        return shd.reduce_across(total, mesh).numpy()[: self.n, : self.n]

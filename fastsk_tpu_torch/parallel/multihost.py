@@ -12,7 +12,8 @@ SVM replica.
     from fastsk_tpu_torch.parallel import multihost
     multihost.initialize(backend="nccl")     # torchrun's environment
     mesh = multihost.global_mesh(rows=-1)    # every process's card on "rows"
-    cfg = KernelConfig(mesh=mesh, exact_engine="theta")
+    cfg = KernelConfig(mesh=mesh)    # exact: the packed engine (kernel F)
+    cfg = KernelConfig(mesh=mesh, exact_engine="theta")   # or a theta engine
     FastSK(g, m, config=cfg).compute_kernel(...)
 
 The backend is the caller's choice and is never switched: ``"nccl"`` where

@@ -23,22 +23,32 @@ The JAX collectives become:
   entries in, and the host merge (``host_rows``) sums them across
   processes: integer sums commute, so this is the psum, deferred;
 - the approx path's ``psum`` of the train-triangle variance: the sum of
-  the row blocks' partial sums (``reduce_across`` between processes).
+  the row blocks' partial sums (``reduce_across`` between processes);
+- the packed ring's ``ppermute``: ``ring_shift``, a ``.to(device)``
+  within one process and point-to-point sends and receives between
+  processes;
+- the packed engine's ``host_gather`` (``process_allgather``) of its
+  row blocks or replicas: each process lands its own in one host matrix
+  and one sum merges the processes' (``reduce_across``).
 
 A mesh whose entries belong to several processes (``parallel/
 multihost.py``) loops over this process's entries only. Under gloo every
 collective goes through host memory, explicitly; under nccl through this
-process's card. Every function here is integer-identical to the
-single-device engine.
+process's card. ``reduce_across.bytes`` and ``ring_shift.sent_bytes``
+count what this process sends through them. Every function here is
+integer-identical to the single-device engine.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from ..ops.pairs_packed_cuda import PackedRows
 
 ROWS_AXIS = "rows"
 THETA_AXIS = "theta"
@@ -143,11 +153,6 @@ def default_mesh_shape(n_devices: int) -> Tuple[int, int]:
     return rows, n_devices // rows
 
 
-def host_gather(shards: Sequence[torch.Tensor]) -> np.ndarray:
-    """The per-device shards, stacked on the host."""
-    return np.stack([s.cpu().numpy() for s in shards])
-
-
 def pad_to_multiple(x: np.ndarray, axis: int, multiple: int) -> np.ndarray:
     size = x.shape[axis]
     target = ((size + multiple - 1) // multiple) * multiple
@@ -175,9 +180,13 @@ def reduce_across(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
 
     buf = t.to(_stage_device(mesh))
     dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+    reduce_across.bytes += buf.numel() * buf.element_size()
     if buf is not t:
         t.copy_(buf)
     return t
+
+
+reduce_across.bytes = 0  # bytes of the tensors reduced across processes
 
 
 def gather_rows(blocks: Dict[int, torch.Tensor], mesh: Mesh, full_shape, dim: int,
@@ -471,63 +480,113 @@ def sorted_batch_rowsharded(
     return k_rows
 
 
+def ring_shift(held: Dict[int, PackedRows], mesh: Mesh) -> Dict[int, PackedRows]:
+    """One step of JAX's ``ppermute`` around the ring of mesh entries: each
+    of this process's entries ``d`` gets the table that entry ``(d + 1) mod
+    D`` holds. ``held`` maps each of this process's entries to its
+    ``PackedRows``; every entry's table has the same shape, so a receiver
+    needs no size.
+
+    Within one process a table moves with ``.to(device)`` (itself on a
+    device named twice). Between processes its codes, ``seq_of`` and
+    ``first_seq`` go by point-to-point sends and receives, all of them
+    posted together (``dist.batch_isend_irecv``), so two ranks that send to
+    each other do not deadlock; staged through host memory under gloo and
+    this process's card under nccl. Every rank posts in the order of the
+    receiving entry, so the messages between two ranks keep one order
+    (nccl ignores tags)."""
+    import torch.distributed as dist
+
+    from ..ops.pairs_packed_cuda import PackedRows
+
+    n = mesh.size
+    stage = _stage_device(mesh) if mesh.multiprocess else None
+    out, ops, landing = {}, [], []
+    for d in range(n):
+        src = (d + 1) % n
+        if mesh.is_local(d) and mesh.is_local(src):
+            out[d] = held[src].to(mesh.devices[d])
+        elif mesh.is_local(d):  # entry src lives in another process
+            like = held[d]
+            bufs = [torch.empty_like(t, device=stage)
+                    for t in (like.codes, like.seq_of, like.first_seq)]
+            ops += [dist.P2POp(dist.irecv, b, mesh.ranks[src]) for b in bufs]
+            landing.append((d, like, bufs))
+        elif mesh.is_local(src):  # entry d lives in another process
+            rows = held[src]
+            for t in (rows.codes, rows.seq_of, rows.first_seq):
+                buf = t.to(stage).contiguous()
+                ops.append(dist.P2POp(dist.isend, buf, mesh.ranks[d]))
+                ring_shift.sent_bytes += buf.numel() * buf.element_size()
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for d, like, bufs in landing:
+        codes, seq_of, first_seq = (b.to(mesh.devices[d]) for b in bufs)
+        out[d] = PackedRows(codes=codes, seq_of=seq_of, first_seq=first_seq,
+                            tile=like.tile, c_pad=like.c_pad, alpha=like.alpha)
+    return out
+
+
+ring_shift.sent_bytes = 0  # bytes this process sent to other processes
+
+
 def packed_round_sharded(
-    mats: List[torch.Tensor],  # per device: [Np, Np] int64 private replica
-    rows: List,  # per device: the whole PackedRows table
+    mats: Dict[int, torch.Tensor],  # entry -> [Np, Np] int64 private replica
+    rows: Dict[int, PackedRows],  # entry -> the whole table on its device
     round_idx: int,
     *,
     mesh: Mesh,
     k: int,
     n_strips: int,
-) -> List[torch.Tensor]:
+) -> Dict[int, torch.Tensor]:
     """One round-robin round of the packed (ragged) all-pairs engine.
 
-    Device ``d`` runs strip ``a = round_idx * n_dev + d`` against all
-    strips b >= a, one launch of kernel F's triangle
+    This process's entry ``d`` runs strip ``a = round_idx * D + d`` against
+    all strips b >= a, one launch of kernel F's triangle
     (``ops/pairs_packed_cuda.py:packed_block``), adding into its PRIVATE
-    replica: every row pair is handled by exactly one device, so the
-    merge is a sum of the replicas (on the host, by the engine).
-    Round-robin assignment balances the triangular b loop."""
+    replica: every row pair is handled by exactly one entry, so the merge
+    is a sum of the replicas (on the host and across processes, by the
+    engine). Round-robin assignment balances the triangular b loop."""
     from ..ops.pairs_packed_cuda import packed_block
 
-    n_dev = mesh.size
-    for d in range(n_dev):
-        a = round_idx * n_dev + d
+    for d, _, _ in mesh.local_entries():
+        a = round_idx * mesh.size + d
         if a < n_strips:
             packed_block(mats[d], rows[d], (a, a + 1), k=k)
     return mats
 
 
 def packed_ring_rowsharded(
-    blocks: List[torch.Tensor],  # per device: [blk, Np] int64 row block
-    shards: List,  # per device: PackedRows of its own spd strips
-    row0: Sequence[int],  # per device: global row of block[0]
+    blocks: Dict[int, torch.Tensor],  # entry -> [blk, Np] int64 row block
+    shards: Dict[int, PackedRows],  # entry -> its own spd strips
+    row0: Sequence[int],  # per entry: global row of its block[0]
     *,
     mesh: Mesh,
     spd: int,
     k: int,
     n_strips: int,
-) -> List[torch.Tensor]:
+) -> Dict[int, torch.Tensor]:
     """Operand-sharded packed sweep: the window table is strip-sharded to
-    match each device's row block, and shards travel the ring once. At
-    step s device d holds the shard of device (d + s) mod D and sweeps ALL
+    match each entry's row block, and shards travel the ring once. At
+    step s entry d holds the shard of entry (d + s) mod D and sweeps ALL
     its own live strips against ALL live visiting strips in one launch of
     kernel F (``ops/pairs_packed_cuda.py:packed_block``, landing rows ``si
-    - row0`` of its block), then takes its upper neighbour's shard with
-    ``.to(device, non_blocking=True)`` (JAX's ``ppermute``). At step 0 the
-    shard is its own and the launch is F's triangle with its mirror, each
-    unordered row pair once; the other steps are rectangles, every ordered
-    pair. Dead strips (global id >= n_strips) are not launched.
-    Per-device memory is the O(N^2 / D) row block plus two O(rows / D)
+    - row0`` of its block), then takes its upper neighbour's shard
+    (``ring_shift``, JAX's ``ppermute``). At step 0 the shard is its own
+    and the launch is F's triangle with its mirror, each unordered row
+    pair once; the other steps are rectangles, every ordered pair. Dead
+    strips (global id >= n_strips) are not launched. ``blocks`` and
+    ``shards`` hold this process's entries only, and only they launch.
+    Per-entry memory is the O(N^2 / D) row block plus two O(rows / D)
     shards. On a device named twice the visiting shard is the owner's own
     tensor, so nothing here writes into a shard."""
     from ..ops.pairs_packed_cuda import packed_block
 
-    devices = mesh.devices
-    n_dev = len(devices)
-    visiting = list(shards)
+    n_dev = mesh.size
+    visiting = dict(shards)
     for s in range(n_dev):
-        for d in range(n_dev):
+        for d in blocks:
             n_a = min(spd, n_strips - d * spd)
             n_b = min(spd, n_strips - ((d + s) % n_dev) * spd)
             if n_a <= 0 or n_b <= 0:
@@ -540,5 +599,5 @@ def packed_ring_rowsharded(
                     strips_j=(0, n_b), row_off=row0[d],
                 )
         if s + 1 < n_dev:
-            visiting = [visiting[(d + 1) % n_dev].to(devices[d]) for d in range(n_dev)]
+            visiting = ring_shift(visiting, mesh)
     return blocks

@@ -418,7 +418,7 @@ def test_ring_row_block_matches_jax(rng, small_tile, monkeypatch):
 
     def t_spy(blocks, *a, **kw):
         out = t_ring(blocks, *a, **kw)
-        seen["port"] = [tuple(b.shape) for b in out]
+        seen["port"] = [tuple(b.shape) for b in out.values()]
         return out
 
     monkeypatch.setattr(j_shd, "packed_ring_rowsharded", j_spy)
