@@ -23,7 +23,19 @@ raises and the exit code is non-zero:
           (exact_engine="packed"), timed, equal to kernel A's; and both
           bodies timed on seeded 1000 x 200 sets at g=8 over 16, 24, 40,
           48 and 56 letters (one-hot depths 128 to 448 bytes, the deepest
-          whose tensor-core tile fits), equal.
+          whose resident tensor-core tile fits), equal. Then three seeded
+          uniform sets past the resident tile (STREAM_SETS: DNA 512 x
+          4,007 at g8 m4, the windows layout, where the dp4a body ran
+          before; 21 letters 1,024 x 1,307 at g8 m4, windows; 60 letters
+          2,048 x 300 at g10 m4, a 600-byte one-hot row, the depth
+          layout; the last two refused before): FastSK.compute_kernel
+          (exact_engine="auto") must take the engine the JAX package's
+          rule gives (PairsGkmEngine) and kernel A's tensor-core body;
+          kernel A directly, timed, integer-equal to its plain version
+          and to the API's counts; kernel D on the same set, timed,
+          equal; the dp4a body at the DNA set, timed, equal. Kernel A's
+          dp4a body runs only where phase 3 asks for it by name: its
+          launches over the whole run must equal those asked for.
 4. smo    kernel B (one thread-block cluster a problem) against its plain
           twin on the KAT2B linear Gram (the main solve of phase 5): the
           same iteration count at the eps-KKT stop, bit-identical alpha and
@@ -485,6 +497,132 @@ def kat2b_on_d(dev, Xtr, Xte, a_counts) -> dict:
     return fields
 
 
+# kernel A's dp4a body: launches asked for by name (phase 3), and those
+# counted by the wrapper in phases whose counters were reset since
+DP4A = {"asked": 0, "seen": 0}
+
+
+def run_a(x, *, body=None, **kw):
+    """``pairs_counts`` (kernel A), its dp4a launches asked for tallied."""
+    from fastsk_tpu_torch.ops import pairs_cuda
+
+    if body == "dp4a":
+        DP4A["asked"] += 1
+    return pairs_cuda.pairs_counts(x, body=body, **kw)
+
+
+def reset_a_counts() -> None:
+    """Zero kernel A's launch counters, keeping the dp4a tally."""
+    from fastsk_tpu_torch.ops import pairs_cuda
+
+    DP4A["seen"] += pairs_cuda.pairs_counts.bodies["dp4a"]
+    pairs_cuda.pairs_counts.launches = 0
+    pairs_cuda.pairs_counts.bodies = {"mma": 0, "dp4a": 0}
+
+
+def jax_exact_engine(enc, g: int, m: int) -> str:
+    """The engine the JAX package's ``exact_engine="auto"`` takes on one
+    device (fastsk_tpu/api.py:125-140, kernel/pairs_engine.py:96-100),
+    written out (this script imports nothing of it): the packed engine
+    on ragged sets (padding waste > 1.5) or past the sequence-aligned
+    engine's int32 bound p_pad^2 C(g, k) < 2^31, else the sequence-aligned
+    engine."""
+    windows = enc.num_windows(g)
+    waste = enc.n * ((int(windows.max()) + 7) // 8 * 8) / max(int(((windows + 7) // 8 * 8).sum()), 1)
+    p_pad = (enc.max_len - g + 1 + 7) // 8 * 8
+    if waste > 1.5 or p_pad**2 * math.comb(g, g - m) >= 2**31:
+        return "PackedPairsEngine"
+    return "PairsGkmEngine"
+
+
+# phase 3's sets past kernel A's resident tile: name, seed, sequences,
+# length, letters, g, m
+STREAM_SETS = (
+    ("dna512x4007", 41, 512, 4007, 4, 8, 4),
+    ("l21_1024x1307", 42, 1024, 1307, 21, 8, 4),
+    ("l60_2048x300", 43, 2048, 300, 60, 10, 4),
+)
+
+
+def stream_sets_phase(dev, sets=STREAM_SETS) -> dict:
+    """Part of phase 3: each of ``sets`` (seeded, uniform lengths, every
+    letter present) through FastSK.compute_kernel (exact_engine="auto",
+    device-resident) with kernel A's counters zeroed: the engine must be
+    the JAX rule's and kernel A's tensor-core body must launch once. Then
+    kernel A directly (warmed up, timed) integer-equal to its plain
+    version and to the API's counts; kernel D on the same set
+    (exact_engine="packed", warmed up, timed) equal to A; and, where its
+    tile fits, the dp4a body asked for by name (timed, equal)."""
+    from fastsk_tpu_torch import FastSK, KernelConfig
+    from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
+    from fastsk_tpu_torch.ops import pairs, pairs_cuda, pairs_packed_cuda
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+
+    out = {}
+    for name, seed, n, length, alpha, g, m in sets:
+        X = np.random.default_rng(seed).integers(1, alpha + 1, size=(n, length))
+        X[0, :alpha] = np.arange(1, alpha + 1)  # every letter
+        X = X.tolist()
+        ntr = 4 * n // 5  # an 80/20 split, as compute_kernel takes it
+        enc = encode_sequences(X[:ntr], X[ntr:])
+        k = g - m
+        fsk = FastSK(g=g, m=m, config=KernelConfig(device=dev, device_resident=True))
+        engine = type(fsk._make_exact_engine(enc)).__name__
+        reset_a_counts()
+        _, kernel_s = wall(fsk.compute_kernel, X[:ntr], X[ntr:])
+        api_bodies = dict(pairs_cuda.pairs_counts.bodies)
+        api_counts = fsk._counts_dev.counts
+        del fsk
+
+        eng = PairsGkmEngine(enc, g, m, KernelConfig(device=dev))
+        x = eng._build_x()
+        depth = pairs_cuda.mma_depth(x.shape[1])
+        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
+        want, plain_ms = cuda_ms(pairs.pairs_counts_plain, x, k=k, p_pad=eng.p_pad)
+        run_a(x, g=g, k=k, p_pad=eng.p_pad)
+        got, a_ms = cuda_ms(run_a, x, g=g, k=k, p_pad=eng.p_pad)
+        err = int((got.long() - want.long()).abs().max())
+        api_err = int((got[:n, :n].long() - api_counts.long()).abs().max())
+        dp4a_ms = dp4a_err = None
+        try:
+            pairs_cuda.tile_sequences(eng.n_pad, eng.p_pad, pairs_cuda.padded_width(x.shape[1]))
+        except ValueError:
+            pass  # past the dp4a body's tile
+        else:
+            run_a(x, g=g, k=k, p_pad=eng.p_pad, body="dp4a")
+            got4, dp4a_ms = cuda_ms(run_a, x, g=g, k=k, p_pad=eng.p_pad, body="dp4a")
+            dp4a_err = int((got4.long() - want.long()).abs().max())
+            del got4
+        windows = windows_of(X, g)
+        bound = count_bound(windows, g * alpha, x.numel() + eng.n_pad**2 * 4)
+        del x, want, api_counts
+        torch.cuda.empty_cache()
+
+        peng = PackedPairsEngine(enc, g, m, KernelConfig(device=dev, exact_engine="packed"))
+        rows = peng.rows()
+        pairs_packed_cuda.packed_band(rows, k=k, n_out=peng.n)
+        d_counts, d_ms = cuda_ms(pairs_packed_cuda.packed_band, rows, k=k, n_out=peng.n)
+        pos = torch.from_numpy(np.argsort(peng.order)).to(dev)
+        d_err = int((d_counts[pos][:, pos] - got[:n, :n].long()).abs().max())
+        del peng, rows, d_counts, got
+        torch.cuda.empty_cache()
+        out[name] = dict(
+            n=n, length=length, letters=alpha, g=g, m=m, windows=windows,
+            engine=engine, jax_rule=jax_exact_engine(enc, g, m), api_bodies=api_bodies,
+            kernel_s=kernel_s, layout=plan.layout, plan=plan._asdict(), a_ms=a_ms,
+            plain_ms=plain_ms, max_abs_err=err, api_err=api_err, d_ms=d_ms, d_err=d_err,
+            dp4a_ms=dp4a_ms, dp4a_err=dp4a_err, **bound,
+        )
+        emit("pairs-stream", shape=name, **out[name])
+        require(engine == out[name]["jax_rule"] == "PairsGkmEngine",
+                f"{name}: the API took {engine}, the JAX rule {out[name]['jax_rule']}")
+        require(api_bodies == {"mma": 1, "dp4a": 0},
+                f"{name}: compute_kernel did not take kernel A's tensor-core body once: {api_bodies}")
+        require(err == 0 and api_err == 0 and d_err == 0 and dp4a_err in (None, 0),
+                f"{name}: kernel A differs from its plain version, the API or kernel D: {out[name]}")
+    return out
+
+
 def pairs_body_sweep(dev, n: int = 1000, length: int = 200, alphas=(16, 24, 40, 48, 56)) -> dict:
     """Part of phase 3: kernel A's two bodies on seeded sets of ``n``
     sequences of ``length`` letters at g=8, m=4 over each of ``alphas``
@@ -504,14 +642,13 @@ def pairs_body_sweep(dev, n: int = 1000, length: int = 200, alphas=(16, 24, 40, 
         x = eng._build_x()
         got, ms = {}, {}
         for body in ("mma", "dp4a"):
-            pairs_cuda.pairs_counts(x, g=8, k=4, p_pad=eng.p_pad, body=body)
-            got[body], ms[body] = cuda_ms(pairs_cuda.pairs_counts, x, g=8, k=4, p_pad=eng.p_pad, body=body)
+            run_a(x, g=8, k=4, p_pad=eng.p_pad, body=body)
+            got[body], ms[body] = cuda_ms(run_a, x, g=8, k=4, p_pad=eng.p_pad, body=body)
         depth = pairs_cuda.mma_depth(x.shape[1])
+        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
         sweep[alpha] = dict(
-            depth=depth, alpha=eng.alpha,
-            default=pairs_cuda.pairs_body(eng.n_pad, eng.p_pad, x.shape[1]),
-            mma_ms=ms["mma"], dp4a_ms=ms["dp4a"],
-            tile_mma=pairs_cuda.mma_tile_sequences(eng.n_pad, eng.p_pad, depth),
+            depth=depth, alpha=eng.alpha, layout=plan.layout,
+            mma_ms=ms["mma"], dp4a_ms=ms["dp4a"], tile_mma=plan.tile,
             equal=bool(torch.equal(got["mma"], got["dp4a"])),
         )
         del eng, x, got
@@ -2345,9 +2482,9 @@ def _counters():
 
 
 def zero_counts() -> None:
+    reset_a_counts()
     for c in _counters():
         c.launches = 0
-    _counters()[0].bodies = {"mma": 0, "dp4a": 0}
 
 
 def read_counts() -> dict:
@@ -2747,7 +2884,7 @@ def main() -> None:
     want = pairs.pairs_counts_plain(x, k=4, p_pad=eng.p_pad)[:13, :13]
     small_ok = {}
     for body in ("mma", "dp4a"):
-        got = pairs_cuda.pairs_counts(x, g=6, k=4, p_pad=eng.p_pad, body=body)[:13, :13]
+        got = run_a(x, g=6, k=4, p_pad=eng.p_pad, body=body)[:13, :13]
         small_ok[body] = torch.equal(got, want) and np.array_equal(
             got.cpu().numpy(), numpy_counts(X, 6, 4)
         )
@@ -2774,23 +2911,25 @@ def main() -> None:
         # each body, warmed up, then timed; both held to the plain counts
         ms_by, err_by = {}, {}
         for body in ("mma", "dp4a"):
-            pairs_cuda.pairs_counts(x, **kw, body=body)
-            got, ms_by[body] = cuda_ms(pairs_cuda.pairs_counts, x, **kw, body=body)
+            run_a(x, **kw, body=body)
+            got, ms_by[body] = cuda_ms(run_a, x, **kw, body=body)
             err_by[body] = int((got.long() - want.long()).abs().max())
             if name == "KAT2B" and body == "mma":
                 kat2b_counts = got[: eng.n, : eng.n].clone()
             del got
-        default_key = pairs_cuda.pairs_body(eng.n_pad, eng.p_pad, x.shape[1])
+        default_key = "mma"
         depth = pairs_cuda.mma_depth(x.shape[1])
+        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
         emit(
             "pairs", shape=name, n=eng.n, p_pad=eng.p_pad, width=x.shape[1], depth_mma=depth,
-            body=default_key,
+            body=default_key, layout=plan.layout,
             tile_dp4a=pairs_cuda.tile_sequences(eng.n_pad, eng.p_pad, pairs_cuda.padded_width(x.shape[1])),
-            tile_mma=pairs_cuda.mma_tile_sequences(eng.n_pad, eng.p_pad, depth),
+            tile_mma=plan.tile,
             kernel_ms=ms_by, plain_ms=plain_ms, max_abs_err=err_by,
             checksum=int(want.long().sum()),
         )
         require(all(e == 0 for e in err_by.values()), f"kernel A differs from its plain version on {name}: {err_by}")
+        require(plan.layout == "resident", f"{name} left kernel A's resident layout: {plan}")
         windows = windows_of([s for part in seqs if part for s in part], g)
         width = g * eng.alpha
         pairs_times[name] = (
@@ -2803,6 +2942,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     d_kat2b = kat2b_on_d(dev, Xtr, Xte, kat2b_counts)
     a_sweep = pairs_body_sweep(dev)
+    a_stream = stream_sets_phase(dev)
 
     # --------------------------------------------------- kernel B vs twin
     ntr = len(Xtr)
@@ -2816,8 +2956,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------- main path
-    pairs_cuda.pairs_counts.launches = 0
-    pairs_cuda.pairs_counts.bodies = {"mma": 0, "dp4a": 0}
+    reset_a_counts()
     smo_cuda.smo_solve.launches = 0
     smo_cuda.smo_solve.problems = 0
     fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
@@ -2932,6 +3071,9 @@ def main() -> None:
         )
         baselines_phase(dev, tmpdir)
 
+    reset_a_counts()
+    require(DP4A["seen"] == DP4A["asked"],
+            f"kernel A's dp4a body launched {DP4A['seen']} times, {DP4A['asked']} asked for by name")
     record = {
         "kernels": [
             {
@@ -2948,6 +3090,7 @@ def main() -> None:
                 "plain_ms_g16": pairs_times["dna7230x200"][1],
                 "bound_ms_g16": pairs_times["dna7230x200"][3]["bound_ms"],
                 "d_ms_kat2b": d_kat2b["d_ms"], "body_sweep": a_sweep,
+                "stream_sets": a_stream, "dp4a_launches": dict(DP4A),
                 "mma_parts": probe["mma_parts"],
             },
             {

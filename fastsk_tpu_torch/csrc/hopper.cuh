@@ -25,6 +25,16 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo) {
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
+// A descriptor of a K-major tile of 64-byte rows in the 64-byte swizzle
+// (8-row atoms of 512 B, 16-byte chunk c of row r at chunk c ^ ((r >> 1)
+// & 3); the tile 512-byte aligned): sbo is the 8-row groups' stride.
+__device__ __forceinline__ uint64_t smem_desc_sw64(const void* p, int sbo) {
+  return smem_desc(p, 16, sbo) | (2ull << 62);
+}
+
+// Byte offset of 16-byte chunk c of row r in such a tile.
+__device__ __forceinline__ int sw64_at(int r, int c) { return r * 64 + ((c ^ ((r >> 1) & 3)) << 4); }
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -49,6 +59,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // All but the newest committed group landed.
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// All but the N newest committed groups landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // D (64 x 128 s32, this warpgroup's) += or = A (64 x 32 s8) B^T (128 x

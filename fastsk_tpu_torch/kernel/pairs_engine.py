@@ -9,9 +9,10 @@ over window pairs, ``K[i,j] = sum_{p,q} C(matches(w_ip, w_jq), k)``
 Exactness: integer counts bit-identical to the reference. The
 sequence-aligned engine's guard: every K entry must stay < 2^31 (int32
 sums); it checks the worst case ``p_pad^2 * C(g, k)`` and refuses shapes
-where one sequence pair could overflow. It also refuses the shapes kernel A
-cannot take (one-hot width, shared memory), on every device, so the API
-routes them to the packed engine, which sums int64 and has no such bound.
+where one sequence pair could overflow, as the JAX engine does; the API
+then routes them to the packed engine, which sums int64 and has no such
+bound. Kernel A takes every other shape (any one-hot depth and sequence
+length), so the engines' choice is the JAX package's.
 
 On a local card there is no transfer to hide, so ``exact()`` is the device
 path followed by ``.cpu()``: the TPU tile sizing and the byte-plane
@@ -42,7 +43,7 @@ import torch
 
 from ..ops import pairs, pairs_packed
 from ..ops.encode import EncodedSeqs
-from ..ops.pairs_cuda import padded_width, pairs_counts, tile_sequences
+from ..ops.pairs_cuda import mma_depth, mma_plan, pairs_counts
 from ..ops.pairs_packed_cuda import (
     PackedRows, packed_band, packed_grouped, packed_pairlist,
 )
@@ -91,13 +92,15 @@ class PairsGkmEngine:
                 "per-pair count bound exceeds int32; use the theta engine "
                 f"(p_pad={self.p_pad}, C(g,k)={math.comb(g, self.k)})"
             )
+        # kernel A's own limits, checked on shapes alone so that every
+        # device makes the same choice: its C(d, k) table (the API's g <= 20)
+        # and its grid (mma_plan raises past the launch limit)
+        if not 1 <= self.k <= g <= 20:
+            raise ValueError(f"kernel A needs 1 <= k <= g <= 20; got g={g}, k={self.k}")
         # kernel A tiles up to 8 sequences a side; padding sequences have
         # no valid windows and count 0
         self.n_pad = _next_multiple(self.n, 8)
-        # kernel A's limits, checked on shapes alone so that every device
-        # makes the same choice: the padded one-hot width (<= 512 bytes)
-        # and one sequence's windows in shared memory
-        tile_sequences(self.n_pad, self.p_pad, padded_width(g * self.alpha))
+        mma_plan(self.n_pad, self.p_pad, mma_depth(g * self.alpha))
 
     def _build_x(self) -> torch.Tensor:
         """One-hot windows ``[n_pad * p_pad, g * alpha]`` int8 on the device."""

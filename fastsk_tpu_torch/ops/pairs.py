@@ -13,8 +13,9 @@ integer weight and a window-to-sequence sum (rows are sequence-aligned,
 ``p_pad`` per sequence).
 
 ``pairs_counts_plain`` is the plain version of kernel A
-(``ops/pairs_cuda.py``): the CPU path, and what the kernel is held to on
-the card. ``pairs_probe_plain`` is that of kernel H's variants.
+(``ops/pairs_cuda.py``): the CPU path (in the kernel's partition), and
+what the kernel is held to on the card. ``pairs_probe_plain`` is that of
+kernel H's variants.
 """
 
 from __future__ import annotations
@@ -88,20 +89,27 @@ def pairs_counts_plain(
     *,
     k: int,
     p_pad: int,
-    strip_rows: int = 16384,
+    strip_rows=None,
     weight=None,
+    plan=None,
 ) -> torch.Tensor:
     """Full symmetric count matrix ``[n_pad, n_pad]`` int32.
 
-    Strips of ``c`` sequences (about ``strip_rows`` window rows) are
-    computed for the upper block triangle only and mirrored. Per strip
-    pair: ``D = X_i X_j^T`` in f32 (0/1 operands, exact counts <= g),
-    ``C(D, k)`` exact in f32 (or ``weight(D)``, int32), then the window ->
-    sequence reshape-sum in integers. Every per-pair total is < 2^31 by
-    the engine's guard.
+    Strips of ``c`` sequences (about ``strip_rows`` window rows, 16384 by
+    default) are computed for the upper block triangle only and mirrored.
+    Per strip pair: ``D = X_i X_j^T`` in f32 (0/1 operands, exact counts
+    <= g), ``C(D, k)`` exact in f32 (or ``weight(D)``, int32), then the
+    window -> sequence reshape-sum in integers. Every per-pair total is
+    < 2^31 by the engine's guard.
+
+    With ``plan`` (``ops/pairs_cuda.py:mma_plan``'s ``MmaPlan``), the same
+    sums in kernel A's partition instead (``_counts_as_planned``), so that
+    a fault of the plan's tiling shows on the CPU.
     """
+    if plan is not None:
+        return _counts_as_planned(x, k, p_pad, plan, weight, strip_rows or 4096)
     n_pad = x.shape[0] // p_pad
-    c = max(1, strip_rows // p_pad)
+    c = max(1, (strip_rows or 16384) // p_pad)
     xf = x.to(torch.float32)
     out = torch.empty((n_pad, n_pad), dtype=torch.int32, device=x.device)
     with full_f32_matmul():
@@ -115,6 +123,53 @@ def pairs_counts_plain(
                 part = w.reshape(i1 - i0, p_pad, j1 - j0, p_pad).sum(dim=(1, 3))
                 out[i0:i1, j0:j1] = part
                 out[j0:j1, i0:i1] = part.T
+    return out
+
+
+def _counts_as_planned(x, k, p_pad, plan, weight, strip_rows):
+    """Kernel A's partition of the count sums: a block a tile pair
+    ``bi <= bj`` (``plan.tile`` sequences a side) and a range of
+    ``plan.range_chunks`` 128-row j chunks of tile bj; its match counts
+    summed over ``plan.slab``-byte k-slabs, weighed once, summed into int32
+    per-sequence bins; the bins added into a zeroed int32 matrix at
+    ``K[i, j]`` and, off the diagonal tile, at ``K[j, i]``. Strips of
+    tiles (about ``strip_rows`` rows each) take many blocks at once."""
+    n_pad = x.shape[0] // p_pad
+    s = plan.tile
+    rows = s * p_pad  # a tile's window rows
+    nt = n_pad // s
+    span = plan.range_chunks * 128  # j rows a range
+    ct = max(1, strip_rows // rows)  # tiles a strip
+    xf = x.to(torch.float32).reshape(nt, rows, -1)
+    f = xf.shape[-1]
+    seq_of = torch.arange(rows, device=x.device) // p_pad  # a row's sequence in its tile
+    tiles = torch.arange(nt, device=x.device)
+    out = torch.zeros((n_pad, n_pad), dtype=torch.int32, device=x.device)
+    with full_f32_matmul():
+        for a0 in range(0, nt, ct):
+            a1 = min(a0 + ct, nt)
+            xi = xf[a0:a1].reshape(-1, f)
+            for b0 in range(a0, nt, ct):
+                b1 = min(b0 + ct, nt)
+                # the tile pairs of a block (bi <= bj), and those mirrored
+                ta, tb = tiles[a0:a1, None], tiles[None, b0:b1]
+                direct = (ta <= tb).to(torch.int32)[:, None, :, None]
+                mirror = (ta < tb).to(torch.int32)[:, None, :, None]
+                for r0 in range(0, rows, span):
+                    r1 = min(r0 + span, rows)
+                    xj = xf[b0:b1, r0:r1].reshape(-1, f)
+                    d = sum(
+                        xi[:, c : c + plan.slab] @ xj[:, c : c + plan.slab].T
+                        for c in range(0, f, plan.slab)
+                    )
+                    w = (binom_exact(d, k) if weight is None else weight(d)).to(torch.int32)
+                    w = w.reshape(a1 - a0, s, p_pad, b1 - b0, r1 - r0).sum(2, dtype=torch.int32)
+                    bins = torch.zeros(
+                        (a1 - a0, s, b1 - b0, s), dtype=torch.int32, device=x.device
+                    ).index_add_(3, seq_of[r0:r1], w)
+                    shape = ((a1 - a0) * s, (b1 - b0) * s)
+                    out[a0 * s : a1 * s, b0 * s : b1 * s] += (bins * direct).reshape(shape)
+                    out[b0 * s : b1 * s, a0 * s : a1 * s] += (bins * mirror).reshape(shape).T
     return out
 
 

@@ -8,7 +8,7 @@ limit):
 
 - ``pairs_engine_flops``: kernel A (``csrc/pairs.cu``), the int8 products
   of one-hot window rows over the tiles its body walks (the tensor-core
-  body's 64 x 128 x depth ``wgmma`` blocks, or the dp4a body's tile
+  body's ``wgmma`` blocks in its plan's layout, or the dp4a body's tile
   pairs), padding included, beside the useful products alone;
 - ``packed_engine_flops``: kernel D (``csrc/pairs_packed.cu``), the window
   pairs its triangle walk visits on the code planes (one LOP3 a plane and
@@ -109,43 +109,45 @@ def mfu(flops: float, wall_s: float, device, dtype: str = "bf16") -> Optional[fl
     return (flops / wall_s) / peak
 
 
-_MMA_CHUNK = 128  # kernel A's tensor-core body: 128-row chunks, 64-row warpgroups
-
-
-def pairs_engine_flops(engine) -> dict:
+def pairs_engine_flops(engine, body: str = "mma") -> dict:
     """Int8 work of one ``PairsGkmEngine`` exact run on kernel A.
 
     ``flops`` counts the operations the kernel executes, padding included.
-    The tensor-core body (wherever its tile fits, as ``pairs_body``
-    picks): a block a pair of s-sequence tiles ``bi <= bj``; in it each
-    64-row warpgroup of each 128-row i chunk that holds a window row of
-    the tile multiplies its rows by every 128-row j chunk, ``depth`` bytes
-    deep. Elsewhere the dp4a body: the same tile pairs, every window pair
-    of the two tiles at the padded width. The tile side is the built
-    library's (``pairs_cuda.mma_tile_sequences``), so the count needs the
-    card. ``useful_flops`` counts the work itself: every unordered pair of
+    The tensor-core body (``body="mma"``, in ``pairs_cuda.mma_plan``'s
+    layout): blocks over pairs of s-sequence tiles ``bi <= bj``, which
+    multiply every 128-row j chunk of tile bj (all of them in one block,
+    or split into ranges over several), ``depth`` bytes deep, by the i
+    rows of tile bi: in the resident and windows layouts each 64-row
+    warpgroup that holds a window row of the tile, in the depth and slabs
+    layouts every 128-row i chunk whole. The dp4a body (``body="dp4a"``): the same
+    tile pairs, every window pair of the two tiles at the padded width.
+    ``useful_flops`` counts the work itself: every unordered pair of
     valid windows once, ``g * alpha`` bytes wide (``count_bound``'s
     operations).
 
-    Returns dict(flops, useful_flops, dtype, body, tile, live_tiles,
-    bytes_hbm, ai): ``bytes_hbm`` counts the operand read once and the
-    int32 matrix written once; ``ai`` is executed flops a byte."""
-    from ..ops.pairs_cuda import mma_depth, mma_tile_sequences, padded_width, tile_sequences
+    Returns dict(flops, useful_flops, dtype, body, layout, tile,
+    live_tiles, bytes_hbm, ai): ``bytes_hbm`` counts the operand read
+    once and the int32 matrix written once; ``ai`` is executed flops a
+    byte."""
+    from ..ops.pairs_cuda import MMA_CHUNK, mma_depth, mma_plan, padded_width, tile_sequences
 
     f = engine.g * engine.alpha
     n_pad, p_pad = engine.n_pad, engine.p_pad
-    depth = mma_depth(f)
-    s = mma_tile_sequences(n_pad, p_pad, depth)
-    if s >= 1:
-        body, width = "mma", depth
+    if body == "mma":
+        width = mma_depth(f)
+        plan = mma_plan(n_pad, p_pad, width)
+        s, layout = plan.tile, plan.layout
         rows = s * p_pad
-        chunks = -(-rows // _MMA_CHUNK)
-        macs_block = (-(-rows // 64) * 64) * (chunks * _MMA_CHUNK) * depth
-    else:
-        body, width = "dp4a", padded_width(f)
+        cols = -(-rows // MMA_CHUNK) * MMA_CHUNK
+        live = cols if layout in ("depth", "slabs") else -(-rows // 64) * 64
+        macs_block = live * cols * width
+    elif body == "dp4a":
+        width, layout = padded_width(f), None
         s = tile_sequences(n_pad, p_pad, width)
         rows = s * p_pad
         macs_block = rows * rows * width
+    else:
+        raise ValueError(f"body must be 'mma' or 'dp4a'; got {body!r}")
     nt = n_pad // s
     nt_pairs = nt * (nt + 1) // 2
     flops = 2.0 * nt_pairs * macs_block
@@ -156,6 +158,7 @@ def pairs_engine_flops(engine) -> dict:
         "useful_flops": 2.0 * f * windows * (windows + 1) / 2,
         "dtype": "int8",
         "body": body,
+        "layout": layout,
         "tile": s,
         "live_tiles": nt_pairs,
         "bytes_hbm": bytes_hbm,

@@ -1,5 +1,5 @@
 """Kernels A to H against their plain PyTorch versions, on the card
-(kernel A with both of its bodies, D to G's one kernel at every code
+(kernel A with both of its bodies and its body's three layouts, D to G's one kernel at every code
 width, E in both landings, kernel C at every cluster size), and the theta
 engines' card path (bf16 products with f32 outputs) against the CPU's.
 
@@ -60,35 +60,74 @@ def test_kernel_a_matches_plain_and_oracle(cuda, g, m, n, length, alpha):
         np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], oracle_counts)
 
 
-# one-hot depths that take each body by default: 40 B (pads to 64, mma),
-# 320 B (mma, one block an SM), 420 B (448, mma, short sequences: a run
-# per column sequence) and 512 B at p_pad = 200 (past the tensor-core
-# tile: dp4a); a tile of several 128-row chunks (p_pad = 200, four
-# sequences a side) and sequences that end inside a chunk
+# one-hot depths and lengths that take each of the tensor-core body's
+# layouts: 40 B (pads to 64), 320 B (one block an SM), 420 B (448, short
+# sequences: a run per column sequence) and 512 B at p_pad = 200 (past
+# the resident tile: the windows layout), DNA of 3,400 windows (windows)
+# and 60 letters at g10 (600 B: the depth layout); a tile of several
+# 128-row chunks (p_pad = 200, four sequences a side) and sequences that
+# end inside a chunk
 @pytest.mark.parametrize(
-    "g,m,alpha,n,length,body",
+    "g,m,alpha,n,length,layout",
     [
-        (8, 4, 5, 21, 200, "mma"),
-        (8, 4, 40, 9, 60, "mma"),
-        (6, 3, 70, 9, 40, "mma"),
-        (8, 4, 64, 5, 200, "dp4a"),
+        (8, 4, 5, 21, 200, "resident"),
+        (8, 4, 40, 9, 60, "resident"),
+        (6, 3, 70, 9, 40, "resident"),
+        (8, 4, 64, 5, 200, "windows"),
+        (8, 4, 4, 5, 3407, "windows"),
+        (10, 4, 60, 11, 300, "depth"),
+        (14, 7, 130, 5, 150, "slabs"),
     ],
 )
-def test_kernel_a_default_body_by_depth(cuda, g, m, alpha, n, length, body):
+def test_kernel_a_default_body_by_depth(cuda, g, m, alpha, n, length, layout):
     rng = np.random.default_rng(alpha * 10 + n)
     X = [rng.integers(1, alpha + 1, size=length).tolist() for _ in range(n)]
     X[0] = list(range(1, alpha + 1)) + X[0][alpha:]  # every code, so the alphabet is alpha
     eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
     assert eng.alpha == alpha
-    assert pairs_cuda.pairs_body(eng.n_pad, eng.p_pad, g * alpha) == body
+    depth = pairs_cuda.mma_depth(g * alpha)
+    assert pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth).layout == layout
     before = dict(pairs_cuda.pairs_counts.bodies)
     got = eng.exact()
-    assert pairs_cuda.pairs_counts.bodies[body] == before[body] + 1
+    assert pairs_cuda.pairs_counts.bodies == {"mma": before["mma"] + 1, "dp4a": before["dp4a"]}
     np.testing.assert_array_equal(got, oracle.exact_counts(X, g, m))
 
 
-# tests/test_torch_observe.py holds its CPU stand-in of the sizing rule to
-# the same table
+# plans forced at small shapes (the kernel takes any plan that fits):
+# windows ranges ending inside a sequence and on the diagonal tile, short
+# sequences (p_pad < 64) in the windows and slabs layouts, the depth and
+# slabs layouts at several tiles, ranges and one or more k-slabs
+@pytest.mark.parametrize(
+    "g,m,alpha,n,lmin,lmax,layout,tile,range_chunks",
+    [
+        (8, 4, 4, 5, 900, 1000, "windows", 1, 3),
+        (8, 4, 4, 9, 20, 40, "windows", 1, 1),
+        (8, 4, 24, 13, 20, 40, "slabs", 4, 1),
+        (8, 4, 24, 13, 20, 40, "depth", 2, 1),
+        (6, 2, 4, 16, 150, 200, "depth", 4, 3),
+        (10, 4, 60, 11, 250, 300, "depth", 8, 5),
+        (10, 4, 60, 11, 250, 300, "slabs", 8, 5),
+    ],
+)
+def test_kernel_a_stream_layouts_match_plain(cuda, monkeypatch, g, m, alpha, n, lmin, lmax,
+                                             layout, tile, range_chunks):
+    rng = np.random.default_rng(n * 7 + alpha)
+    X = [rng.integers(1, alpha + 1, size=rng.integers(lmin, lmax + 1)).tolist() for _ in range(n)]
+    eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
+    depth = pairs_cuda.mma_depth(g * eng.alpha)
+    forced = pairs_cuda.MmaPlan(layout, tile, range_chunks, 0,
+                                64 if layout in ("depth", "slabs") else depth, 0, 0)
+    monkeypatch.setattr(pairs_cuda, "mma_plan", lambda *shape: forced)
+    x = eng._build_x()
+    want = pairs.pairs_counts_plain(x, k=g - m, p_pad=eng.p_pad)
+    got = pairs_cuda.pairs_counts(x, g=g, k=g - m, p_pad=eng.p_pad)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], oracle.exact_counts(X, g, m))
+
+
+# tests/test_torch_observe.py holds its copy of the resident rule to the
+# same table
 @pytest.mark.parametrize(
     "n_pad,p_pad,depth,tile",
     [
@@ -98,15 +137,22 @@ def test_kernel_a_default_body_by_depth(cuda, g, m, alpha, n, length, body):
         (12, 8, 64, 4),
         (8, 200, 192, 1),
         (8, 200, 320, 1),     # one block an SM
-        (8, 200, 448, 1),     # the deepest tile at p_pad = 200
-        (8, 200, 512, 0),     # one sequence's tile does not fit: the dp4a body
+        (8, 200, 448, 1),     # the deepest resident tile at p_pad = 200
+        (8, 200, 512, 0),     # one sequence's tile does not fit: the windows layout
         (8, 904, 320, 0),
     ],
 )
 def test_kernel_a_mma_tiling(cuda, n_pad, p_pad, depth, tile):
-    s = pairs_cuda.mma_tile_sequences(n_pad, p_pad, depth)
-    assert s == tile and (s == 0 or n_pad % s == 0)
-    assert pairs_cuda.pairs_body(n_pad, p_pad, depth) == ("mma" if tile else "dp4a")
+    """The plan's resident tile where it fits, else a streaming layout
+    whose block the kernel library accepts (a launch on zeros)."""
+    plan = pairs_cuda.mma_plan(n_pad, p_pad, depth)
+    assert (plan.layout == "resident") == (tile > 0)
+    assert plan.tile == (tile or plan.tile) and n_pad % plan.tile == 0
+    if n_pad * p_pad * depth <= 2**28:
+        x = torch.zeros((n_pad * p_pad, depth), dtype=torch.int8, device=cuda)
+        got = pairs_cuda.pairs_counts(x, g=8, k=4, p_pad=p_pad)
+        torch.cuda.synchronize()
+        assert int(got.abs().max()) == 0
 
 
 def _c_svc_problem(n, seed=3):

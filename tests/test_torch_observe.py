@@ -134,11 +134,11 @@ def test_bounds_are_the_smoke_record_s():
 
 
 def _mma_tile_rule(n_pad, p_pad, depth):
-    """csrc/pairs.cu:pairs_mma_tile's sizing of the tensor-core tile, the
-    built library's answer, which the CPU cannot ask: 128-row chunks, two
-    blocks an SM in 113 KB each, or one in 227 KB. A stand-in for these
-    tests only, held to the table that tests/test_torch_cuda.py holds the
-    library to."""
+    """The resident layout's tile side: 128-row chunks, two blocks an SM in
+    113 KB each, or one in 227 KB; 0 where one sequence's windows do not
+    fit (``pairs_cuda.mma_plan`` then streams them). These tests' own copy
+    of the rule, held to the table that tests/test_torch_cuda.py holds the
+    card to."""
     if n_pad < 1 or p_pad < 8 or depth < 64:
         return 0
 
@@ -156,28 +156,37 @@ def _mma_tile_rule(n_pad, p_pad, depth):
     (8, 200, 320, 1), (8, 200, 448, 1), (8, 200, 512, 0), (8, 904, 320, 0),
 ])
 def test_tile_rule_is_the_library_s(n_pad, p_pad, depth, tile):
-    """The same table as tests/test_torch_cuda.py::test_kernel_a_mma_tiling."""
+    """The same table as tests/test_torch_cuda.py::test_kernel_a_mma_tiling;
+    ``mma_plan`` keeps the resident layout exactly where the rule fits."""
     assert _mma_tile_rule(n_pad, p_pad, depth) == tile
+    plan = pairs_cuda.mma_plan(n_pad, p_pad, depth)
+    assert (plan.layout == "resident") == (tile > 0)
+    if tile:
+        assert plan.tile == tile and plan.ranges == 1
 
 
-def _brute_kernel_a(eng):
+def _brute_kernel_a(eng, body):
     """Kernel A's int8 MACs, block by block, chunk by chunk, as
-    csrc/pairs.cu walks them."""
+    csrc/pairs.cu walks them in ``mma_plan``'s layout (or the dp4a body's
+    tiles)."""
     f = eng.g * eng.alpha
-    depth = mma_depth(f)
-    s = _mma_tile_rule(eng.n_pad, eng.p_pad, depth)
     macs = 0
-    if s:
-        rows = s * eng.p_pad
+    if body == "mma":
+        depth = mma_depth(f)
+        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
+        rows = plan.tile * eng.p_pad
         nc = -(-rows // 128)
-        nt = eng.n_pad // s
+        nt = eng.n_pad // plan.tile
         for bi in range(nt):
             for bj in range(bi, nt):
-                for ci in range(nc):
-                    for wg in range(2):
-                        if ci * 128 + 64 * wg < rows:  # a live warpgroup
-                            macs += nc * 64 * 128 * depth
-        return macs, "mma"
+                for r in range(plan.ranges):
+                    j_chunks = min(nc, (r + 1) * plan.range_chunks) - r * plan.range_chunks
+                    for ci in range(nc):
+                        for wg in range(2):
+                            # a live warpgroup; the depth and slabs layouts run them all
+                            if plan.layout in ("depth", "slabs") or ci * 128 + 64 * wg < rows:
+                                macs += j_chunks * 64 * 128 * depth
+        return macs, plan.layout
     width = padded_width(f)
     s = tile_sequences(eng.n_pad, eng.p_pad, width)
     nt = eng.n_pad // s
@@ -185,26 +194,43 @@ def _brute_kernel_a(eng):
         for bj in range(nt):
             if bj >= bi:  # the lower block triangle returns at once
                 macs += (s * eng.p_pad) ** 2 * width
-    return macs, "dp4a"
+    return macs, None
 
 
 @pytest.mark.parametrize("n,length,g,m,body", [
     (13, 30, 6, 2, "mma"), (40, 200, 8, 4, "mma"), (9, 57, 10, 6, "mma"), (3, 4010, 8, 4, "dp4a"),
+    (3, 4010, 8, 4, "mma"),
 ])
-def test_pairs_engine_flops_counts_kernel_a_s_tiles(n, length, g, m, body, monkeypatch):
-    monkeypatch.setattr(pairs_cuda, "mma_tile_sequences", _mma_tile_rule)
+def test_pairs_engine_flops_counts_kernel_a_s_tiles(n, length, g, m, body):
     rng = np.random.default_rng(n)
     X = rng.integers(1, 5, size=(n, length)).tolist()
     eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device="cpu"))
-    rl = roofline.pairs_engine_flops(eng)
-    macs, brute_body = _brute_kernel_a(eng)
-    assert rl["body"] == brute_body == body
+    rl = roofline.pairs_engine_flops(eng, body=body)
+    macs, layout = _brute_kernel_a(eng, body)
+    assert rl["body"] == body and rl["layout"] == layout
+    assert layout == {"mma": "windows" if length > 3000 else "resident", "dp4a": None}[body]
     assert rl["flops"] == 2.0 * macs
     windows = n * (length - g + 1)
     useful = sum(2 * g * eng.alpha for a in range(windows) for b in range(a, windows))
     assert rl["useful_flops"] == useful <= rl["flops"]
     assert roofline.count_bound(windows, g * eng.alpha, 1.0)["bound_ms"] == useful / 1979e12 * 1e3
     assert rl["ai"] > 0 and rl["bytes_hbm"] > 0 and rl["dtype"] == "int8"
+
+
+@pytest.mark.parametrize("n,length,alpha,g,m,layout", [
+    (5, 300, 60, 10, 4, "depth"), (12, 120, 100, 8, 4, "depth"), (4, 1307, 21, 8, 4, "windows"),
+    (5, 150, 130, 14, 7, "slabs"),
+])
+def test_pairs_engine_flops_counts_kernel_a_s_stream_layouts(n, length, alpha, g, m, layout):
+    """The windows, depth and slabs layouts' blocks (ranges of j chunks;
+    the depth and slabs layouts' every warpgroup) against the block walk."""
+    X = np.random.default_rng(alpha).integers(1, alpha + 1, size=(n, length))
+    X[0, :alpha] = np.arange(1, alpha + 1)
+    eng = PairsGkmEngine(encode_sequences(X.tolist()), g, m, KernelConfig(device="cpu"))
+    rl = roofline.pairs_engine_flops(eng)
+    macs, brute_layout = _brute_kernel_a(eng, "mma")
+    assert rl["layout"] == brute_layout == layout
+    assert rl["flops"] == 2.0 * macs >= rl["useful_flops"]
 
 
 @pytest.mark.parametrize("n,alpha", [(30, 4), (60, 24)])

@@ -152,9 +152,10 @@ def test_api_guard_rejected_falls_to_packed(rng):
 
 def test_kernel_a_width_limit_routes_to_packed():
     """Uniform-length text at g=11 over 56 codes: a 616-byte one-hot row,
-    past kernel A's 512. The constructor refuses it on every device, the
-    API takes the packed engine, and the counts equal the JAX package's
-    (its sequence-aligned engine)."""
+    past the 512 bytes kernel A once took. Both packages now take their
+    sequence-aligned engine (kernel A streams the depth in 64-byte
+    slabs), and the counts equal the JAX package's, through the API and
+    through ``exact_engine="pairs"``."""
     rng = np.random.default_rng(5)
     X = rng.integers(1, 57, size=(6, 24))
     X[:, 0], X[:, 1] = 1, 56  # the full code range, so hash_base = 56
@@ -162,25 +163,38 @@ def test_kernel_a_width_limit_routes_to_packed():
     enc = encode_sequences(X)
     assert enc.hash_base == 56
     fsk = T.FastSK(11, 4, config=T.KernelConfig(**CPU))
-    assert isinstance(fsk._make_exact_engine(enc), PackedPairsEngine)
+    assert isinstance(fsk._make_exact_engine(enc), PairsGkmEngine)
     fsk.compute_train(X)
     ref = J.FastSK(11, 4)
     assert type(ref._make_exact_engine(enc)).__name__ == "PairsGkmEngine"
     ref.compute_train(X)
     np.testing.assert_array_equal(fsk.kernel_counts, ref.kernel_counts)
-    with pytest.raises(ValueError, match="512 bytes"):
-        T.FastSK(11, 4, config=T.KernelConfig(exact_engine="pairs", **CPU))._make_exact_engine(enc)
+    forced = T.FastSK(11, 4, config=T.KernelConfig(exact_engine="pairs", **CPU))
+    assert isinstance(forced._make_exact_engine(enc), PairsGkmEngine)
+    forced.compute_train(X)
+    np.testing.assert_array_equal(forced.kernel_counts, ref.kernel_counts)
 
 
 def test_kernel_a_shared_memory_limit():
     """Uniform proteins of length 1000 at g=10 over 24 codes: 992 x 256 B
-    of windows per sequence exceed shared memory."""
+    of windows per sequence, past a block's shared memory. Kernel A
+    streams them in ranges of j windows, so the sequence-aligned engine
+    builds in both packages with equal counts; only the int32 bound
+    (g=16, m=8 on the same set) still refuses it, in both, and the API
+    then takes the packed engine."""
     X = np.random.default_rng(6).integers(1, 25, size=(3, 1000)).tolist()
     enc = encode_sequences(X)
-    with pytest.raises(ValueError, match="shared memory"):
-        PairsGkmEngine(enc, 10, 4, T.KernelConfig(**CPU))
+    got = PairsGkmEngine(enc, 10, 4, T.KernelConfig(**CPU)).exact()
+    np.testing.assert_array_equal(got, J.kernel.pairs_engine.PairsGkmEngine(enc, 10, 4).exact())
     fsk = T.FastSK(10, 4, config=T.KernelConfig(**CPU))
-    assert isinstance(fsk._make_exact_engine(enc), PackedPairsEngine)
+    assert isinstance(fsk._make_exact_engine(enc), PairsGkmEngine)
+    assert type(J.FastSK(10, 4)._make_exact_engine(enc)).__name__ == "PairsGkmEngine"
+    with pytest.raises(ValueError, match="int32"):
+        PairsGkmEngine(enc, 16, 8, T.KernelConfig(**CPU))
+    with pytest.raises(ValueError, match="int32"):
+        J.kernel.pairs_engine.PairsGkmEngine(enc, 16, 8)
+    assert isinstance(T.FastSK(16, 8, config=T.KernelConfig(**CPU))._make_exact_engine(enc), PackedPairsEngine)
+    assert type(J.FastSK(16, 8)._make_exact_engine(enc)).__name__ == "PackedPairsEngine"
 
 
 def _ragged_labelled(seed: int, n: int):
