@@ -28,7 +28,8 @@ raises and the exit code is non-zero:
           4,007 at g8 m4, the windows layout, where the dp4a body ran
           before; 21 letters 1,024 x 1,307 at g8 m4, windows; 60 letters
           2,048 x 300 at g10 m4, a 600-byte one-hot row, the depth
-          layout; the last two refused before): FastSK.compute_kernel
+          layout; 130 letters 1,024 x 300 at g12 m6, a 1,560-byte row,
+          the slabs layout): FastSK.compute_kernel
           (exact_engine="auto") must take the engine the JAX package's
           rule gives (PairsGkmEngine) and kernel A's tensor-core body;
           kernel A directly, timed, integer-equal to its plain version
@@ -152,15 +153,17 @@ raises and the exit code is non-zero:
           single-device host path's within 1e-9 and >= 0.9. With two or
           more cards a mesh over distinct cards runs too; on one card a
           line says it was skipped.
-16. probe   kernel H (csrc/pairs.cu, the variants of kernel A's body) at
-          KAT2B and at the 7230 x 200 g=16 m=10 shape of phase 3, best of
-          3 each, the counters zeroed before: every variant equal to its
-          plain version (current and int32 to phase 3's plain counts) and
-          the same checksum in every repetition; the chain cost of current
-          and int32 against skeleton. Then the parts of kernel A's
-          tensor-core body at both shapes (experiments/probe_pairs.py
-          --body mma): whole, without the epilogue, without the wgmma
-          loop, loads only; the whole equal to phase 3's plain counts.
+16. probe   kernel H (csrc/pairs.cu: noop, loads, matmul, skeleton,
+          no_mma, current and int32, variants of kernel A's tensor-core
+          body) at six of phase 3's sets, each in the layout mma_plan
+          must give it (PROBE_SETS: KAT2B and 7230 x 200 g16 m10
+          resident, DNA 512 x 4,007 and 21 letters windows, 60 letters
+          depth, 130 letters slabs), best of 3 each, the counter zeroed
+          before: every variant equal to its plain version (current and
+          int32 to phase 3's plain counts), the same checksum in every
+          repetition, launches = sets x variants x reps; each set's split
+          of A's time (experiments/probe_pairs.py: products, epilogue,
+          loads, overlap).
 17. approx-219  the 2.19 set of phase 8 (alphabet 24, g=8, m=4: 24^4
           buckets, so the sorted theta engine) with approx=True, seed 0,
           device-resident -> fit (C=0.01; kernel B twice for 6 problems)
@@ -541,10 +544,11 @@ STREAM_SETS = (
     ("dna512x4007", 41, 512, 4007, 4, 8, 4),
     ("l21_1024x1307", 42, 1024, 1307, 21, 8, 4),
     ("l60_2048x300", 43, 2048, 300, 60, 10, 4),
+    ("l130_1024x300", 44, 1024, 300, 130, 12, 6),  # 1,560-byte rows: the slabs layout
 )
 
 
-def stream_sets_phase(dev, sets=STREAM_SETS) -> dict:
+def stream_sets_phase(dev, sets=STREAM_SETS, keep=None) -> dict:
     """Part of phase 3: each of ``sets`` (seeded, uniform lengths, every
     letter present) through FastSK.compute_kernel (exact_engine="auto",
     device-resident) with kernel A's counters zeroed: the engine must be
@@ -552,7 +556,8 @@ def stream_sets_phase(dev, sets=STREAM_SETS) -> dict:
     kernel A directly (warmed up, timed) integer-equal to its plain
     version and to the API's counts; kernel D on the same set
     (exact_engine="packed", warmed up, timed) equal to A; and, where its
-    tile fits, the dp4a body asked for by name (timed, equal)."""
+    tile fits, the dp4a body asked for by name (timed, equal). ``keep``,
+    a dict, gets each set's probe case (``probe_case``) for phase 16."""
     from fastsk_tpu_torch import FastSK, KernelConfig
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
     from fastsk_tpu_torch.ops import pairs, pairs_cuda, pairs_packed_cuda
@@ -595,6 +600,8 @@ def stream_sets_phase(dev, sets=STREAM_SETS) -> dict:
             del got4
         windows = windows_of(X, g)
         bound = count_bound(windows, g * alpha, x.numel() + eng.n_pad**2 * 4)
+        if keep is not None:
+            keep[name] = probe_case(x, g, k, eng.p_pad, want, windows, g * alpha)
         del x, want, api_counts
         torch.cuda.empty_cache()
 
@@ -621,6 +628,12 @@ def stream_sets_phase(dev, sets=STREAM_SETS) -> dict:
         require(err == 0 and api_err == 0 and d_err == 0 and dp4a_err in (None, 0),
                 f"{name}: kernel A differs from its plain version, the API or kernel D: {out[name]}")
     return out
+
+
+def probe_case(x, g: int, k: int, p_pad: int, want, windows: int, width: int) -> tuple:
+    """Kernel A's operand and plain counts at a set, kept in host memory
+    until phase 16 (kernel H) so that they hold no card memory between."""
+    return (x.cpu(), g, k, p_pad, want.cpu(), windows, width)
 
 
 def pairs_body_sweep(dev, n: int = 1000, length: int = 200, alphas=(16, 24, 40, 48, 56)) -> dict:
@@ -2420,40 +2433,56 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
     return dict(main, f_full=f_full, runs=per_run)
 
 
-def probe_phase(cases: dict, reps: int = 3) -> dict:
-    """Phase 16: kernel H's five variants at each of ``cases`` ({shape:
-    (x, g, k, p_pad, plain counts, windows, width)}), the counter zeroed
-    before. Returns {"launches": n, "shapes": {shape: run_probe's
-    result}}, each variant with its bound."""
-    from fastsk_tpu_torch.experiments.probe_pairs import run_mma_parts, run_probe
-    from fastsk_tpu_torch.ops import pairs_cuda
+# phase 16's sets (phase 3's names) and the layout mma_plan must give each
+PROBE_SETS = (
+    ("KAT2B", "resident"),
+    ("dna7230x200", "resident"),
+    ("dna512x4007", "windows"),
+    ("l21_1024x1307", "windows"),
+    ("l60_2048x300", "depth"),
+    ("l130_1024x300", "slabs"),
+)
 
+
+def probe_phase(dev, cases: dict, sets=PROBE_SETS, reps: int = 3) -> dict:
+    """Phase 16: kernel H's variants of kernel A's tensor-core body at each
+    of ``sets``, in the layout each must take, the counter zeroed before;
+    ``cases`` are phase 3's ``probe_case``s (current and int32 are held to
+    its plain counts). Each variant's bound: bytes for noop (the output)
+    and loads (the operand and the output), A's operations for the rest.
+    Returns {"launches": n, "sets": {set: run_probe's result}}."""
+    from fastsk_tpu_torch.experiments.probe_pairs import run_probe
+    from fastsk_tpu_torch.ops import pairs, pairs_cuda
+
+    from fastsk_tpu_torch import _build
+
+    require(not hasattr(_build.kernels(), "pairs_probe_launch"),
+            "the library still has the dp4a body's probe entry point")
     pairs_cuda.pairs_probe.launches = 0
-    out, parts = {}, {}
-    for shape, (x, g, k, p_pad, plain, windows, width) in cases.items():
+    out = {}
+    for name, layout in sets:
+        x, g, k, p_pad, plain, windows, width = cases[name]
+        x, plain = x.to(dev), plain.to(dev)
         res = run_probe(x, g=g, k=k, p_pad=p_pad, reps=reps, counts_plain=plain)
         out_bytes = (x.shape[0] // p_pad) ** 2 * 4
-        for variant, fields in res.items():
+        for variant, fields in res["variants"].items():
             fields.update(
                 bound(0.0, out_bytes, PEAK_INT8_OPS) if variant == "noop"
+                else bound(0.0, x.numel() + out_bytes, PEAK_INT8_OPS) if variant == "loads"
                 else count_bound(windows, width, x.numel() + out_bytes)
             )
-        emit("probe", shape=shape, g=g, m=g - k, reps=reps, variants=res)
-        for variant, fields in res.items():
-            require(fields["max_abs_err"] == 0, f"kernel H {variant} differs from its plain version on {shape}")
-            require(fields["checksums_equal"], f"kernel H {variant} gave different checksums on {shape}")
-        out[shape] = res
+        emit("probe", shape=name, g=g, m=g - k, reps=reps, **res)
+        require(res["layout"] == layout, f"kernel H took the {res['layout']} layout at {name}, not {layout}")
+        for variant, fields in res["variants"].items():
+            require(fields["max_abs_err"] == 0, f"kernel H {variant} differs from its plain version on {name}")
+            require(fields["checksums_equal"], f"kernel H {variant} gave different checksums on {name}")
+        out[name] = res
+        del x, plain
+        torch.cuda.empty_cache()
     launches = pairs_cuda.pairs_probe.launches
-    require(launches == reps * 5 * len(cases), f"kernel H launched {launches} times")
-    # the parts of kernel A's tensor-core body (not kernel H: uncounted)
-    for shape, (x, g, k, p_pad, plain, _, _) in cases.items():
-        parts[shape] = run_mma_parts(x, g=g, k=k, p_pad=p_pad, reps=reps, counts_plain=plain)
-        emit("probe-mma", shape=shape, g=g, m=g - k, reps=reps, parts=parts[shape])
-        require(parts[shape]["current"]["max_abs_err"] == 0,
-                f"kernel A's tensor-core body differs from its plain version on {shape}")
-    return {"launches": launches, "shapes": out,
-            "mma_parts": {shape: p["split"] | {"current_ms": p["current"]["best_ms"]}
-                          for shape, p in parts.items()}}
+    want = len(sets) * len(pairs.PROBE_VARIANTS) * reps
+    require(launches == want, f"kernel H launched {launches} times, not {want}")
+    return {"launches": launches, "sets": out}
 
 
 # ------------------------------------------------ phases 23-26 (the EKM,
@@ -2936,13 +2965,13 @@ def main() -> None:
             ms_by[default_key], plain_ms, max(err_by.values()),
             count_bound(windows, width, x.numel() + eng.n_pad**2 * 4), ms_by,
         )
-        probe_cases[name] = (x, g, g - m, eng.p_pad, want, windows, width)
+        probe_cases[name] = probe_case(x, g, g - m, eng.p_pad, want, windows, width)
         a_bound_inputs[name] = (windows, width, x.numel() + eng.n_pad**2 * 4)
         del x, want
     torch.cuda.empty_cache()
     d_kat2b = kat2b_on_d(dev, Xtr, Xte, kat2b_counts)
     a_sweep = pairs_body_sweep(dev)
-    a_stream = stream_sets_phase(dev)
+    a_stream = stream_sets_phase(dev, keep=probe_cases)
 
     # --------------------------------------------------- kernel B vs twin
     ntr = len(Xtr)
@@ -3048,7 +3077,7 @@ def main() -> None:
     # ------------------------------- kernel F, the mesh path and kernel H
     s1 = s1_phase(dev)
     mesh = mesh_phase(dev)
-    probe = probe_phase(probe_cases)
+    probe = probe_phase(dev, probe_cases)
     del probe_cases
     torch.cuda.empty_cache()
 
@@ -3091,7 +3120,6 @@ def main() -> None:
                 "bound_ms_g16": pairs_times["dna7230x200"][3]["bound_ms"],
                 "d_ms_kat2b": d_kat2b["d_ms"], "body_sweep": a_sweep,
                 "stream_sets": a_stream, "dp4a_launches": dict(DP4A),
-                "mma_parts": probe["mma_parts"],
             },
             {
                 "name": "smo_solve", "route": "cuda",
@@ -3183,27 +3211,39 @@ def main() -> None:
             },
             {
                 # the top-level numbers are the `current` variant's at KAT2B;
-                # `variants` has each variant at both shapes
+                # `sets` has each set's layout, split and variants. Every
+                # variant is an instantiation of pairs_mma_kernel (resident,
+                # windows) or pairs_mma_deep_kernel (depth, slabs); the
+                # library has no dp4a probe entry point
                 "name": "pairs_probe", "route": "cuda",
                 "source": "fastsk_tpu_torch/csrc/pairs.cu",
                 "replaces": "experiments/probe_pairs.py:39",
                 "launches": probe["launches"],
                 "max_abs_err": max(
-                    v["max_abs_err"] for res in probe["shapes"].values() for v in res.values()
+                    v["max_abs_err"] for res in probe["sets"].values()
+                    for v in res["variants"].values()
                 ),
-                "ms": probe["shapes"]["KAT2B"]["current"]["best_ms"],
+                "ms": probe["sets"]["KAT2B"]["variants"]["current"]["best_ms"],
                 "plain_ms": pairs_times["KAT2B"][1],
-                "bound_ms": probe["shapes"]["KAT2B"]["current"]["bound_ms"],
-                "bound_by": probe["shapes"]["KAT2B"]["current"]["bound_by"],
+                "bound_ms": probe["sets"]["KAT2B"]["variants"]["current"]["bound_ms"],
+                "bound_by": probe["sets"]["KAT2B"]["variants"]["current"]["bound_by"],
                 "library_ms": None,
-                "variants": {
-                    shape: {
-                        v: {key: f[key] for key in ("best_ms", "max_abs_err", "bound_ms", "bound_by")}
-                        | ({"chain_ms_vs_skeleton": f["chain_ms_vs_skeleton"]}
-                           if "chain_ms_vs_skeleton" in f else {})
-                        for v, f in res.items()
+                "variants": list(pairs.PROBE_VARIANTS),
+                "kernels": {
+                    layout: ("pairs_mma_kernel" if layout in ("resident", "windows")
+                             else "pairs_mma_deep_kernel")
+                    for layout in pairs_cuda.MMA_LAYOUTS
+                },
+                "dp4a_probe_entry": hasattr(_build.kernels(), "pairs_probe_launch"),
+                "sets": {
+                    name: {
+                        "layout": res["layout"], "split": res["split"],
+                        "variants": {
+                            v: {key: f[key] for key in ("best_ms", "max_abs_err", "bound_ms", "bound_by")}
+                            for v, f in res["variants"].items()
+                        },
                     }
-                    for shape, res in probe["shapes"].items()
+                    for name, res in probe["sets"].items()
                 },
             },
         ]

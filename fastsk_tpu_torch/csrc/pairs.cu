@@ -27,24 +27,28 @@
 //     the VPU exact; integers make that unnecessary);
 //   - sums are int32: every per-pair total is < p_pad^2 * C(g, k) < 2^31,
 //     which the engine guards.
-// That is the `__dp4a` body (pairs_kernel): kernel A runs it only where
-// the caller asks for it (body="dp4a"), and kernel H instantiates it.
-// Kernel A's body, pairs_mma_kernel and pairs_mma_deep_kernel below,
-// counts the matches on the int8 tensor cores at every shape.
+// That is the `__dp4a` body (pairs_kernel), kernel A's first port: A runs
+// it only where the caller asks for it (body="dp4a"). Kernel A's body,
+// pairs_mma_kernel and pairs_mma_deep_kernel below, counts the matches on
+// the int8 tensor cores at every shape.
 //
-// Kernel H: variants of kernel A's body that attribute its cost (replace
-// experiments/probe_pairs.py:make_kernel, keeping its variant names). Each
-// runs A's grid, tiles and writes and differs only in the per-pair work:
+// Kernel H: variants of kernel A's tensor-core body that attribute its
+// time (replace experiments/probe_pairs.py:make_kernel, keeping its
+// variant names). Each runs A's grid, plan, loads, ring and writes in the
+// layout A takes, and differs only in the per-pair work:
 //   noop      tile set-up and the output writes only (zeros);
-//   matmul    the __dp4a match counts only, summed into one per-thread
-//             value so they stay live, landed once per thread at the
-//             tile's corner entry (no per-item sums);
-//   skeleton  w = d with A's sums: K = S S^T, S_i = sum_p x_ip;
+//   loads     A's loads and ring, no products (zeros);
+//   matmul    the wgmma products, kept live by a per-thread sum of the
+//             match counts, no lookup: each tile pair's sum of match
+//             counts (mod 2^32) at its corner entry;
+//   skeleton  the products and A's bin sums with weight w = d: K = S S^T,
+//             S_i = sum_p x_ip;
+//   no_mma    A's epilogue on opaque zero counts, every lookup run (zeros);
 //   current   kernel A itself (the C(d, k) table);
-//   int32     C(d, k) as the falling-factorial chain in int32, divided
-//             exactly by k! once per RI pairs, in place of the table.
-// A's own entry point instantiates `current` only, so its code is the
-// same; the probe's entry point instantiates the widths of its shapes.
+//   int32     C(d, k) as the falling-factorial chain in registers, summed
+//             per flush and divided exactly by k! once, in place of the
+//             table (A's counts).
+// A's entry point is the `current` variant, whose code is A's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,20 +61,27 @@ using namespace fastsk_hopper;
 
 constexpr int kThreads = 256;
 
-enum Variant : int { kNoop = 0, kMatmul = 1, kSkeleton = 2, kCurrent = 3, kInt32 = 4 };
+// kernel H's variants, in the order of the C entry point
+enum Variant : int {
+  kNoop = 0, kLoads = 1, kMatmul = 2, kSkeleton = 3, kNoMma = 4, kCurrent = 5, kInt32 = 6
+};
+constexpr int kVariants = 7;
 
 // d (d - 1) ... (d - k + 1) in int32 with balanced factor pairing, as
-// fastsk_tpu/ops/pairs_pallas.py:ffact_pairing_i32: 0 for 0 <= d < k.
+// fastsk_tpu/ops/pairs_pallas.py:ffact_pairing_i32: 0 for 0 <= d < k. The
+// loop stays rolled: unrolled over a k known only at run time, ptxas made
+// each of kernel H's int32 kernels ~25,000 instructions.
 __device__ __forceinline__ int ffact_i32(int d, int k) {
   if (k == 1) return d;
   const int t = d * (d - (k - 1));
   int prod = t;
+#pragma unroll 1
   for (int i = 1; i < k / 2; ++i) prod *= t + i * (k - 1 - i);
   if (k & 1) prod *= d - (k - 1) / 2;
   return prod;
 }
 
-template <int W, int RI, int V = kCurrent>
+template <int W, int RI>
 __global__ void __launch_bounds__(kThreads)
 pairs_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
              int n_pad, int p_pad, int s, int k) {
@@ -98,12 +109,8 @@ pairs_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
 
   const int groups_per_seq = p_pad / RI;  // p_pad % 8 == 0, RI | 8
   const int n_groups = s * groups_per_seq;
-  const int n_items = V == kNoop ? 0 : n_groups * s;
+  const int n_items = n_groups * s;
   const uint32_t* xi_g = x + static_cast<size_t>(bi) * tile_rows * W;
-  int kfact = 1;
-  if constexpr (V == kInt32)
-    for (int j = 2; j <= k; ++j) kfact *= j;
-  uint32_t fold = 0;
   for (int item = tid; item < n_items; item += kThreads) {
     const int grp = item % n_groups;  // RI consecutive i windows
     const int sj = item / n_groups;   // one j sequence of the tile
@@ -127,25 +134,11 @@ pairs_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
 #pragma unroll
         for (int r = 0; r < RI; ++r) d[r] = __dp4a(a[r][w], b, d[r]);
       }
-      if constexpr (V == kCurrent) {
 #pragma unroll
-        for (int r = 0; r < RI; ++r) sum += tbl[d[r]];
-      } else if constexpr (V == kInt32) {
-        int f = 0;  // RI falling factorials < 2^31 (the wrapper's guard)
-#pragma unroll
-        for (int r = 0; r < RI; ++r) f += ffact_i32(static_cast<int>(d[r]), k);
-        sum += f / kfact;
-      } else {  // matmul, skeleton: w = d
-#pragma unroll
-        for (int r = 0; r < RI; ++r) sum += static_cast<int32_t>(d[r]);
-      }
+      for (int r = 0; r < RI; ++r) sum += tbl[d[r]];
     }
-    if constexpr (V == kMatmul)
-      fold += static_cast<uint32_t>(sum);
-    else
-      atomicAdd(&acc[si * s + sj], sum);
+    atomicAdd(&acc[si * s + sj], sum);
   }
-  if constexpr (V == kMatmul) atomicAdd(reinterpret_cast<unsigned*>(acc), fold);
   __syncthreads();
 
   for (int t = tid; t < s * s; t += kThreads) {
@@ -156,7 +149,7 @@ pairs_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
   }
 }
 
-template <int W, int V = kCurrent>
+template <int W>
 cudaError_t launch(const uint32_t* x, int32_t* out, int n_pad, int p_pad,
                    int s, int k, cudaStream_t stream) {
   // RI i-windows per thread: about 64 registers of operands
@@ -164,28 +157,13 @@ cudaError_t launch(const uint32_t* x, int32_t* out, int n_pad, int p_pad,
   const size_t smem =
       (static_cast<size_t>(s) * p_pad * W + s * s + 32) * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      pairs_kernel<W, RI, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pairs_kernel<W, RI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int tiles = n_pad / s;
   dim3 grid(tiles, tiles);
-  pairs_kernel<W, RI, V><<<grid, kThreads, smem, stream>>>(x, out, n_pad,
-                                                           p_pad, s, k);
+  pairs_kernel<W, RI><<<grid, kThreads, smem, stream>>>(x, out, n_pad, p_pad, s, k);
   return cudaGetLastError();
-}
-
-template <int W>
-cudaError_t launch_probe(const uint32_t* x, int32_t* out, int n_pad,
-                         int p_pad, int s, int k, int variant,
-                         cudaStream_t stream) {
-  switch (variant) {
-    case kNoop: return launch<W, kNoop>(x, out, n_pad, p_pad, s, k, stream);
-    case kMatmul: return launch<W, kMatmul>(x, out, n_pad, p_pad, s, k, stream);
-    case kSkeleton: return launch<W, kSkeleton>(x, out, n_pad, p_pad, s, k, stream);
-    case kCurrent: return launch<W, kCurrent>(x, out, n_pad, p_pad, s, k, stream);
-    case kInt32: return launch<W, kInt32>(x, out, n_pad, p_pad, s, k, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // ------------------------------------------------------- A, tensor cores
@@ -217,8 +195,9 @@ cudaError_t launch_probe(const uint32_t* x, int32_t* out, int n_pad,
 // What bounds it, and the design:
 //   - the time is shared by the product (64 bytes a row at KAT2B: about
 //     59 ms at the card's int8 peak), the epilogue (one C(M, k) and one
-//     add a window pair, ~1e12 pairs at KAT2B) and the tile loads;
-//     experiments/probe_pairs.py --body mma times each part. C(M, k) is
+//     add a window pair, ~1e12 pairs at KAT2B) and the tile loads; kernel
+//     H's variants (experiments/probe_pairs.py) time each part in every
+//     layout. C(M, k) is
 //     a lookup in a 32-entry shared table (one LDS a pair, conflict-free:
 //     a bank per entry);
 //   - a block owns a pair of sequence tiles (bi <= bj, a 1-D triangular
@@ -247,10 +226,9 @@ cudaError_t launch_probe(const uint32_t* x, int32_t* out, int n_pad,
 //     they weigh C(0, k) = 0 and need no test;
 //   - two blocks an SM where the resident tile allows (the plan sizes
 //     it), so one block's loads overlap the other's work.
-// kVariant 0 is the kernel; the others time its parts in the resident
-// layout (the result is then not the count matrix): 1 skips the epilogue,
-// 2 the wgmma loop (its counts replaced by opaque zeros, so every lookup
-// still runs), 3 both (loads, barriers and writes only).
+// Both kernels take kernel H's variant (kVariant, kCurrent for A itself):
+// every `if constexpr` on it below keeps A's code where the variant is
+// kCurrent.
 
 constexpr int kMmaThreads = 256;  // 2 warpgroups: 64 i rows x 128 j rows each
 constexpr int kChunk = 128;       // window rows of a chunk
@@ -293,14 +271,38 @@ size_t deep_smem_bytes(int s, int depth, bool resident_j) {
                            bins_bytes(s));
 }
 
-// Adds C(d, k) of one warp's 64-column half of its 16 x 64 fragment
-// rows (d: the half's 32 accumulators; element v at row wrow + gid +
-// 8 * ((v >> 1) & 1), column cbase + 8 * (v >> 2) + 2 * tig + (v & 1) of
-// the j tile) into the s x s bins; si0, si1 are the tile sequences of the
-// warp's two 8-row groups.
+// The weight of a window pair of d matches: C(d, k) from the shared table
+// (kernel A), k! C(d, k) as the falling-factorial chain (int32; unscale
+// divides a flush's sum by k!) or d itself (skeleton).
+template <int V>
+__device__ __forceinline__ int weigh(int d, const int32_t* tbl, int k) {
+  if constexpr (V == kSkeleton) {
+    return d;
+  } else if constexpr (V == kInt32) {
+    return ffact_i32(d, k);
+  } else {
+    return tbl[d];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ int unscale(int sum, int kfact) {
+  if constexpr (V == kInt32) {
+    return sum / kfact;  // exact: each chain is a multiple of k!
+  } else {
+    return sum;
+  }
+}
+
+// Adds the weights (weigh<V>) of one warp's 64-column half of its 16 x 64
+// fragment rows (d: the half's 32 accumulators; element v at row wrow +
+// gid + 8 * ((v >> 1) & 1), column cbase + 8 * (v >> 2) + 2 * tig + (v &
+// 1) of the j tile) into the s x s bins; si0, si1 are the tile sequences
+// of the warp's two 8-row groups. A lane's flush sums at most 16 weights.
+template <int V>
 __device__ __forceinline__ void add_half(const int* d, int cbase, int p_pad, int s,
-                                         int si0, int si1, int lane,
-                                         const int32_t* tbl, int32_t* bins) {
+                                         int si0, int si1, int lane, const int32_t* tbl,
+                                         int32_t* bins, int k, int kfact) {
   if (p_pad >= 64) {
     // a half's 64 columns span at most two sequences: sums a (the
     // first) and b, selected without a branch, flushed once each, so
@@ -313,18 +315,18 @@ __device__ __forceinline__ void add_half(const int* d, int cbase, int p_pad, int
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const bool first = cbase + 8 * c < edge;
-      const int w0 = tbl[d[4 * c]] + tbl[d[4 * c + 1]];
-      const int w1 = tbl[d[4 * c + 2]] + tbl[d[4 * c + 3]];
+      const int w0 = weigh<V>(d[4 * c], tbl, k) + weigh<V>(d[4 * c + 1], tbl, k);
+      const int w1 = weigh<V>(d[4 * c + 2], tbl, k) + weigh<V>(d[4 * c + 3], tbl, k);
       a0 += first ? w0 : 0;
       b0 += first ? 0 : w0;
       a1 += first ? w1 : 0;
       b1 += first ? 0 : w1;
     }
     const int sa_ = min(sq, s - 1), sb_ = min(sq + 1, s - 1);
-    const int t0 = __reduce_add_sync(kFullMask, a0);
-    const int t1 = __reduce_add_sync(kFullMask, a1);
-    const int t2 = __reduce_add_sync(kFullMask, b0);
-    const int t3 = __reduce_add_sync(kFullMask, b1);
+    const int t0 = __reduce_add_sync(kFullMask, unscale<V>(a0, kfact));
+    const int t1 = __reduce_add_sync(kFullMask, unscale<V>(a1, kfact));
+    const int t2 = __reduce_add_sync(kFullMask, unscale<V>(b0, kfact));
+    const int t3 = __reduce_add_sync(kFullMask, unscale<V>(b1, kfact));
     if (lane == 0) {
       atomicAdd(&bins[si0 * s + sa_], t0);
       atomicAdd(&bins[si1 * s + sa_], t1);
@@ -336,8 +338,8 @@ __device__ __forceinline__ void add_half(const int* d, int cbase, int p_pad, int
     int next = (sq + 1) * p_pad;   // its end
     int run0 = 0, run1 = 0;
     auto flush = [&]() {
-      const int t0 = __reduce_add_sync(kFullMask, run0);
-      const int t1 = __reduce_add_sync(kFullMask, run1);
+      const int t0 = __reduce_add_sync(kFullMask, unscale<V>(run0, kfact));
+      const int t1 = __reduce_add_sync(kFullMask, unscale<V>(run1, kfact));
       if (lane == 0) {
         atomicAdd(&bins[si0 * s + min(sq, s - 1)], t0);
         atomicAdd(&bins[si1 * s + min(sq, s - 1)], t1);
@@ -352,11 +354,26 @@ __device__ __forceinline__ void add_half(const int* d, int cbase, int p_pad, int
         next += p_pad;
         run0 = run1 = 0;
       }
-      run0 += tbl[d[4 * c]] + tbl[d[4 * c + 1]];
-      run1 += tbl[d[4 * c + 2]] + tbl[d[4 * c + 3]];
+      run0 += weigh<V>(d[4 * c], tbl, k) + weigh<V>(d[4 * c + 1], tbl, k);
+      run1 += weigh<V>(d[4 * c + 2], tbl, k) + weigh<V>(d[4 * c + 3], tbl, k);
     }
     flush();
   }
+}
+
+// k! (the int32 variant's divisor).
+__device__ __forceinline__ int factorial(int k) {
+  int f = 1;
+  for (int j = 2; j <= k; ++j) f *= j;
+  return f;
+}
+
+// The matmul variant's per-thread sums of match counts into bins[0] (the
+// corner entry), ahead of the writes.
+__device__ __forceinline__ void flush_sum(int sum, int lane, int32_t* bins) {
+  const int t = __reduce_add_sync(kFullMask, sum);
+  if (lane == 0) atomicAdd(&bins[0], t);
+  __syncthreads();
 }
 
 // C(tid, k) exactly into tbl[tid] for the first 32 threads.
@@ -420,9 +437,11 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
       cp_async16_zfill(dst + q * 16, src, ok ? 16 : 0);
     }
   };
-  for (int c = c0; c < c1; ++c) load_chunk(sj + (c - c0) * chunk_bytes, bj, c);
-  load_chunk(sa, bi, 0);
-  cp_async_commit();
+  if constexpr (kVariant != kNoop) {
+    for (int c = c0; c < c1; ++c) load_chunk(sj + (c - c0) * chunk_bytes, bj, c);
+    load_chunk(sa, bi, 0);
+    cp_async_commit();
+  }
   fill_binom(tbl, tid, k);
   for (int q = tid; q < s * s; q += kMmaThreads) bins[q] = 0;
 
@@ -431,7 +450,10 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
   // this warp's fragment rows: lane's gid in the 8-row groups at
   // wrow and wrow + 8 of the warpgroup's 64 rows of the chunk
   const int wrow = 64 * wg + 16 * (warp & 3);
-  for (int ci = 0; ci < nc; ++ci) {
+  const int kfact = kVariant == kInt32 ? factorial(k) : 1;
+  int sum = 0;  // matmul: this thread's sum of match counts
+  if constexpr (kVariant == kNoop) __syncthreads();  // the zeroed bins
+  for (int ci = 0; ci < (kVariant == kNoop ? 0 : nc); ++ci) {
     if (ci + 1 < nc) {
       load_chunk(sa + ((ci + 1) & 1) * chunk_bytes, bi, ci + 1);
       cp_async_commit();
@@ -454,7 +476,10 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
     // runs, so every warp overlaps its products with its lookups
     int acc[2][32];
     auto start_half = [&](int* d, int cj, int h) {
-      if constexpr (kVariant == 0 || kVariant == 1) {
+      if constexpr (kVariant == kNoMma) {  // opaque zero counts
+#pragma unroll
+        for (int v = 0; v < 32; ++v) asm volatile("mov.b32 %0, 0;" : "=r"(d[v]));
+      } else {
         const uint8_t* b_rows = sj + (cj - c0) * chunk_bytes + h * 64 * depth;
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
         for (int kk = 0; kk < depth; kk += 32) {  // two core matrices along K
@@ -462,22 +487,17 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
                        smem_desc(b_rows + kk * 8, 128, depth * 8), kk > 0);
         }
         wgmma_commit();
-      } else {
-#pragma unroll
-        for (int v = 0; v < 32; ++v) asm volatile("mov.b32 %0, 0;" : "=r"(d[v]));
       }
     };
     auto epilogue = [&](const int* d, int cbase) {
-      if constexpr (kVariant == 1 || kVariant == 3) {  // keep the products live
-        int f = 0;
+      if constexpr (kVariant == kMatmul) {  // keep the products live
 #pragma unroll
-        for (int v = 0; v < 32; ++v) f ^= d[v];
-        if (f == 0x7fffffff) atomicAdd(&bins[0], 1);
+        for (int v = 0; v < 32; ++v) sum += d[v];
       } else {
-        add_half(d, cbase, p_pad, s, si0, si1, lane, tbl, bins);
+        add_half<kVariant>(d, cbase, p_pad, s, si0, si1, lane, tbl, bins, k, kfact);
       }
     };
-    if (live) {
+    if (kVariant != kLoads && live) {
       // a range holds a chunk at least; unless ptxas knows the loop below
       // runs, it serializes the wgmmas (as the resident layout's loop
       // runs inside ci < nc)
@@ -498,6 +518,7 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
     }
     __syncthreads();  // the chunk's buffer is refilled two chunks on
   }
+  if constexpr (kVariant == kMatmul) flush_sum(sum, lane, bins);
 
   if constexpr (kRanged) {
     add_bins(out, bins, bi, bj, s, n_pad, tid);
@@ -523,7 +544,7 @@ pairs_mma_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
 // order. The loads run kAhead steps ahead through the ring (a step's slot
 // is refilled once every warp has waited its wgmma: two steps on), and
 // nothing but wgmma touches the accumulators while one is in flight.
-template <bool kResidentJ>
+template <int kVariant, bool kResidentJ>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 pairs_mma_deep_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
                       int n_pad, int p_pad, int s, int k, int depth, int rc) {
@@ -581,9 +602,11 @@ pairs_mma_deep_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
       cp_async16_zfill(sb + (rem >> 2) * kSlabBytes + sw64_at(r, rem & 3), src, ok ? 16 : 0);
     }
   };
-  for (int t = 0; t < R::kAhead; ++t) {
-    load_step(t);
-    cp_async_commit();
+  if constexpr (kVariant != kNoop) {
+    for (int t = 0; t < R::kAhead; ++t) {
+      load_step(t);
+      cp_async_commit();
+    }
   }
   fill_binom(tbl, tid, k);
   for (int q = tid; q < s * s; q += kMmaThreads) bins[q] = 0;
@@ -591,6 +614,8 @@ pairs_mma_deep_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
   const int warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2;
   const int wrow = 64 * wg + 16 * (warp & 3);
+  const int kfact = kVariant == kInt32 ? factorial(k) : 1;
+  int sum = 0;  // matmul: this thread's sum of match counts
   int acc[64];  // 64 x 128 a warpgroup: columns 0-63, then 64-127
   int t = 0;
   // one 128 x 128 tile: i chunk ci against j chunk cj, all its slabs
@@ -603,25 +628,41 @@ pairs_mma_deep_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
       __syncthreads();
       load_step(t + R::kAhead);  // into step t - 2's slot
       cp_async_commit();
-      const uint8_t* slot = ring + (t % R::kStages) * R::kStageBytes;
-      const uint8_t* a_rows = slot + wg * 64 * kSlab;
-      // the j slab: the ring's, or slab ks of the resident chunk
-      const uint8_t* b_rows = kResidentJ ? sb + ks * kSlabBytes : slot + kSlabBytes;
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      // the two k-steps: bytes 0-31 and 32-63 of the swizzled rows
-      wgmma_s8(acc, smem_desc_sw64(a_rows, 8 * kSlab), smem_desc_sw64(b_rows, 8 * kSlab), ks > 0);
-      wgmma_s8(acc, smem_desc_sw64(a_rows + 32, 8 * kSlab), smem_desc_sw64(b_rows + 32, 8 * kSlab),
-               1);
-      wgmma_commit();
-      wgmma_wait<1>();
+      if constexpr (kVariant != kLoads && kVariant != kNoMma) {
+        const uint8_t* slot = ring + (t % R::kStages) * R::kStageBytes;
+        const uint8_t* a_rows = slot + wg * 64 * kSlab;
+        // the j slab: the ring's, or slab ks of the resident chunk
+        const uint8_t* b_rows = kResidentJ ? sb + ks * kSlabBytes : slot + kSlabBytes;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        // the two k-steps: bytes 0-31 and 32-63 of the swizzled rows
+        wgmma_s8(acc, smem_desc_sw64(a_rows, 8 * kSlab), smem_desc_sw64(b_rows, 8 * kSlab),
+                 ks > 0);
+        wgmma_s8(acc, smem_desc_sw64(a_rows + 32, 8 * kSlab),
+                 smem_desc_sw64(b_rows + 32, 8 * kSlab), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
     }
-    wgmma_wait<0>();
-    const int ir = ci * kChunk + wrow;
-    const int si0 = min(ir / p_pad, s - 1), si1 = min((ir + 8) / p_pad, s - 1);
-    add_half(acc, cj * kChunk, p_pad, s, si0, si1, lane, tbl, bins);
-    add_half(acc + 32, cj * kChunk + 64, p_pad, s, si0, si1, lane, tbl, bins);
+    if constexpr (kVariant == kNoMma) {  // opaque zero counts
+#pragma unroll
+      for (int v = 0; v < 64; ++v) asm volatile("mov.b32 %0, 0;" : "=r"(acc[v]));
+    } else if constexpr (kVariant != kLoads) {
+      wgmma_wait<0>();
+    }
+    if constexpr (kVariant == kMatmul) {  // keep the products live
+#pragma unroll
+      for (int v = 0; v < 64; ++v) sum += acc[v];
+    } else if constexpr (kVariant != kLoads) {
+      const int ir = ci * kChunk + wrow;
+      const int si0 = min(ir / p_pad, s - 1), si1 = min((ir + 8) / p_pad, s - 1);
+      add_half<kVariant>(acc, cj * kChunk, p_pad, s, si0, si1, lane, tbl, bins, k, kfact);
+      add_half<kVariant>(acc + 32, cj * kChunk + 64, p_pad, s, si0, si1, lane, tbl, bins, k,
+                         kfact);
+    }
   };
-  if constexpr (kResidentJ) {
+  if constexpr (kVariant == kNoop) {
+    __syncthreads();  // the zeroed bins
+  } else if constexpr (kResidentJ) {
     for (int cj = c0; cj < c0 + ncj; ++cj) {
       __syncthreads();  // every warp's products on the last chunk are done
       load_j(cj);
@@ -635,14 +676,24 @@ pairs_mma_deep_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
     for (int ci = 0; ci < nc; ++ci)
       for (int cj = c0; cj < c0 + ncj; ++cj) tile(ci, cj);
   }
-  cp_async_wait_all();  // the zero loads past the last step
-  __syncthreads();
+  if constexpr (kVariant != kNoop) {
+    cp_async_wait_all();  // the zero loads past the last step
+    __syncthreads();
+  }
+  if constexpr (kVariant == kMatmul) flush_sum(sum, lane, bins);
   add_bins(out, bins, bi, bj, s, n_pad, tid);
 }
 
 using MmaKernel = void (*)(const uint8_t*, int32_t*, int, int, int, int, int, int);
-const MmaKernel kMmaKernels[4] = {pairs_mma_kernel<0, false>, pairs_mma_kernel<1, false>,
-                                  pairs_mma_kernel<2, false>, pairs_mma_kernel<3, false>};
+// [variant][layout]: resident, windows, depth, slabs
+#define FASTSK_LAYOUTS(V)                                             \
+  {pairs_mma_kernel<V, false>, pairs_mma_kernel<V, true>,             \
+   pairs_mma_deep_kernel<V, true>, pairs_mma_deep_kernel<V, false>}
+const MmaKernel kMmaKernels[kVariants][4] = {
+    FASTSK_LAYOUTS(kNoop),   FASTSK_LAYOUTS(kLoads),   FASTSK_LAYOUTS(kMatmul),
+    FASTSK_LAYOUTS(kSkeleton), FASTSK_LAYOUTS(kNoMma), FASTSK_LAYOUTS(kCurrent),
+    FASTSK_LAYOUTS(kInt32)};
+#undef FASTSK_LAYOUTS
 
 }  // namespace
 
@@ -670,35 +721,20 @@ extern "C" int pairs_counts_launch(const void* x, void* out, int n_pad,
   }
 }
 
-// Kernel H: kernel A's arguments plus the variant (0 noop, 1 matmul,
-// 2 skeleton, 3 current, 4 int32), for the widths of the probe's shapes:
-// w = 10 (KAT2B, g = 8 over 5 codes) and 16 (g = 16 over DNA).
-extern "C" int pairs_probe_launch(const void* x, void* out, int n_pad,
-                                  int p_pad, int w, int k, int s, int variant,
-                                  void* stream) {
-  const uint32_t* xw = static_cast<const uint32_t*>(x);
-  int32_t* o = static_cast<int32_t*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (w) {
-    case 10: return launch_probe<10>(xw, o, n_pad, p_pad, s, k, variant, st);
-    case 16: return launch_probe<16>(xw, o, n_pad, p_pad, s, k, variant, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // Kernel A's tensor-core body. x: [n_pad * p_pad, depth] int8 one-hot
 // windows, depth a multiple of 64; layout 0 (resident: rc the tile's chunk
 // count), 1 (windows: s = 1, rc j chunks a block), 2 (depth) or 3 (slabs:
 // rc j chunks a block) with tile side s and rc from the wrapper's plan;
-// out must be zeroed for layouts 1 to 3. Variant 0 computes the counts, 1 to 3 time
-// its parts in the resident layout (see pairs_mma_kernel). Refuses a plan
-// whose block does not fit shared memory or whose grid is too large.
+// out must be zeroed for layouts 1 to 3. Variant 5 (current) computes the
+// counts; the others are kernel H's (kNoop to kInt32), in every layout.
+// Refuses a plan whose block does not fit shared memory or whose grid is
+// too large.
 extern "C" int pairs_mma_launch(const void* x, void* out, int n_pad, int p_pad,
                                 int depth, int k, int s, int rc, int layout,
                                 int variant, void* stream) {
   if (depth < 64 || depth % 64 || p_pad < 8 || p_pad % 8 || n_pad < 1 || k < 1 ||
       s < 1 || s > 8 || n_pad % s || rc < 1 || layout < 0 || layout > 3 ||
-      variant < 0 || variant > 3 || (variant && layout)) {
+      variant < 0 || variant >= kVariants) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nc = (s * p_pad + kChunk - 1) / kChunk;
@@ -711,10 +747,7 @@ extern "C" int pairs_mma_launch(const void* x, void* out, int n_pad, int p_pad,
   const size_t smem =
       layout >= 2 ? deep_smem_bytes(s, depth, layout == 2) : mma_smem_bytes(s, rc, depth);
   if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const MmaKernel kernel = layout == 0   ? kMmaKernels[variant]
-                           : layout == 1 ? pairs_mma_kernel<0, true>
-                           : layout == 2 ? pairs_mma_deep_kernel<true>
-                                         : pairs_mma_deep_kernel<false>;
+  const MmaKernel kernel = kMmaKernels[variant][layout];
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

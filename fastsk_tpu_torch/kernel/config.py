@@ -2,7 +2,10 @@
 
 Counterpart of ``fastsk_tpu/kernel/config.py``: the knobs of the exact
 engines, of the two theta engines (dense and sorted), of approx mode, of
-the device mesh and of checkpoints, with the JAX package's defaults.
+the device mesh and of checkpoints, with the JAX package's defaults. It
+takes every field of the JAX package's ``KernelConfig`` (``mesh`` and
+``device`` as the port's own mesh and a torch device), so a config
+written for one package builds the other's.
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 class KernelConfig:
     """Knobs of the kernel engines."""
 
-    # Device the kernel, the Gram and the SVM solves run on. On a CUDA
-    # device every kernel launch goes through the hand-written kernels; on
-    # the CPU their plain PyTorch versions run instead.
-    device: Union[str, torch.device] = "cuda"
+    # Device the kernel, the Gram and the SVM solves run on (None: the
+    # card). On a CUDA device every kernel launch goes through the
+    # hand-written kernels; on the CPU their plain PyTorch versions run
+    # instead.
+    device: Union[str, torch.device, None] = "cuda"
 
     # Largest dense bucket space B = hash_base**k that the dense theta
     # engine histograms; beyond it the sorted engine takes over.
@@ -45,9 +49,14 @@ class KernelConfig:
     counts_budget_bytes: int = 2 << 30
 
     # Device-memory budget (bytes) of one row chunk's hash and scatter-index
-    # tensors (ops/gkm.py:HASH_BYTES a window and theta); it sets the dense
-    # engine's row chunk.
+    # tensors (ops/gkm.py:HASH_BYTES a window and theta); with the next
+    # budget it sets the dense engine's row chunk (the smaller of the two).
     hash_budget_bytes: int = 1 << 30
+
+    # Device-memory budget (bytes) of one row chunk's one-hot count
+    # intermediates (b1 + b2 buckets a window and theta, in the product's
+    # dtype), as the JAX package sizes its row chunk.
+    onehot_budget_bytes: int = 1 << 30
 
     # Upper bound on thetas a batch.
     max_theta_batch: int = 64
@@ -71,6 +80,11 @@ class KernelConfig:
 
     # Sorted engine: pairs a scatter chunk of one slab's count matrix.
     sorted_slab: int = 8192
+
+    # Sorted engine's slab decomposition: the JAX package's "runs" or
+    # "pairs", whose results are integer-identical; both run the port's
+    # run-aligned layout.
+    sorted_layout: str = "runs"
 
     # Sorted engine: runs a slab (the width of its run-aligned count
     # matrix).
@@ -111,7 +125,7 @@ class KernelConfig:
     quiet: bool = True
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = torch.device("cuda" if self.device is None else self.device)
         if self.exact_engine not in ("auto", "pairs", "packed", "theta"):
             raise ValueError(f"unknown exact_engine {self.exact_engine!r}")
         if self.pairs_backend not in ("auto", "pallas", "pallas_grouped"):
@@ -124,6 +138,10 @@ class KernelConfig:
             raise ValueError(
                 "mesh_state must be 'sharded' or 'replicated'; got "
                 f"{self.mesh_state!r}"
+            )
+        if self.sorted_layout not in ("runs", "pairs"):
+            raise ValueError(
+                f"sorted_layout must be 'runs' or 'pairs'; got {self.sorted_layout!r}"
             )
         if self.mesh is not None and any(
             d.type != self.device.type for d in self.mesh.devices

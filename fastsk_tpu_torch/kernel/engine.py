@@ -136,10 +136,19 @@ class DenseGkmEngine:
         return int(min(t, cfg.max_theta_batch))
 
     def _auto_row_chunk(self) -> int:
-        """Rows a chunk so that the chunk's hash and scatter-index tensors
-        (``gkm.HASH_BYTES`` a window and theta) fit ``hash_budget_bytes``."""
+        """Rows a chunk: the fewer of those whose hash and scatter-index
+        tensors (``gkm.HASH_BYTES`` a window and theta) fit
+        ``hash_budget_bytes`` and those whose one-hot count intermediates
+        (``b1 + b2`` buckets a window and theta) fit
+        ``onehot_budget_bytes``, the latter as the JAX package sizes its
+        chunk (fastsk_tpu/kernel/engine.py:_auto_row_chunk)."""
+        cfg = self.config
         per_row = self.p * self.theta_batch * gkm.HASH_BYTES
-        return int(max(1, min(self.n, self.config.hash_budget_bytes // per_row)))
+        hash_rows = max(1, min(self.n, cfg.hash_budget_bytes // per_row))
+        per_row = self.p * (self.b1 + self.b2) * self.matmul_dtype.itemsize * self.theta_batch
+        rows = max(8, cfg.onehot_budget_bytes // max(per_row, 1))
+        onehot_rows = min(-(-min(rows, self.n) // 8) * 8, -(-self.n // 8) * 8)
+        return int(min(hash_rows, onehot_rows))
 
     def _static_kwargs(self) -> dict:
         return dict(

@@ -8,7 +8,12 @@ fractions. Everything runs on ``device`` (the card by default).
 Randomness: the weights are drawn from an explicit ``torch.Generator``
 seeded with ``seed`` (the CNN's dropout from a second one on the device);
 the subset for ``train_fraction`` and the batch order keep numpy's
-``default_rng(seed)``, as in the JAX package.
+``default_rng(seed)``, as in the JAX package. Training runs under
+``torch.use_deterministic_algorithms`` (restored on return), so one seed
+gives one result on the card too: ``nn.Embedding``'s CUDA backward
+otherwise sums a token's rows in a varying order, and Adam carries those
+last-bit differences into a different model (KAT2B's LSTM at seed 0
+ended anywhere from AUC 0.62 to 0.87 on an H100).
 
 The three optimizers do what optax's do: ``adam`` is ``torch.optim.Adam``
 (eps 1e-8), ``sgd`` is torch's SGD with dampening 0 (``momentum=None``:
@@ -27,6 +32,7 @@ scales its steps and here it cancels.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
@@ -106,6 +112,25 @@ def make_optimizer(name: str, params, lr: float, momentum: Optional[float] = 0.9
     raise ValueError(f"unknown optimizer {name!r}")
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic kernels where PyTorch has them (a warning where it has
+    none), without the mode's NaN fill of every new tensor (a kernel a
+    tensor, which nothing here reads unwritten); the caller's settings come
+    back on exit."""
+    det = torch.utils.deterministic
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(), det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        det.fill_uninitialized_memory = prev[2]
+
+
+@_deterministic()
 def train_model(
     model_kind: str,  # "cnn" | "lstm"
     train_file: str,

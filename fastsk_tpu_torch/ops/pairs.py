@@ -25,8 +25,9 @@ import math
 
 import torch
 
-# kernel H's variants, in the order of its C entry point
-PROBE_VARIANTS = ("noop", "matmul", "skeleton", "current", "int32")
+# kernel H's variants of kernel A's tensor-core body, in the order of its C
+# entry point ("current" is kernel A)
+PROBE_VARIANTS = ("noop", "loads", "matmul", "skeleton", "no_mma", "current", "int32")
 
 
 def binom_exact(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -197,31 +198,41 @@ def pairs_probe_plain(
     k: int,
     p_pad: int,
     variant: str,
-    tile: int,
+    plan,
 ) -> torch.Tensor:
     """What each of kernel H's variants writes, ``[n_pad, n_pad]`` int32,
-    for kernel A's grid of ``tile``-sequence blocks: zeros (noop); each
-    block's sum of match counts over all its window pairs at the block's
-    corner entry (matmul); ``S S^T`` with ``S_i = sum_p x_ip`` (skeleton,
-    the match counts summed with weight d); kernel A's counts (current,
-    and int32 through ``binom_ffact_i32``)."""
+    under ``plan`` (``ops/pairs_cuda.py:mma_plan``'s ``MmaPlan``):
+
+    - noop, loads, no_mma: zeros;
+    - matmul: each pair of ``plan.tile``-sequence tiles' sum of match
+      counts (``sum_{p, q} <x_ip, x_jq>`` over its sequences) at its corner
+      entry ``K[bi s, bj s]`` and the mirror, modulo 2^32 as int32 (the
+      kernel's int32 sums): the same whatever ranges of j chunks the plan
+      splits the pair into;
+    - skeleton: ``S S^T`` with ``S_i = sum_p x_ip``, the match counts
+      summed with weight d (modulo 2^32 likewise);
+    - current: kernel A's counts; int32: the same through
+      ``binom_ffact_i32``; both summed in the plan's partition.
+    """
     n_pad = x.shape[0] // p_pad
-    if variant == "noop":
+    if variant in ("noop", "loads", "no_mma"):
         return torch.zeros((n_pad, n_pad), dtype=torch.int32, device=x.device)
     if variant in ("matmul", "skeleton"):
-        s_rows = x.reshape(n_pad, p_pad, -1).sum(1, dtype=torch.float64)
-        skel = s_rows @ s_rows.T  # sums < 2^53: exact
+        s = plan.tile if variant == "matmul" else 1
+        # the one-hot sums of each tile (or sequence): S_a . S_b sums the
+        # match counts of a tile pair; exact in f64 (sums < 2^53)
+        sums = x.reshape(n_pad // s, s * p_pad, -1).sum(1, dtype=torch.float64)
+        prod = (sums @ sums.T).round().to(torch.int64).to(torch.int32)
         if variant == "skeleton":
-            return skel.round().to(torch.int32)
-        nt = n_pad // tile
-        corner = skel.reshape(nt, tile, nt, tile).sum((1, 3))
+            return prod
         out = torch.zeros((n_pad, n_pad), dtype=torch.int32, device=x.device)
-        out[::tile, ::tile] = corner.round().to(torch.int32)
+        out[::s, ::s] = prod
         return out
     if variant == "current":
-        return pairs_counts_plain(x, k=k, p_pad=p_pad)
+        return pairs_counts_plain(x, k=k, p_pad=p_pad, plan=plan)
     if variant == "int32":
         return pairs_counts_plain(
-            x, k=k, p_pad=p_pad, weight=lambda d: binom_ffact_i32(d.round().to(torch.int32), k)
+            x, k=k, p_pad=p_pad, plan=plan,
+            weight=lambda d: binom_ffact_i32(d.round().to(torch.int32), k),
         )
     raise ValueError(f"unknown probe variant {variant!r}; one of {PROBE_VARIANTS}")

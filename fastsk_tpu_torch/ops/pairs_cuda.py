@@ -9,11 +9,11 @@ the int8 tensor cores at every shape, in one of four layouts that
 ``__dp4a`` body (``pairs_kernel``) instead, where its tile fits (the
 phase-3 body sweep of ``chip_smoke.py``), and ``pairs_counts.bodies``
 counts each body's launches. ``pairs_probe`` (kernel H) runs one of the
-cost-attribution variants of the dp4a body
-(``experiments/probe_pairs.py:make_kernel``) on the same operands;
-``pairs_mma_parts`` times the parts of the tensor-core body. A CPU tensor
-takes the plain version (``ops/pairs.py``, following the plan's
-partition); a CUDA tensor launches the kernel or raises.
+cost-attribution variants of the tensor-core body
+(``experiments/probe_pairs.py:make_kernel``) on the same operands, in the
+layout kernel A takes. A CPU tensor takes the plain version
+(``ops/pairs.py``, following the plan's partition); a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import torch
 
 from .. import _build
 from .pairs import PROBE_VARIANTS, pairs_counts_plain, pairs_probe_plain
+
+_CURRENT = PROBE_VARIANTS.index("current")  # kernel A's own variant of its body
 
 # one-hot widths (in 32-bit words) the dp4a body is instantiated for
 KERNEL_WIDTHS = (*range(1, 17), 20, 24, 32, 48, 64, 96, 128)
@@ -164,8 +166,8 @@ def _check_x(x: torch.Tensor, g: int, k: int, p_pad: int) -> None:
         raise ValueError(f"kernels A and H run on CUDA or CPU tensors, not {x.device}")
 
 
-def _launch(fn, name: str, x: torch.Tensor, p_pad: int, k: int, *extra):
-    """Pad ``x`` to its kernel width and launch ``fn`` on it; returns the
+def _launch_dp4a(x: torch.Tensor, p_pad: int, k: int):
+    """Pad ``x`` to its dp4a-body width and launch the body; returns the
     ``[n_pad, n_pad]`` int32 output."""
     width = padded_width(x.shape[1])
     if width != x.shape[1]:
@@ -175,20 +177,21 @@ def _launch(fn, name: str, x: torch.Tensor, p_pad: int, k: int, *extra):
     out = torch.empty((n_pad, n_pad), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(x.data_ptr(), out.data_ptr(), n_pad, p_pad, width // 4, k, s, *extra, stream)
-    _build.check_launch(status, name)
+        status = _build.kernels().pairs_counts_launch(
+            x.data_ptr(), out.data_ptr(), n_pad, p_pad, width // 4, k, s, stream
+        )
+    _build.check_launch(status, "pairs_counts")
     return out
 
 
-def _launch_mma(x: torch.Tensor, p_pad: int, k: int, variant: int):
+def _launch_mma(x: torch.Tensor, p_pad: int, k: int, variant: int, name: str):
     """Pad ``x`` to its tensor-core depth and launch the body's ``variant``
-    (0: the counts) in ``mma_plan``'s layout; returns the ``[n_pad,
-    n_pad]`` int32 output (zeroed first where blocks add into it)."""
+    (an index of ``PROBE_VARIANTS``; "current" gives the counts) in
+    ``mma_plan``'s layout; returns the ``[n_pad, n_pad]`` int32 output
+    (zeroed first where blocks add into it)."""
     depth = mma_depth(x.shape[1])
     n_pad = x.shape[0] // p_pad
     plan = mma_plan(n_pad, p_pad, depth)
-    if variant and plan.layout != "resident":
-        raise ValueError(f"the parts are timed in the resident layout only, not {plan.layout}")
     if depth != x.shape[1]:
         x = torch.nn.functional.pad(x, (0, depth - x.shape[1]))
     alloc = torch.empty if plan.layout == "resident" else torch.zeros
@@ -199,7 +202,7 @@ def _launch_mma(x: torch.Tensor, p_pad: int, k: int, variant: int):
             x.data_ptr(), out.data_ptr(), n_pad, p_pad, depth, k, plan.tile,
             plan.range_chunks, MMA_LAYOUTS.index(plan.layout), variant, stream,
         )
-    _build.check_launch(status, "pairs_counts")
+    _build.check_launch(status, name)
     return out
 
 
@@ -220,59 +223,32 @@ def pairs_counts(x: torch.Tensor, *, g: int, k: int, p_pad: int, body=None) -> t
             plan = mma_plan(x.shape[0] // p_pad, p_pad, mma_depth(x.shape[1]))
         return pairs_counts_plain(x, k=k, p_pad=p_pad, plan=plan)
     if body == "mma":
-        out = _launch_mma(x, p_pad, k, 0)
+        out = _launch_mma(x, p_pad, k, _CURRENT, "pairs_counts")
     else:
-        out = _launch(_build.kernels().pairs_counts_launch, "pairs_counts", x, p_pad, k)
+        out = _launch_dp4a(x, p_pad, k)
     pairs_counts.launches += 1
     pairs_counts.bodies[body] += 1
     return out
 
 
-MMA_PARTS = ("current", "no_epilogue", "no_mma", "loads")
-
-
-def pairs_mma_parts(
-    x: torch.Tensor, *, g: int, k: int, p_pad: int, variant: str
-) -> torch.Tensor:
-    """One launch of a variant of kernel A's tensor-core body on the card,
-    to time its parts (``MMA_PARTS``: the body itself; without the
-    epilogue; without the wgmma loop; loads and writes only), at shapes of
-    the resident layout. Only "current" gives the count matrix. Not
-    counted in ``pairs_counts``."""
-    _check_x(x, g, k, p_pad)
-    if variant not in MMA_PARTS:
-        raise ValueError(f"unknown part {variant!r}; one of {MMA_PARTS}")
-    if x.device.type != "cuda":
-        raise ValueError("the tensor-core body's parts are timed on the card only")
-    return _launch_mma(x, p_pad, k, MMA_PARTS.index(variant))
-
-
-PROBE_WIDTHS = (10, 16)  # kernel H's instances, in 32-bit words
-
-
 def pairs_probe(
     x: torch.Tensor, *, g: int, k: int, p_pad: int, variant: str
 ) -> torch.Tensor:
-    """Kernel H: ``variant`` (one of ``PROBE_VARIANTS``) of kernel A's body
-    on kernel A's operands, ``[n_pad, n_pad]`` int32; see
-    ``ops/pairs.py:pairs_probe_plain`` for what each variant writes."""
+    """Kernel H: ``variant`` (one of ``PROBE_VARIANTS``) of kernel A's
+    tensor-core body on kernel A's operands, in the layout ``mma_plan``
+    gives them, ``[n_pad, n_pad]`` int32; see
+    ``ops/pairs.py:pairs_probe_plain`` for what each variant writes.
+    "int32" refuses where a lane's flush of 16 falling factorials
+    g!/(g-k)! could pass int32."""
     _check_x(x, g, k, p_pad)
     if variant not in PROBE_VARIANTS:
         raise ValueError(f"unknown probe variant {variant!r}; one of {PROBE_VARIANTS}")
-    if variant == "int32" and 8 * math.perm(g, k) >= 2**31:
-        raise ValueError(f"g!/(g-k)! = {math.perm(g, k)}: 8 of them exceed int32")
-    width = padded_width(x.shape[1])
+    if variant == "int32" and 16 * math.perm(g, k) >= 2**31:
+        raise ValueError(f"g!/(g-k)! = {math.perm(g, k)}: 16 of them exceed int32")
     if x.device.type == "cpu":
-        tile = tile_sequences(x.shape[0] // p_pad, p_pad, width)
-        return pairs_probe_plain(x, k=k, p_pad=p_pad, variant=variant, tile=tile)
-    if width // 4 not in PROBE_WIDTHS:
-        raise ValueError(
-            f"kernel H is built for widths {PROBE_WIDTHS} words, not {width // 4}"
-        )
-    out = _launch(
-        _build.kernels().pairs_probe_launch, "pairs_probe", x, p_pad, k,
-        PROBE_VARIANTS.index(variant),
-    )
+        plan = mma_plan(x.shape[0] // p_pad, p_pad, mma_depth(x.shape[1]))
+        return pairs_probe_plain(x, k=k, p_pad=p_pad, variant=variant, plan=plan)
+    out = _launch_mma(x, p_pad, k, PROBE_VARIANTS.index(variant), "pairs_probe")
     pairs_probe.launches += 1
     return out
 

@@ -1,7 +1,9 @@
 """Kernels A to H against their plain PyTorch versions, on the card
-(kernel A with both of its bodies and its body's three layouts, D to G's one kernel at every code
+(kernel A with both of its bodies and its body's four layouts, kernel H's
+variants of that body in each layout, D to G's one kernel at every code
 width, E in both landings, kernel C at every cluster size), and the theta
-engines' card path (bf16 products with f32 outputs) against the CPU's.
+engines' card path (bf16 products with f32 outputs) against the CPU's,
+and the baselines' training repeating bit for bit.
 
 Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
@@ -720,19 +722,40 @@ def test_mesh_routes_match_kernel_d(cuda, monkeypatch, shape, state):
     np.testing.assert_array_equal(got, oracle.exact_counts(X, 8, 4))
 
 
-# kernel H's two widths: 10 words (g=8 over 5 codes, as KAT2B) and 16
-# (g=16 over DNA)
-@pytest.mark.parametrize("g,m,alpha,n,length", [(8, 4, 5, 40, 60), (16, 10, 4, 24, 60)])
-def test_kernel_h_variants_match_plain(cuda, g, m, alpha, n, length):
-    rng = np.random.default_rng(g)
-    X = rng.integers(1, alpha + 1, size=(n, length)).tolist()
+# kernel H (variants of kernel A's tensor-core body) in each layout: the
+# resident plans mma_plan gives KAT2B's width (g=8 over 5 codes) and g=16
+# DNA, then plans forced at small shapes as in kernel A's stream test
+# (windows ranges ending inside a sequence, short sequences, depth and
+# slabs at several tiles, ranges and k-slabs)
+@pytest.mark.parametrize(
+    "g,m,alpha,n,lmin,lmax,layout,tile,range_chunks",
+    [
+        (8, 4, 5, 40, 60, 60, "resident", 0, 0),
+        (16, 10, 4, 24, 60, 60, "resident", 0, 0),
+        (8, 4, 4, 5, 900, 1000, "windows", 1, 3),
+        (8, 4, 4, 9, 20, 40, "windows", 1, 1),
+        (8, 4, 24, 13, 20, 40, "depth", 2, 1),
+        (10, 4, 60, 11, 250, 300, "depth", 8, 5),
+        (8, 4, 24, 13, 20, 40, "slabs", 4, 1),
+        (10, 4, 60, 11, 250, 300, "slabs", 8, 5),
+    ],
+)
+def test_kernel_h_variants_match_plain(cuda, monkeypatch, g, m, alpha, n, lmin, lmax, layout,
+                                       tile, range_chunks):
+    rng = np.random.default_rng(n * 7 + alpha)
+    X = [rng.integers(1, alpha + 1, size=rng.integers(lmin, lmax + 1)).tolist() for _ in range(n)]
     X[0][:alpha] = list(range(1, alpha + 1))  # every code, so hash_base = alpha
     eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
+    depth = pairs_cuda.mma_depth(g * eng.alpha)
+    if tile:
+        forced = pairs_cuda.MmaPlan(layout, tile, range_chunks, 0,
+                                    64 if layout in ("depth", "slabs") else depth, 0, 0)
+        monkeypatch.setattr(pairs_cuda, "mma_plan", lambda *shape: forced)
+    plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
+    assert plan.layout == layout
     x = eng._build_x()
-    assert pairs_cuda.padded_width(x.shape[1]) // 4 in pairs_cuda.PROBE_WIDTHS
     kw = dict(g=g, k=g - m, p_pad=eng.p_pad)
-    tile = pairs_cuda.tile_sequences(eng.n_pad, eng.p_pad, pairs_cuda.padded_width(x.shape[1]))
-    counts = pairs.pairs_counts_plain(x, k=g - m, p_pad=eng.p_pad)
+    counts = oracle.exact_counts(X, g, m)
     for variant in pairs.PROBE_VARIANTS:
         before = pairs_cuda.pairs_probe.launches
         got = pairs_cuda.pairs_probe(x, variant=variant, **kw)
@@ -740,11 +763,28 @@ def test_kernel_h_variants_match_plain(cuda, g, m, alpha, n, length):
         torch.cuda.synchronize()
         assert pairs_cuda.pairs_probe.launches == before + 2
         torch.testing.assert_close(got, again, rtol=0, atol=0)
-        want = (
-            counts if variant in ("current", "int32")
-            else pairs.pairs_probe_plain(x, k=g - m, p_pad=eng.p_pad, variant=variant, tile=tile)
-        )
+        want = pairs.pairs_probe_plain(x, k=g - m, p_pad=eng.p_pad, variant=variant, plan=plan)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if variant in ("current", "int32"):
+            np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], counts)
+
+
+@pytest.mark.parametrize("kind", ["cnn", "lstm"])
+def test_training_repeats_bit_for_bit(cuda, tmp_path, kind):
+    from fastsk_tpu_torch.models.train import train_model
+
+    rng = np.random.default_rng(26)
+    files = []
+    for split, n in (("train", 96), ("test", 32)):
+        files.append(tmp_path / f"{split}.fasta")
+        files[-1].write_text("".join(
+            f">{i % 2}\n" + "".join("acgt"[v] for v in rng.integers(0, 4, size=60)) + "\n"
+            for i in range(n)))
+    # batch 64 of 60 tokens: past the 3,072 indices where nn.Embedding's
+    # CUDA backward leaves its one-pass kernel for its sorted segments
+    runs = [train_model(kind, *map(str, files), epochs=4, batch_size=64, seed=3, device=cuda)
+            for _ in range(2)]
+    assert runs[0].history == runs[1].history and runs[0].auc == runs[1].auc
 
 
 @pytest.mark.parametrize("engine,alpha", [(DenseGkmEngine, 4), (SortedGkmEngine, 24)])

@@ -5,8 +5,10 @@ eval mode from the flax weights carried over by ``from_flax_params``
 (CharCNN; SeqLSTM with masking, stacked, and one-layer ``bidir``); the
 initial weights' spread against flax's; one training step per optimizer
 (adam, sgd with and without momentum, adagrad) with the dropouts at 0 on
-the same batch, against optax; ``train_model`` and ``run_repeats`` on
-``tests/test_models.py``'s small pair; and the two reference bugs the port
+the same batch, against optax; ``train_model`` (under deterministic
+kernels, the caller's setting restored) and ``run_repeats`` on
+``tests/test_models.py``'s small pair, and ``experiments/dl_seeds.py``'s
+command line; and the two reference bugs the port
 does not copy (``bidir`` with two layers raises; the batch-size-1 LSTM's
 class weight is normalized, so it cancels).
 
@@ -14,6 +16,11 @@ Tolerances: logits within 1e-4; an optimizer step's loss and updated
 weights within 1e-5; the initial weights' standard deviations within 10%
 of flax's (the same distributions, not the same draws).
 """
+
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +34,8 @@ from fastsk_tpu.models import CharCNN as JCharCNN
 from fastsk_tpu.models import SeqLSTM as JSeqLSTM
 from fastsk_tpu_torch.models import CharCNN, SeqLSTM
 from fastsk_tpu_torch.models import train as tt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _np_tree(tree):
@@ -223,6 +232,47 @@ def test_training_is_seeded(fasta_pair):
     a = tt.train_model("cnn", *fasta_pair, epochs=2, batch_size=16, seed=3, device="cpu")
     b = tt.train_model("cnn", *fasta_pair, epochs=2, batch_size=16, seed=3, device="cpu")
     assert a.history == b.history and a.auc == b.auc
+
+
+def test_training_runs_deterministic_kernels(fasta_pair, monkeypatch):
+    seen = []
+    cross_entropy = tt.F.cross_entropy
+
+    def spy(*args, **kwargs):
+        seen.append(torch.are_deterministic_algorithms_enabled())
+        return cross_entropy(*args, **kwargs)
+
+    monkeypatch.setattr(tt.F, "cross_entropy", spy)
+    assert not torch.are_deterministic_algorithms_enabled()
+    tt.train_model("lstm", *fasta_pair, epochs=1, batch_size=16, seed=0, device="cpu")
+    assert seen and all(seen)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.parametrize("flags", [[], ["--nondeterministic"]])
+def test_dl_seeds_cli_runs_on_cpu(tmp_path, rng, flags):
+    from test_cli_persistence import _write_fasta
+    from test_integration import make_synthetic_motif_data
+
+    for split, n in (("train", 20), ("test", 8)):
+        X, Y = make_synthetic_motif_data(rng, n, 40)
+        for part, label in (("pos", 1), ("neg", 0)):
+            _write_fasta(tmp_path / f"k.{split}.{part}.fasta",
+                         [x for x, y in zip(X, Y) if y == label], [label] * n)
+    out = subprocess.run(
+        [sys.executable, "-m", "fastsk_tpu_torch.experiments.dl_seeds", "--device", "cpu",
+         "--model", "lstm", "--seeds", "2", "--repeat", "2", "--epochs", "1",
+         "--prefix", str(tmp_path / "k"), *flags],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    lines = [json.loads(line) for line in out.stdout.splitlines()]
+    res = lines[-1]
+    assert len(lines) == 5 and [r["seed"] for r in lines[:4]] == [0, 1, 0, 1]
+    assert res["floor"] == 0.80 and len(res["auc"]) == 2 and res["deterministic"] == (not flags)
+    assert res["differing"] == []  # the CPU's kernels repeat either way
+    assert res["mean_auc"] == pytest.approx(np.mean(res["auc"]))
+    assert res["under_floor"] == [s for s in (0, 1) if res["auc"][s] < 0.80]
 
 
 def test_run_repeats_fractions(fasta_pair):

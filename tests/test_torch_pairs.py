@@ -216,8 +216,11 @@ def test_kernel_a_body_argument_checked_and_cpu_plain():
     for body in ("mma", "dp4a", None):
         pairs_cuda.pairs_counts(x, g=4, k=2, p_pad=8, body=body)
     assert pairs_cuda.pairs_counts.bodies == before  # CPU path: no launch
-    with pytest.raises(ValueError, match="card"):
-        pairs_cuda.pairs_mma_parts(x, g=4, k=2, p_pad=8, variant="current")
+    # kernel H's variants of the same body: the plain versions on the CPU
+    before = pairs_cuda.pairs_probe.launches
+    current = pairs_cuda.pairs_probe(x, g=4, k=2, p_pad=8, variant="current")
+    torch.testing.assert_close(current, pairs_cuda.pairs_counts(x, g=4, k=2, p_pad=8), rtol=0, atol=0)
+    assert pairs_cuda.pairs_probe.launches == before
 
 
 def _load_tri(path):

@@ -25,6 +25,7 @@ import torch
 import fastsk_tpu as J
 import fastsk_tpu_torch as T
 from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine as JPacked
+from fastsk_tpu.kernel.pairs_engine import PairsGkmEngine as JPairs
 from fastsk_tpu.parallel import make_mesh as j_make_mesh
 from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
 from fastsk_tpu_torch.ops import pairs, pairs_cuda, pairs_packed, pairs_packed_cuda
@@ -493,21 +494,49 @@ def test_fastsk_mesh_matches_jax_and_single_device(state):
 # ------------------------------------------------------------- kernel H
 
 
-def test_probe_skeleton_and_matmul_plain_match_numpy(rng):
-    """skeleton: sum_{p,q} <x_ip, x_jq> by brute force in numpy; matmul:
-    each tile-by-tile block's total at its corner entry."""
-    X = random_ragged_seqs(rng, 16, 8, 20, alphabet=4)
+def _plan(layout, tile, range_chunks, slab):
+    return pairs_cuda.MmaPlan(layout, tile, range_chunks, 0, slab, 0, 0)
+
+
+# small plans of each of kernel A's layouts, forced: the tile, the range
+# of 128-row j chunks a block and the k-slab; 16 sequences of <= 20
+# letters, p_pad = 16, so a tile of 8 spans one chunk and 4 half of one
+H_PLANS = {
+    "resident": _plan("resident", 8, 1, 64),
+    "windows": _plan("windows", 1, 1, 64),
+    "depth": _plan("depth", 4, 1, 64),
+    "slabs": _plan("slabs", 2, 1, 8),
+}
+
+
+def _probe_set(rng, alpha=4):
+    X = random_ragged_seqs(rng, 16, 8, 20, alphabet=alpha)
     eng = PairsGkmEngine(encode_sequences(X), 5, 2, T.KernelConfig(**CPU))
-    x = eng._build_x()
+    return X, eng, eng._build_x()
+
+
+@pytest.mark.parametrize("layout", list(H_PLANS))
+def test_probe_skeleton_and_matmul_plain_match_numpy(rng, layout):
+    """skeleton: sum_{p,q} <x_ip, x_jq> by brute force in numpy; matmul:
+    each tile pair's total at its corner entry and the mirror, the same
+    under the plan's ranges and slabs as under one block a tile pair."""
+    plan = H_PLANS[layout]
+    X, eng, x = _probe_set(rng)
     xn = x.numpy().astype(np.int64).reshape(eng.n_pad, eng.p_pad, -1)
     d = np.einsum("ipf,jqf->ijpq", xn, xn)
     want = d.sum((2, 3))
-    skel = pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="skeleton", tile=8)
+    skel = pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="skeleton", plan=plan)
     np.testing.assert_array_equal(skel.numpy(), want)
-    mm = pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="matmul", tile=8)
+    mm = pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="matmul", plan=plan)
+    s, nt = plan.tile, eng.n_pad // plan.tile
     corner = np.zeros_like(want)
-    corner[::8, ::8] = want.reshape(2, 8, 2, 8).sum((1, 3))
+    corner[::s, ::s] = want.reshape(nt, s, nt, s).sum((1, 3))
     np.testing.assert_array_equal(mm.numpy(), corner)
+    whole = _plan("resident", s, -(-s * eng.p_pad // 128), 64)
+    np.testing.assert_array_equal(
+        pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="matmul", plan=whole).numpy(),
+        corner,
+    )
 
 
 @pytest.mark.parametrize("g,k", [(8, 4), (16, 6), (10, 5), (5, 1), (12, 9)])
@@ -522,19 +551,30 @@ def test_probe_int32_chain_matches_jax(g, k):
     np.testing.assert_array_equal(got, [math.comb(int(v), k) for v in d])
 
 
-def test_probe_wrapper_variants_on_cpu(rng):
-    """Every variant through the wrapper: current and int32 equal kernel
-    A's counts (and the oracle); no launch is counted on the CPU."""
-    X = random_ragged_seqs(rng, 13, 10, 30, alphabet=4)
-    eng = PairsGkmEngine(encode_sequences(X), 6, 2, T.KernelConfig(**CPU))
-    x = eng._build_x()
-    kw = dict(g=6, k=4, p_pad=eng.p_pad)
+@pytest.mark.parametrize("layout", list(H_PLANS))
+def test_probe_wrapper_variants_on_cpu(rng, monkeypatch, layout):
+    """Every variant through the wrapper under each layout's plan: current
+    and int32 equal the oracle's counts and JAX's engine; noop, loads and
+    no_mma write zeros; matmul and skeleton their plain versions; no
+    launch is counted on the CPU."""
+    monkeypatch.setattr(pairs_cuda, "mma_plan", lambda *shape: H_PLANS[layout])
+    X, eng, x = _probe_set(rng, alpha=6)
+    kw = dict(g=5, k=3, p_pad=eng.p_pad)
+    want = oracle.exact_counts(X, 5, 2)
+    np.testing.assert_array_equal(want, JPairs(encode_sequences(X), 5, 2).exact())
     before = pairs_cuda.pairs_probe.launches
-    counts = pairs_cuda.pairs_counts(x, **kw)
-    for variant in ("current", "int32"):
-        np.testing.assert_array_equal(pairs_cuda.pairs_probe(x, variant=variant, **kw).numpy(), counts.numpy())
-    np.testing.assert_array_equal(counts.numpy()[:13, :13], oracle.exact_counts(X, 6, 2))
-    assert not pairs_cuda.pairs_probe(x, variant="noop", **kw).any()
+    for variant in pairs.PROBE_VARIANTS:
+        got = pairs_cuda.pairs_probe(x, variant=variant, **kw)
+        assert got.dtype == torch.int32 and got.shape == (eng.n_pad, eng.n_pad)
+        if variant in ("current", "int32"):
+            np.testing.assert_array_equal(got.numpy()[:16, :16], want)
+        elif variant in ("noop", "loads", "no_mma"):
+            assert not got.any()
+        else:
+            plain = pairs.pairs_probe_plain(
+                x, k=3, p_pad=eng.p_pad, variant=variant, plan=H_PLANS[layout]
+            )
+            np.testing.assert_array_equal(got.numpy(), plain.numpy())
     assert pairs_cuda.pairs_probe.launches == before
     with pytest.raises(ValueError, match="unknown probe variant"):
         pairs_cuda.pairs_probe(x, variant="fast", **kw)
@@ -552,9 +592,9 @@ def test_probe_cli_runs_on_cpu():
     )
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.splitlines()[-1])
-    assert res["ok"] and res["timer"] == "host_clock"
-    assert set(res["variants"]) == {"noop", "matmul", "skeleton", "current", "int32"}
-    assert "chain_ms_vs_skeleton" in res["variants"]["int32"]
+    assert res["ok"] and res["timer"] == "host_clock" and res["layout"] == "resident"
+    assert tuple(res["variants"]) == pairs.PROBE_VARIANTS
+    assert set(res["split"]) == {"products_ms", "epilogue_ms", "loads_ms", "overlap_ms"}
 
 
 def test_new_modules_leave_jax_out():
