@@ -280,6 +280,7 @@ MOTIF = [5, 17, 2, 11, 20, 8, 14, 3]  # planted in the ragged positives
 from fastsk_tpu_torch.utils.roofline import (  # noqa: E402
     PEAK_INT8_OPS, bound, count_bound, smo_bound,
 )
+from fastsk_tpu_torch.utils.observe import counters  # noqa: E402
 
 
 def emit(phase: str, **fields) -> None:
@@ -289,6 +290,13 @@ def emit(phase: str, **fields) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def launched(before, names) -> dict:
+    """Each wrapper in ``names``: its launches (the program's counter
+    ``<name>.launches``) since ``before``, a snapshot of ``counters()``."""
+    now = counters()
+    return {n: now[f"{n}.launches"] - before[f"{n}.launches"] for n in names}
 
 
 def cuda_ms(fn, *args, **kwargs):
@@ -486,9 +494,9 @@ def kat2b_on_d(dev, Xtr, Xte, a_counts) -> dict:
     )
     rows = eng.rows()
     pairs_packed_cuda.packed_band(rows, k=4, n_out=eng.n)
-    before = pairs_packed_cuda.packed_band.launches
+    before = counters()
     got, ms = cuda_ms(pairs_packed_cuda.packed_band, rows, k=4, n_out=eng.n)
-    launches = pairs_packed_cuda.packed_band.launches - before
+    launches = launched(before, ("packed_band",))["packed_band"]
     pos = torch.from_numpy(np.argsort(eng.order)).to(dev)
     err = int((got[pos][:, pos] - a_counts.long()).abs().max())
     fields = dict(shape="KAT2B", g=8, m=4, launches=launches, d_ms=ms, max_abs_err_vs_a=err)
@@ -501,7 +509,7 @@ def kat2b_on_d(dev, Xtr, Xte, a_counts) -> dict:
 
 
 # kernel A's dp4a body: launches asked for by name (phase 3), and those
-# counted by the wrapper in phases whose counters were reset since
+# the wrapper counted (read at the end of the run)
 DP4A = {"asked": 0, "seen": 0}
 
 
@@ -514,13 +522,12 @@ def run_a(x, *, body=None, **kw):
     return pairs_cuda.pairs_counts(x, body=body, **kw)
 
 
-def reset_a_counts() -> None:
-    """Zero kernel A's launch counters, keeping the dp4a tally."""
-    from fastsk_tpu_torch.ops import pairs_cuda
-
-    DP4A["seen"] += pairs_cuda.pairs_counts.bodies["dp4a"]
-    pairs_cuda.pairs_counts.launches = 0
-    pairs_cuda.pairs_counts.bodies = {"mma": 0, "dp4a": 0}
+def a_bodies(before) -> dict:
+    """Kernel A's launches of each body since ``before``, a snapshot of
+    ``counters()``."""
+    now = counters()
+    return {b: now[f"pairs_counts.bodies.{b}"] - before[f"pairs_counts.bodies.{b}"]
+            for b in ("mma", "dp4a")}
 
 
 def jax_exact_engine(enc, g: int, m: int) -> str:
@@ -573,9 +580,9 @@ def stream_sets_phase(dev, sets=STREAM_SETS, keep=None) -> dict:
         k = g - m
         fsk = FastSK(g=g, m=m, config=KernelConfig(device=dev, device_resident=True))
         engine = type(fsk._make_exact_engine(enc)).__name__
-        reset_a_counts()
+        before = counters()
         _, kernel_s = wall(fsk.compute_kernel, X[:ntr], X[ntr:])
-        api_bodies = dict(pairs_cuda.pairs_counts.bodies)
+        api_bodies = a_bodies(before)
         api_counts = fsk._counts_dev.counts
         del fsk
 
@@ -686,9 +693,11 @@ def platt_folds_phase(gram, labels, folds: int = 5, twin_iters: int = 20_000) ->
     for r, f in enumerate(stratified_kfold_indices(np.asarray(labels), folds)):
         masks[r, f] = 0.0
     Q, y, C, p, a0, max_iter = _c_svc_dual(gram, labels, masks)
-    before = smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems
+    before = counters()
     (a_b, g_b, it_b), batched_ms = cuda_ms(smo_cuda.smo_solve, Q, y, C, p, a0, 1e-3, max_iter)
-    launched = (smo_cuda.smo_solve.launches - before[0], smo_cuda.smo_solve.problems - before[1])
+    now = counters()
+    launches = (now["smo_solve.launches"] - before["smo_solve.launches"],
+                now["smo_solve.problems"] - before["smo_solve.problems"])
     single_ms, same = [], []
     for r in range(folds):
         (a_s, g_s, it_s), ms = cuda_ms(
@@ -704,12 +713,12 @@ def platt_folds_phase(gram, labels, folds: int = 5, twin_iters: int = 20_000) ->
     fields = dict(
         n=n, folds=folds, held_out=[int((c == 0).sum()) for c in masks], iters=it_b,
         batched_ms=batched_ms, single_ms=single_ms, single_ms_sum=sum(single_ms),
-        slowest_single_ms=max(single_ms), launched=list(launched),
+        slowest_single_ms=max(single_ms), launched=list(launches),
         bit_identical_to_single=same, twin_prefix_iters=twin_iters,
         fold0_twin_bit_identical=twin_same, fold0_twin_ms=twin_ms,
     )
     emit("platt-folds", **fields)
-    require(launched == (1, folds), f"the batched folds took {launched} launches / problems")
+    require(launches == (1, folds), f"the batched folds took {launches} launches / problems")
     require(all(same), f"a batched fold differs from its lone launch: {same}")
     require(all(i < max_iter for i in it_b), "a Platt fold hit max_iter before the eps stop")
     require(twin_same, f"fold 0 left its twin's trajectory within {twin_iters} iterations")
@@ -846,16 +855,15 @@ def approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte, cpu_iters: int = 8) -> dict:
     from fastsk_tpu_torch import FastSK, KernelConfig
     from fastsk_tpu_torch.kernel.engine import DenseGkmEngine
     from fastsk_tpu_torch.ops.encode import encode_sequences
-    from fastsk_tpu_torch.svm import smo_cuda
 
     fsk = FastSK(8, 4, approx=True, delta=0.025, seed=0,
                  config=KernelConfig(device=dev, device_resident=True))
     (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, Xtr, Xte, Ytr, Yte)
-    smo_cuda.smo_solve.launches = 0
-    smo_cuda.smo_solve.problems = 0
+    before = counters()
     _, fit_s = wall(fsk.fit, C=1.0)
     auc, score_s = wall(fsk.score, "auc")
-    launches = dict(smo_solve=smo_cuda.smo_solve.launches, problems=smo_cuda.smo_solve.problems)
+    launches = dict(smo_solve=launched(before, ("smo_solve",))["smo_solve"],
+                    problems=counters()["smo_solve.problems"] - before["smo_solve.problems"])
     k_dev = fsk._K_dev
     outputs_ok = (
         tuple(k_dev.shape) == (len(Xtr) + len(Xte),) * 2 and bool(torch.isfinite(k_dev).all())
@@ -908,18 +916,17 @@ def approx_219_phase(dev, full=(2564, 16, 905), cpu_iters: int = 2) -> dict:
     from fastsk_tpu_torch import FastSK, KernelConfig
     from fastsk_tpu_torch.kernel.sorted_engine import SortedGkmEngine
     from fastsk_tpu_torch.ops.encode import encode_sequences
-    from fastsk_tpu_torch.svm import smo_cuda
 
     _, _, r_tr, r_te, ry_tr, ry_te = slice_219(full)
     fsk = FastSK(8, 4, approx=True, seed=0, config=KernelConfig(device=dev, device_resident=True))
     eng, setup_s = wall(lambda: fsk._make_engine(encode_sequences(r_tr, r_te)))
     require(isinstance(eng, SortedGkmEngine), f"approx at 2.19 took {type(eng).__name__}")
     (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, r_tr, r_te, ry_tr, ry_te)
-    smo_cuda.smo_solve.launches = 0
-    smo_cuda.smo_solve.problems = 0
+    before = counters()
     _, fit_s = wall(fsk.fit, C=0.01)
     auc, score_s = wall(fsk.score, "auc")
-    launches = dict(smo_solve=smo_cuda.smo_solve.launches, problems=smo_cuda.smo_solve.problems)
+    launches = dict(smo_solve=launched(before, ("smo_solve",))["smo_solve"],
+                    problems=counters()["smo_solve.problems"] - before["smo_solve.problems"])
     k_dev = fsk._K_dev
     outputs_ok = tuple(k_dev.shape) == (len(r_tr) + len(r_te),) * 2 and bool(torch.isfinite(k_dev).all())
     enc = encode_sequences(r_tr, r_te)
@@ -962,14 +969,13 @@ def theta_sorted_phase(dev, medium=(400, 16, 905)) -> dict:
     integer-equal to kernel D's (exact_engine="packed", one launch)."""
     from fastsk_tpu_torch import FastSK, KernelConfig
     from fastsk_tpu_torch.kernel.sorted_engine import SortedGkmEngine
-    from fastsk_tpu_torch.ops import pairs_packed_cuda
     from fastsk_tpu_torch.ops.encode import encode_sequences
 
     X = ragged_set(4, *medium)[0]
-    pairs_packed_cuda.packed_band.launches = 0
+    before = counters()
     dfsk = FastSK(8, 4, config=KernelConfig(device=dev, exact_engine="packed"))
     _, d_kernel_s = wall(dfsk.compute_train, X)
-    d_launches = pairs_packed_cuda.packed_band.launches
+    d_launches = launched(before, ("packed_band",))["packed_band"]
     tfsk = FastSK(8, 4, config=KernelConfig(device=dev, exact_engine="theta", device_resident=True))
     eng, setup_s = wall(lambda: tfsk._make_exact_engine(encode_sequences(X)))
     require(isinstance(eng, SortedGkmEngine), f"exact_engine='theta' took {type(eng).__name__}")
@@ -1154,10 +1160,9 @@ import numpy as np
 import torch
 
 from fastsk_tpu_torch import FastSK, FastaUtility, KernelConfig
-from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed_cuda
 from fastsk_tpu_torch.parallel import multihost
 from fastsk_tpu_torch.parallel import sharding as shd
-from fastsk_tpu_torch.svm import smo_cuda
+from fastsk_tpu_torch.utils.observe import counters, reset_counters
 
 coord, pid, tmpdir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 t0 = time.perf_counter()
@@ -1193,11 +1198,8 @@ theta["auc"], theta["score_s"] = timed(dev.score, "auc")
 del fsk, dev
 
 # the packed engine: kernel F's routes, this process launching its own entries
-counters = (
-    pairs_packed_cuda.packed_block, pairs_packed_cuda.packed_band,
-    pairs_packed_cuda.packed_pairlist, pairs_packed_cuda.packed_grouped,
-    pairs_packed_cuda.packed_s1, pairs_cuda.pairs_counts, smo_cuda.smo_solve,
-)
+launched = ("packed_block", "packed_band", "packed_pairlist", "packed_grouped", "packed_s1",
+            "pairs_counts", "smo_solve")
 made, route_ms = [], []
 make_exact = FastSK._make_exact_engine
 FastSK._make_exact_engine = lambda self, enc: made.append(make_exact(self, enc)) or made[-1]
@@ -1218,27 +1220,26 @@ shd.packed_round_sharded = spy(shd.packed_round_sharded)
 def packed_run(compute, ref, **kw):
     made.clear()
     route_ms.clear()
-    shd.ring_shift.sent_bytes = shd.reduce_across.bytes = 0
-    for c in counters:
-        c.launches = 0
+    reset_counters()
     fsk = FastSK(8, 4, config=KernelConfig(device="cuda", mesh=mesh, **kw))
     _, kernel_s = timed(compute, fsk)
     eng = made[-1]
+    c = counters()
     return fsk, dict(
         engine=type(eng).__name__, route=eng.route, mesh_state=eng.config.mesh_state,
         strips=eng.n_strips, kernel_s=kernel_s,
-        route_ms=sum(route_ms), launches={c.__name__: c.launches for c in counters},
-        ring_mib=shd.ring_shift.sent_bytes / 2**20, merge_mib=shd.reduce_across.bytes / 2**20,
+        route_ms=sum(route_ms), launches={n: c[f"{n}.launches"] for n in launched},
+        ring_mib=c["ring_shift.sent_bytes"] / 2**20, merge_mib=c["reduce_across.bytes"] / 2**20,
         counts_equal=bool(np.array_equal(fsk.kernel_counts, ref)),
     )
 
 
 runs = {}
 fsk, run = packed_run(lambda f: f.compute_kernel(Xtr, Xte, Ytr, Yte), a_ref)  # "auto"
-smo_cuda.smo_solve.launches = smo_cuda.smo_solve.problems = 0
+reset_counters()
 _, run["fit_s"] = timed(fsk.fit, C=1.0)
 run["auc"], run["score_s"] = timed(fsk.score, "auc")
-run["fit_launches"] = [smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems]
+run["fit_launches"] = [counters()["smo_solve.launches"], counters()["smo_solve.problems"]]
 runs["KAT2B auto"] = run
 del fsk
 for state in ("sharded", "replicated"):
@@ -1499,7 +1500,6 @@ def packed_phases(dev, sass: dict, small=(24, 100, 905), medium=(400, 16, 905),
     from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
     from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed, pairs_packed_cuda
     from fastsk_tpu_torch.ops.encode import encode_sequences
-    from fastsk_tpu_torch.svm import smo_cuda
     from fastsk_tpu_torch.svm.linear import stratified_kfold_indices
 
     # --------------------------------------------- kernels D, E, G vs plain
@@ -1527,20 +1527,20 @@ def packed_phases(dev, sass: dict, small=(24, 100, 905), medium=(400, 16, 905),
             return land_parts(*args)
 
         for name, eng, route, fn in (
-            ("D", band, "band", pairs_packed_cuda.packed_band),
-            ("E", band, "pairlist", pairs_packed_cuda.packed_pairlist),
-            ("G", grouped, "grouped", pairs_packed_cuda.packed_grouped),
+            ("D", band, "band", "packed_band"),
+            ("E", band, "pairlist", "packed_pairlist"),
+            ("G", grouped, "grouped", "packed_grouped"),
         ):
             eng.route = route
             eng._counts()
-            fn.launches = 0
+            before = counters()
             landed.clear()
             pairs_packed.land_parts = spy
             try:
                 out[name] = cuda_ms(eng._counts)
             finally:
                 pairs_packed.land_parts = land_parts
-            launches[name] = fn.launches
+            launches[name] = launched(before, (fn,))[fn]
             if name == "E":
                 launches["E_land_parts"] = len(landed)
         band.route = "band"
@@ -1635,19 +1635,14 @@ def packed_phases(dev, sass: dict, small=(24, 100, 905), medium=(400, 16, 905),
     torch.cuda.empty_cache()
 
     # ------------------------------- the ragged slice through the public API
-    counters = (
-        pairs_cuda.pairs_counts, smo_cuda.smo_solve, pairs_packed_cuda.packed_band,
-        pairs_packed_cuda.packed_pairlist, pairs_packed_cuda.packed_grouped,
-    )
-    for fn in counters:
-        fn.launches = 0
-    smo_cuda.smo_solve.problems = 0
+    wrappers = ("pairs_counts", "smo_solve", "packed_band", "packed_pairlist", "packed_grouped")
+    before = counters()
     rfsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
     _, r_kernel_s = wall(rfsk.compute_kernel, r_tr, r_te, ry_tr, ry_te)
     _, r_fit_s = wall(rfsk.fit, C=0.01)
     r_auc, r_score_s = wall(rfsk.score, "auc")
-    r_launches = {fn.__name__: fn.launches for fn in counters}
-    r_problems = smo_cuda.smo_solve.problems
+    r_launches = launched(before, wrappers)
+    r_problems = counters()["smo_solve.problems"] - before["smo_solve.problems"]
     rk = rfsk._K_dev
     r_dec = rfsk._model.decision_function(rfsk._test_gram())
     r_ok = (
@@ -1688,31 +1683,30 @@ def packed_phases(dev, sass: dict, small=(24, 100, 905), medium=(400, 16, 905),
     # each with the counters zeroed just before and read just after
     d_kernel_counts = rfsk.kernel_counts
     for key, fn, env, backend in (
-        ("E", pairs_packed_cuda.packed_pairlist, "1", "auto"),
-        ("G", pairs_packed_cuda.packed_grouped, None, "pallas_grouped"),
+        ("E", "packed_pairlist", "1", "auto"),
+        ("G", "packed_grouped", None, "pallas_grouped"),
     ):
         if env:
             os.environ["FASTSK_PACKED_PAIRLIST"] = env
-        for c in counters:
-            c.launches = 0
+        before = counters()
         ofsk = FastSK(
             g=8, m=4,
             config=KernelConfig(device=dev, device_resident=True, pairs_backend=backend),
         )
         _, o_kernel_s = wall(ofsk.compute_kernel, r_tr, r_te, ry_tr, ry_te)
-        o_launches = {c.__name__: c.launches for c in counters}
+        o_launches = launched(before, wrappers)
         os.environ.pop("FASTSK_PACKED_PAIRLIST", None)
         same = bool(np.array_equal(ofsk.kernel_counts, d_kernel_counts))
         emit(
             "ragged-slice", route=key, kernel_s=o_kernel_s,
             launches=o_launches, counts_equal_d=same,
         )
-        require(o_launches[fn.__name__] > 0, f"kernel {key} did not launch: {o_launches}")
-        require(key != "E" or o_launches[fn.__name__] == 1,
+        require(o_launches[fn] > 0, f"kernel {key} did not launch: {o_launches}")
+        require(key != "E" or o_launches[fn] == 1,
                 f"E's route through the API was not one launch: {o_launches}")
         require(o_launches["packed_band"] == 0, f"route {key} took kernel D: {o_launches}")
         require(same, f"route {key}'s kernel counts differ from kernel D's")
-        r_launches[fn.__name__] = o_launches[fn.__name__]
+        r_launches[fn] = o_launches[fn]
         del ofsk
 
     # the kernel's own floor at 2.19 (D and E run the same kernel over the
@@ -1882,9 +1876,9 @@ def svm_family_phase(dev, Xtr, Xte, Ytr, Yte, svr_twin_iters: int = 3000):
     duals of the same Gram for ``svr_twin_iters`` iterations. Returns
     ({svm_type: fields}, svr_twins' result)."""
     from fastsk_tpu_torch import FastSK, KernelConfig
-    from fastsk_tpu_torch.svm import kernel_svm, smo_cuda
+    from fastsk_tpu_torch.svm import kernel_svm
 
-    counters = (smo_cuda.smo_solve, smo_cuda.smo_nu_solve)
+    wrappers = ("smo_solve", "smo_nu_solve")
     real_nu, c_solves = kernel_svm.smo_nu_solve, []
 
     def timed_nu(*args, **kwargs):  # kernel C's launches in a fit, timed
@@ -1905,9 +1899,7 @@ def svm_family_phase(dev, Xtr, Xte, Ytr, Yte, svr_twin_iters: int = 3000):
         ("epsilon_svr", dict(C=1.0), "r2"),
         ("nu_svr", dict(C=1.0, nu=nu), "r2"),
     ):
-        for c in counters:
-            c.launches = 0
-        smo_cuda.smo_solve.problems = 0
+        before = counters()
         c_solves.clear()
         kernel_svm.smo_nu_solve = timed_nu if svm_type == "nu_svr" else real_nu
         try:
@@ -1915,8 +1907,8 @@ def svm_family_phase(dev, Xtr, Xte, Ytr, Yte, svr_twin_iters: int = 3000):
         finally:
             kernel_svm.smo_nu_solve = real_nu
         score, score_s = wall(fsk.score, metric)
-        launches = {c.__name__: c.launches for c in counters}
-        problems = smo_cuda.smo_solve.problems
+        launches = launched(before, wrappers)
+        problems = counters()["smo_solve.problems"] - before["smo_solve.problems"]
         model = fsk._model
         decide = getattr(model, "decision_function", model.predict)
         dec_test, dec_train = decide(fsk._test_gram()), decide(gram_tr)
@@ -1985,23 +1977,17 @@ def multiclass_phase(dev, size=(1000, 16, 905)) -> dict:
     each with the counters zeroed before it and held to the same model
     refitted on the CPU."""
     from fastsk_tpu_torch import FastSK, KernelConfig
-    from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed_cuda
-    from fastsk_tpu_torch.svm import smo_cuda
 
     motifs = np.random.default_rng(12).integers(1, 25, size=(4, 8))
     X, y = ragged_set(412, *size, motifs=motifs)
     perm = np.random.default_rng(4120).permutation(len(X))
     n_tr = int(0.8 * len(X))
     tr, te = perm[:n_tr], perm[n_tr:]
-    counters = (
-        pairs_cuda.pairs_counts, pairs_packed_cuda.packed_band,
-        smo_cuda.smo_solve, smo_cuda.smo_nu_solve,
-    )
-    for c in counters:
-        c.launches = 0
+    wrappers = ("pairs_counts", "packed_band", "smo_solve", "smo_nu_solve")
+    before = counters()
     fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
     _, kernel_s = wall(fsk.compute_kernel, [X[i] for i in tr], [X[i] for i in te], y[tr], y[te])
-    kernel_launches = {c.__name__: c.launches for c in counters}
+    kernel_launches = launched(before, wrappers)
     require(kernel_launches["packed_band"] > 0 and kernel_launches["pairs_counts"] == 0,
             f"the 4-class ragged set did not take kernel D: {kernel_launches}")
     out = {"kernel_s": kernel_s, "kernel_launches": kernel_launches}
@@ -2011,13 +1997,11 @@ def multiclass_phase(dev, size=(1000, 16, 905)) -> dict:
     for svm_type, kw, want in (
         ("c_svc", dict(C=1.0), "smo_solve"), ("nu_svc", dict(nu=0.5), "smo_nu_solve"),
     ):
-        for c in counters:
-            c.launches = 0
-        smo_cuda.smo_solve.problems = 0
+        before = counters()
         _, fit_s = wall(fsk.fit, svm_type=svm_type, **kw)
         acc, score_s = wall(fsk.score, "accuracy")
-        launches = {c.__name__: c.launches for c in counters}
-        problems = smo_cuda.smo_solve.problems
+        launches = launched(before, wrappers)
+        problems = counters()["smo_solve.problems"] - before["smo_solve.problems"]
         model = fsk._model
         dec = model.decision_function(gram_te)
         # the same model refitted on the CPU from the same f32 Gram: the
@@ -2246,10 +2230,10 @@ def f_at_full(dev, r_tr, r_te, d_counts) -> dict:
     for name, fn in (("ring_1x1", ring_1x1), ("round_robin", round_robin)):
         fn()  # warm-up
         out.zero_()
-        block.launches = 0
+        before = counters()
         _, ms = cuda_ms(fn)
         res[name] = dict(
-            ms=ms, launches=block.launches,
+            ms=ms, launches=launched(before, ("packed_block",))["packed_block"],
             max_abs_err_vs_d=int((out[:n, :n] - d_sorted).abs().max()),
             **count_bound(windows, 8 * eng.alpha, in_bytes + n * n * 8),
         )
@@ -2306,10 +2290,9 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
     main run's fields, with kernel F's timing at the slice and every mesh
     run's counted launches, times and bound under "runs"."""
     from fastsk_tpu_torch import FastSK, KernelConfig
-    from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed, pairs_packed_cuda
+    from fastsk_tpu_torch.ops import pairs_packed, pairs_packed_cuda
     from fastsk_tpu_torch.parallel import make_mesh
     from fastsk_tpu_torch.parallel import sharding as shd
-    from fastsk_tpu_torch.svm import smo_cuda
 
     _, _, r_tr, r_te, ry_tr, ry_te = slice_219(full)
     hfsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=False))
@@ -2321,11 +2304,8 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
     torch.cuda.empty_cache()
     f_full = f_at_full(dev, r_tr, r_te, d_counts)
 
-    counters = (
-        pairs_cuda.pairs_counts, pairs_packed_cuda.packed_band,
-        pairs_packed_cuda.packed_pairlist, pairs_packed_cuda.packed_grouped,
-        pairs_packed_cuda.packed_s1, pairs_packed_cuda.packed_block, smo_cuda.smo_solve,
-    )
+    wrappers = ("pairs_counts", "packed_band", "packed_pairlist", "packed_grouped", "packed_s1",
+                "packed_block", "smo_solve")
     seen = {}
     spied = (shd.packed_ring_rowsharded, shd.packed_round_sharded)
 
@@ -2369,8 +2349,7 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
     try:
         for shape, state, devices in runs:
             mesh = make_mesh(*shape, devices=devices)
-            for c in counters:
-                c.launches = 0
+            before = counters()
             plain_calls.update({name: 0 for name in plain_calls})
             base = {}
             for d in set(mesh.devices):
@@ -2397,7 +2376,7 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
                 auc, score_s = wall(fsk.score, "auc")
                 fields.update(fit_s=fit_s, score_s=score_s, auc=auc, auc_host_path=h_auc)
                 main = fields
-            launches = {c.__name__: c.launches for c in counters}
+            launches = launched(before, wrappers)
             want = mesh_launches(f_full["strips"], mesh.size, state)
             fields.update(
                 launches=launches, plain_calls=dict(plain_calls),
@@ -2415,7 +2394,7 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
             require(not any(plain_calls.values()),
                     f"mesh {shape} {state}: the plain composite or torch stage 2 ran: {plain_calls}")
             require(
-                all(launches[c.__name__] == 0 for c in counters[:5]),
+                all(launches[c] == 0 for c in wrappers[:5]),
                 f"mesh {shape} {state}: another count kernel launched: {launches}",
             )
             if "auc" in fields:
@@ -2452,13 +2431,13 @@ def probe_phase(dev, cases: dict, sets=PROBE_SETS, reps: int = 3) -> dict:
     and loads (the operand and the output), A's operations for the rest.
     Returns {"launches": n, "sets": {set: run_probe's result}}."""
     from fastsk_tpu_torch.experiments.probe_pairs import run_probe
-    from fastsk_tpu_torch.ops import pairs, pairs_cuda
+    from fastsk_tpu_torch.ops import pairs
 
     from fastsk_tpu_torch import _build
 
     require(not hasattr(_build.kernels(), "pairs_probe_launch"),
             "the library still has the dp4a body's probe entry point")
-    pairs_cuda.pairs_probe.launches = 0
+    before = counters()
     out = {}
     for name, layout in sets:
         x, g, k, p_pad, plain, windows, width = cases[name]
@@ -2479,7 +2458,7 @@ def probe_phase(dev, cases: dict, sets=PROBE_SETS, reps: int = 3) -> dict:
         out[name] = res
         del x, plain
         torch.cuda.empty_cache()
-    launches = pairs_cuda.pairs_probe.launches
+    launches = launched(before, ("pairs_probe",))["pairs_probe"]
     want = len(sets) * len(pairs.PROBE_VARIANTS) * reps
     require(launches == want, f"kernel H launched {launches} times, not {want}")
     return {"launches": launches, "sets": out}
@@ -2502,22 +2481,7 @@ B1_FRACTION = 0.25  # of KAT2B's training set, for the batch-size-1 LSTM epoch
 PARITY_ROWS = 64  # test rows whose logits are held card against CPU
 
 
-def _counters():
-    from fastsk_tpu_torch.ops import pairs_cuda, pairs_packed_cuda
-    from fastsk_tpu_torch.svm import smo_cuda
-
-    return (pairs_cuda.pairs_counts, pairs_packed_cuda.packed_band, smo_cuda.smo_solve,
-            smo_cuda.smo_nu_solve)
-
-
-def zero_counts() -> None:
-    reset_a_counts()
-    for c in _counters():
-        c.launches = 0
-
-
-def read_counts() -> dict:
-    return {c.__name__: c.launches for c in _counters()}
+RUNNER_KERNELS = ("pairs_counts", "packed_band", "smo_solve", "smo_nu_solve")
 
 
 def split_pair(prefix: str, name: str, tmpdir: str) -> str:
@@ -2544,15 +2508,15 @@ def ekm_phase(dev, tmpdir: str) -> dict:
     out = {}
     for name, (prefix, g, m, anchor) in EKM_ANCHORS.items():
         runner = FastskRunner(name, data_locations=(split_pair(prefix, name, tmpdir),))
-        zero_counts()
+        before = counters()
         res, wall_s = wall(runner.train_and_test, g=g, m=m, C=1.0, config=KernelConfig(device=dev))
-        launches = read_counts()
+        launches = launched(before, RUNNER_KERNELS)
         folds = runner.model_._models
         fields = dict(
             dataset=name, g=g, m=m, C=1.0, n_train=len(runner.Ytrain), n_test=len(runner.Ytest),
             auc=res["auc"], auc_anchor=anchor, auc_diff=res["auc"] - anchor, acc=res["acc"],
             wall_s=wall_s, **runner.timings_, launches=launches,
-            a_bodies=dict(_counters()[0].bodies),
+            a_bodies=a_bodies(before),
             newton_steps=[svc.n_iter_ for svc, _, _ in folds],
             host_reads=[svc.host_reads_ for svc, _, _ in folds],
         )
@@ -2627,9 +2591,9 @@ def lasso_phase(dev, tmpdir: str) -> dict:
         with open(os.path.join(d, f"reg.{split}.fasta"), "w") as f:
             f.writelines(f">{float(y[i])!r}\n{seqs[i]}\n" for i in idx)
     reg = FastskRegressor("reg", data_locations=(d,))
-    zero_counts()
+    before = counters()
     r2, wall_s = wall(reg.train_and_test, g=6, m=2, approx=False, config=KernelConfig(device=dev))
-    launches = read_counts()
+    launches = launched(before, RUNNER_KERNELS)
     cv = reg.model_
     fields = dict(
         dataset="EP300 row sums", g=6, m=2, n_train=n_tr, n_test=len(seqs) - n_tr, r2=r2,
@@ -2720,10 +2684,10 @@ def multiclass_runner_phase(dev, tmpdir: str, a_ms=None, kat2b_engine=None, a_bo
     out = {}
     trace_dir = os.path.join(tmpdir, "mc_trace")
     for svm, profile in (("linear_ovr", None), ("kernel_ovo", None), ("linear_ovr", trace_dir)):
-        zero_counts()
+        before = counters()
         cfg = KernelConfig(device=dev, profile_dir=profile)
         res, wall_s = wall(runner.train_and_test, g=8, m=4, approx=False, C=1.0, svm=svm, config=cfg)
-        launches = read_counts()
+        launches = launched(before, RUNNER_KERNELS)
         key = svm + ("_profiled" if profile else "")
         out[key] = dict(accuracy=res["acc"], wall_s=wall_s, launches=launches)
         want_b = 6 if svm == "kernel_ovo" else 0
@@ -2794,13 +2758,13 @@ def baselines_phase(dev, tmpdir: str) -> dict:
         ("lstm_b1", 1, None, dict(batch_size=1, optimizer="sgd", momentum=None, lr=0.05,
                                   train_fraction=B1_FRACTION)),
     ):
-        zero_counts()
+        before = counters()
         args = dict(epochs=epochs, batch_size=64, lr=1e-3, seed=0, device=dev) | kw
         res, peak = peak_mib(train_model, kind.split("_")[0], tr_file, te_file, **args)
         out[kind] = dict(auc=res.auc, acc=res.acc, epochs=epochs, train_s=res.train_time_s,
                          s_an_epoch=res.train_time_s / epochs, peak_mib=peak,
                          first_loss=res.history[0], last_loss=res.history[-1]["loss"],
-                         launches=read_counts(), **{k: v for k, v in kw.items() if k != "optimizer"})
+                         launches=launched(before, RUNNER_KERNELS), **{k: v for k, v in kw.items() if k != "optimizer"})
         require(all(v == 0 for v in out[kind]["launches"].values()),
                 f"{kind}: a hand-written kernel ran: {out[kind]['launches']}")
         if floor is not None:
@@ -2985,19 +2949,14 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------- main path
-    reset_a_counts()
-    smo_cuda.smo_solve.launches = 0
-    smo_cuda.smo_solve.problems = 0
+    before = counters()
     fsk = FastSK(g=8, m=4, config=KernelConfig(device=dev, device_resident=True))
     _, kernel_s = wall(fsk.compute_kernel, Xtr, Xte, Ytr, Yte)
     _, fit_s = wall(fsk.fit, C=1.0)
     auc, score_s = wall(fsk.score, "auc")
-    launches = {
-        "pairs_counts": pairs_cuda.pairs_counts.launches,
-        "smo_solve": smo_cuda.smo_solve.launches,
-    }
-    smo_problems = smo_cuda.smo_solve.problems
-    a_bodies = dict(pairs_cuda.pairs_counts.bodies)
+    launches = launched(before, ("pairs_counts", "smo_solve"))
+    smo_problems = counters()["smo_solve.problems"] - before["smo_solve.problems"]
+    kat2b_bodies = a_bodies(before)
     k_dev = fsk._K_dev
     dec = fsk._model.decision_function(fsk._test_gram())
     outputs_ok = (
@@ -3012,11 +2971,11 @@ def main() -> None:
         n_test=len(Xte), kernel_s=kernel_s, fit_s=fit_s, score_s=score_s,
         auc=auc, auc_anchor=AUC_ANCHOR, auc_diff=auc - AUC_ANCHOR,
         svm_iters=fsk._model.iters_, launches=launches, smo_problems=smo_problems,
-        a_bodies=a_bodies, outputs_ok=outputs_ok,
+        a_bodies=kat2b_bodies, outputs_ok=outputs_ok,
     )
     require(outputs_ok, "the slice's kernel or decision values are malformed")
     require(launches["pairs_counts"] > 0, f"kernel A did not launch: {launches}")
-    require(a_bodies == {"mma": 1, "dp4a": 0}, f"KAT2B did not take kernel A's tensor-core body once: {a_bodies}")
+    require(kat2b_bodies == {"mma": 1, "dp4a": 0}, f"KAT2B did not take kernel A's tensor-core body once: {kat2b_bodies}")
     require(
         launches["smo_solve"] == 2 and smo_problems == 6,
         f"the C-SVC fit took {launches['smo_solve']} launches of kernel B for "
@@ -3100,7 +3059,7 @@ def main() -> None:
         )
         baselines_phase(dev, tmpdir)
 
-    reset_a_counts()
+    DP4A["seen"] = counters()["pairs_counts.bodies.dp4a"]
     require(DP4A["seen"] == DP4A["asked"],
             f"kernel A's dp4a body launched {DP4A['seen']} times, {DP4A['asked']} asked for by name")
     record = {
@@ -3113,7 +3072,7 @@ def main() -> None:
                 "max_abs_err": pairs_times["KAT2B"][2],
                 "ms": pairs_times["KAT2B"][0], "plain_ms": pairs_times["KAT2B"][1],
                 **pairs_times["KAT2B"][3], "library_ms": None,
-                "bodies": a_bodies, "ms_by_body": pairs_times["KAT2B"][4],
+                "bodies": kat2b_bodies, "ms_by_body": pairs_times["KAT2B"][4],
                 "ms_g16": pairs_times["dna7230x200"][0],
                 "ms_by_body_g16": pairs_times["dna7230x200"][4],
                 "plain_ms_g16": pairs_times["dna7230x200"][1],

@@ -15,7 +15,10 @@ epsilon_svr, nu_svr; multiclass labels train one-vs-one), all on
 the theta engines compute the kernel over the mesh's devices (across
 processes too, ``parallel/multihost.py``), and the fit runs on
 ``KernelConfig.device``; ``KernelConfig.checkpoint_path`` lets a dense
-theta run resume after an interruption.
+theta run resume after an interruption. Each stage of a job is a span of
+``utils/observe.py`` (``encode``, ``engine.build``, ``normalize``,
+``fit.gram``, ``score.gram``, ``score.predict`` here; the engines' and
+the SVM's inside), named in a ``torch.profiler`` trace while one records.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from .kernel.engine import ApproxResult, DenseGkmEngine, cosine_normalize
 from .kernel.sorted_engine import SortedGkmEngine
 from .ops.encode import EncodedSeqs, encode_sequences, validate_g
 from .ops.pairs import full_f32_matmul
+from .utils.observe import span
 
 
 class FastSK:
@@ -108,7 +112,8 @@ class FastSK:
 
     def _compute(self, enc: EncodedSeqs) -> None:
         validate_g(enc, self.g, self.m)
-        engine = self._make_engine(enc) if self.approx else self._make_exact_engine(enc)
+        with span("engine.build"):
+            engine = self._make_engine(enc) if self.approx else self._make_exact_engine(enc)
         self._counts_dev = None
         self._K_dev = None
         # The JAX package's rules (fastsk_tpu/api.py:150-180): under a mesh
@@ -142,15 +147,16 @@ class FastSK:
             counts = engine.exact_device() if use_dev else engine.exact()
             self._iters = 0
             self._stdevs = []
-        if isinstance(counts, np.ndarray):
-            # host path, or counts past int32 from the packed engine
-            self._counts = counts
-            self._K = cosine_normalize(counts)
-        else:  # DeviceCounts
-            self._counts_dev = counts
-            self._K_dev = counts.normalized_f32()
-            self._counts = None
-            self._K = None
+        with span("normalize"):
+            if isinstance(counts, np.ndarray):
+                # host path, or counts past int32 from the packed engine
+                self._counts = counts
+                self._K = cosine_normalize(counts)
+            else:  # DeviceCounts
+                self._counts_dev = counts
+                self._K_dev = counts.normalized_f32()
+                self._counts = None
+                self._K = None
         self.n_str_train = enc.n_train
         self.n_str_test = enc.n_test
         # total g-mer count across all sequences — the reference's nfeat
@@ -165,7 +171,8 @@ class FastSK:
         Ytest: Optional[Sequence[int]] = None,
     ) -> None:
         """Compute the joint (train+test) normalized kernel matrix."""
-        enc = encode_sequences(Xtrain, Xtest)
+        with span("encode"):
+            enc = encode_sequences(Xtrain, Xtest)
         self._compute(enc)
         if Ytrain is not None:
             self.train_labels = np.asarray(Ytrain)
@@ -174,7 +181,8 @@ class FastSK:
 
     def compute_train(self, Xtrain: Sequence[Sequence[int]], Ytrain=None) -> None:
         """Compute the train-only kernel matrix."""
-        enc = encode_sequences(Xtrain, None)
+        with span("encode"):
+            enc = encode_sequences(Xtrain, None)
         self._compute(enc)
         if Ytrain is not None:
             self.train_labels = np.asarray(Ytrain)
@@ -299,8 +307,9 @@ class FastSK:
             )
         if kernel_type not in ("fastsk", "linear", "rbf"):
             raise ValueError("kernel must be 'linear', 'fastsk', or 'rbf'")
-        rows_train = self._rows()[0]
-        gram = self._on_device(self._build_gram(rows_train, rows_train, kernel_type))
+        with span("fit.gram"):
+            rows_train = self._rows()[0]
+            gram = self._on_device(self._build_gram(rows_train, rows_train, kernel_type))
         self._fit_kernel_type = kernel_type
         self._fit_svm_type = svm_type
         if svm_type == "one_class":
@@ -365,8 +374,9 @@ class FastSK:
     def _test_gram(self):
         """Test-vs-train Gram under the fitted kernel_type (on the device
         when the kernel is device-resident)."""
-        rows_train, rows_test = self._rows()
-        return self._build_gram(rows_test, rows_train, self._fit_kernel_type)
+        with span("score.gram"):
+            rows_train, rows_test = self._rows()
+            return self._build_gram(rows_test, rows_train, self._fit_kernel_type)
 
     def _check_scorable(self) -> None:
         if self._model is None:
@@ -390,20 +400,21 @@ class FastSK:
         self._check_scorable()
         gram_test = self._test_gram()
         y_test = np.asarray(self.test_labels)
-        if self._fit_svm_type in ("epsilon_svr", "nu_svr"):
-            if metric != "r2":
-                raise ValueError("regression models score with metric='r2'")
-            return r2_score(y_test.astype(np.float64), self._model.predict(gram_test))
-        if metric == "r2":
-            raise ValueError("metric='r2' is for the SVR types")
-        if metric == "auc":
-            if not self._is_binary_classifier():
-                raise ValueError(
-                    "metric='auc' requires a binary classifier; use 'accuracy'"
-                )
-            probs = self._model.predict_proba(gram_test)[:, 1]
-            return auc_pairwise(y_test, probs)
-        return accuracy_score(y_test, self._model.predict(gram_test)) * 100.0
+        with span("score.predict"):
+            if self._fit_svm_type in ("epsilon_svr", "nu_svr"):
+                if metric != "r2":
+                    raise ValueError("regression models score with metric='r2'")
+                return r2_score(y_test.astype(np.float64), self._model.predict(gram_test))
+            if metric == "r2":
+                raise ValueError("metric='r2' is for the SVR types")
+            if metric == "auc":
+                if not self._is_binary_classifier():
+                    raise ValueError(
+                        "metric='auc' requires a binary classifier; use 'accuracy'"
+                    )
+                probs = self._model.predict_proba(gram_test)[:, 1]
+                return auc_pairwise(y_test, probs)
+            return accuracy_score(y_test, self._model.predict(gram_test)) * 100.0
 
     def save_predictions(self, path: str) -> None:
         """Write per-test-point ``label value`` lines — the reference's

@@ -12,6 +12,8 @@ engine's layout and under its digests: either package resumes the other's
 checkpoint. Progress lines go through ``utils/observe.Progress`` (gated by
 ``KernelConfig.quiet``), and ``KernelConfig.profile_dir`` takes a
 ``torch.profiler`` trace of each exact run, where the JAX engine traces.
+Approx mode's batch updates and its one pull a batch are the spans
+``theta.batch`` and ``theta.pull`` of ``utils/observe.py``.
 
 Integer exactness, as in the JAX engine: each batch's partial kernel is
 exact (``theta_batch * p_max^2 < 2^24`` in f32, or below 2^31 in f64 past
@@ -35,7 +37,7 @@ from ..ops.combinatorics import enumerate_combinations, sample_combinations
 from ..ops.encode import EncodedSeqs
 from ..parallel import sharding as shd
 from ..utils.checkpoint import KernelCheckpoint, problem_digest, theta_tag
-from ..utils.observe import Progress, profiler_trace, timed
+from ..utils.observe import Progress, profiler_trace, span, timed
 from .config import KernelConfig
 from .device_counts import _CARRY_SHIFT, DeviceCounts, _carry_spill
 
@@ -469,16 +471,19 @@ class DenseGkmEngine:
         since_ckpt = 0
         while i < total and not done:
             batch = stream[i : i + self.theta_batch]
-            if self.mesh is None:
-                state, sds = gkm.approx_batch_update(
-                    state, self._ids, self._lengths, self._batch(batch), **kwargs)
-            else:
-                state, sds = shd.approx_batch_update_sharded(
-                    state, self._ids, self._lengths, np.asarray(batch), mesh=self.mesh, **kwargs)
+            with span("theta.batch"):
+                if self.mesh is None:
+                    state, sds = gkm.approx_batch_update(
+                        state, self._ids, self._lengths, self._batch(batch), **kwargs)
+                else:
+                    state, sds = shd.approx_batch_update_sharded(
+                        state, self._ids, self._lengths, np.asarray(batch), mesh=self.mesh,
+                        **kwargs)
             i += len(batch)
             since_ckpt += len(batch)
             # one sync a batch: the sd trace and the done flag together
-            pulled = torch.cat([sds, state[3].to(torch.float32)[None]]).cpu().numpy()
+            with span("theta.pull"):
+                pulled = torch.cat([sds, state[3].to(torch.float32)[None]]).cpu().numpy()
             stdevs.extend(float(s) for s in pulled[:-1] if not math.isnan(s))
             done = bool(pulled[-1])
             if ckpt is not None and since_ckpt >= self.config.checkpoint_every:

@@ -29,7 +29,11 @@ merges the host matrices, so every rank holds the whole count matrix.
 
 Progress lines go through ``utils/observe.Progress`` (gated by
 ``KernelConfig.quiet``), and ``KernelConfig.profile_dir`` takes a
-``torch.profiler`` trace of each exact run of both engines.
+``torch.profiler`` trace of each exact run of both engines. The stages
+are spans of ``utils/observe.py``: ``engine.stage`` (sequences to the
+device, one-hot windows or window codes), ``count`` (the count kernel's
+call) and ``engine.unsort`` (the packed engine's length sort undone, and
+its wait on the counts' maximum).
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from ..ops.pairs_packed_cuda import (
     PackedRows, packed_band, packed_grouped, packed_pairlist,
 )
 from ..parallel import sharding as shd
-from ..utils.observe import Progress, profiler_trace, timed
+from ..utils.observe import Progress, profiler_trace, span, timed
 from .config import KernelConfig
 from .device_counts import DeviceCounts
 
@@ -105,20 +109,21 @@ class PairsGkmEngine:
     def _build_x(self) -> torch.Tensor:
         """One-hot windows ``[n_pad * p_pad, g * alpha]`` int8 on the device."""
         dev = self.config.device
-        ids = np.asarray(self.enc.ids)
-        lengths = np.asarray(self.enc.lengths)
-        if self.n_pad > self.n:
-            ids = np.pad(ids, ((0, self.n_pad - self.n), (0, 0)))
-            lengths = np.pad(lengths, (0, self.n_pad - self.n))
-        x = pairs.onehot_windows(
-            torch.from_numpy(ids).to(dev),
-            torch.from_numpy(lengths).to(dev),
-            g=self.g,
-            alpha=self.alpha,
-            code_min=self.code_min,
-            p_pad=self.p_pad,
-        )
-        return x.reshape(self.n_pad * self.p_pad, self.g * self.alpha)
+        with span("engine.stage"):
+            ids = np.asarray(self.enc.ids)
+            lengths = np.asarray(self.enc.lengths)
+            if self.n_pad > self.n:
+                ids = np.pad(ids, ((0, self.n_pad - self.n), (0, 0)))
+                lengths = np.pad(lengths, (0, self.n_pad - self.n))
+            x = pairs.onehot_windows(
+                torch.from_numpy(ids).to(dev),
+                torch.from_numpy(lengths).to(dev),
+                g=self.g,
+                alpha=self.alpha,
+                code_min=self.code_min,
+                p_pad=self.p_pad,
+            )
+            return x.reshape(self.n_pad * self.p_pad, self.g * self.alpha)
 
     def exact_device(self) -> DeviceCounts:
         """Exact unnormalized kernel as ``DeviceCounts`` on the configured
@@ -130,7 +135,9 @@ class PairsGkmEngine:
             progress, "pairs exact kernel", pairs_total, "pairs",
             device=None if self.config.quiet else self.config.device,
         ):
-            full = pairs_counts(self._build_x(), g=self.g, k=self.k, p_pad=self.p_pad)
+            x = self._build_x()
+            with span("count"):
+                full = pairs_counts(x, g=self.g, k=self.k, p_pad=self.p_pad)
             counts = full[: self.n, : self.n].contiguous()
         return DeviceCounts(counts)
 
@@ -215,51 +222,53 @@ class PackedPairsEngine:
         """The packed window table on ``device`` (the configured one by
         default)."""
         dev = self.config.device if device is None else device
-        seq_of = torch.from_numpy(self.pack["seq_of"]).to(dev)
-        codes = pairs_packed.window_codes(
-            torch.from_numpy(self._ids_sorted).to(dev),
-            seq_of,
-            torch.from_numpy(self.pack["win_of"]).to(dev),
-            g=self.g, code_min=self.code_min,
-        ).to(torch.int32)
-        return PackedRows(
-            codes=codes.contiguous(), seq_of=seq_of,
-            first_seq=torch.from_numpy(self.pack["first_seq"]).to(dev),
-            tile=self.tile, c_pad=self.c_pad, alpha=self.alpha,
-        )
+        with span("engine.stage"):
+            seq_of = torch.from_numpy(self.pack["seq_of"]).to(dev)
+            codes = pairs_packed.window_codes(
+                torch.from_numpy(self._ids_sorted).to(dev),
+                seq_of,
+                torch.from_numpy(self.pack["win_of"]).to(dev),
+                g=self.g, code_min=self.code_min,
+            ).to(torch.int32)
+            return PackedRows(
+                codes=codes.contiguous(), seq_of=seq_of,
+                first_seq=torch.from_numpy(self.pack["first_seq"]).to(dev),
+                tile=self.tile, c_pad=self.c_pad, alpha=self.alpha,
+            )
 
     def counts_sorted(self) -> torch.Tensor:
         """The full symmetric count matrix ``[n, n]`` int64 on the device,
         in length-sorted order."""
         rows = self.rows()
-        if self.route == "band":
-            return packed_band(rows, k=self.k, n_out=self.n)
-        dev = rows.device
-        ns = self.n_strips
-        fs = rows.first_seq
-        mat = torch.zeros(
-            (self.n + self.c_pad,) * 2, dtype=torch.int64, device=dev
-        )
-        if self.route == "pairlist":
-            # every upper strip pair (a, b >= a), row-major, in one launch
-            pa, pb = torch.triu_indices(ns, ns, device=dev).to(torch.int32)
-            packed_pairlist(rows, pa, pb, k=self.k, out=mat)
-        else:  # grouped: strip a against the groups of strips b >= a
-            group, n_groups = self.group, ns // self.group
-            per = max(1, self.SLAB_BYTES // (group * self.c_pad**2 * 8))
-            for a in range(ns):
-                g0 = a // group
-                parts = torch.cat([
-                    packed_grouped(
-                        rows, a, gi, k=self.k, group=group, n_groups=min(per, n_groups - gi)
+        with span("count"):
+            if self.route == "band":
+                return packed_band(rows, k=self.k, n_out=self.n)
+            dev = rows.device
+            ns = self.n_strips
+            fs = rows.first_seq
+            mat = torch.zeros(
+                (self.n + self.c_pad,) * 2, dtype=torch.int64, device=dev
+            )
+            if self.route == "pairlist":
+                # every upper strip pair (a, b >= a), row-major, in one launch
+                pa, pb = torch.triu_indices(ns, ns, device=dev).to(torch.int32)
+                packed_pairlist(rows, pa, pb, k=self.k, out=mat)
+            else:  # grouped: strip a against the groups of strips b >= a
+                group, n_groups = self.group, ns // self.group
+                per = max(1, self.SLAB_BYTES // (group * self.c_pad**2 * 8))
+                for a in range(ns):
+                    g0 = a // group
+                    parts = torch.cat([
+                        packed_grouped(
+                            rows, a, gi, k=self.k, group=group, n_groups=min(per, n_groups - gi)
+                        )
+                        for gi in range(g0, n_groups, per)
+                    ])[a - g0 * group :]
+                    b = torch.arange(a, ns, device=dev)
+                    pairs_packed.land_parts(
+                        mat, parts, fs[torch.full_like(b, a)], fs[b], b > a
                     )
-                    for gi in range(g0, n_groups, per)
-                ])[a - g0 * group :]
-                b = torch.arange(a, ns, device=dev)
-                pairs_packed.land_parts(
-                    mat, parts, fs[torch.full_like(b, a)], fs[b], b > a
-                )
-        return mat[: self.n, : self.n]
+            return mat[: self.n, : self.n]
 
     def _counts(self) -> torch.Tensor:
         """Exact int64 counts ``[n, n]`` in the input order, on the device
@@ -274,10 +283,11 @@ class PackedPairsEngine:
             device=None if self.config.quiet else self.config.device,
         ):
             k_sorted = self.counts_sorted()
-            pos = np.empty(self.n, dtype=np.int64)
-            pos[self.order] = np.arange(self.n)
-            pos_t = torch.from_numpy(pos).to(k_sorted.device)
-            return k_sorted.index_select(0, pos_t).index_select(1, pos_t)
+            with span("engine.unsort"):
+                pos = np.empty(self.n, dtype=np.int64)
+                pos[self.order] = np.arange(self.n)
+                pos_t = torch.from_numpy(pos).to(k_sorted.device)
+                return k_sorted.index_select(0, pos_t).index_select(1, pos_t)
 
     def _pairs_total(self) -> float:
         return self.n * (self.n + 1) / 2 * math.comb(self.g, self.k)
@@ -289,7 +299,9 @@ class PackedPairsEngine:
         if self.mesh is not None:
             raise ValueError("device-resident exact is single-device")
         full = self._counts()
-        if int(full.max()) < 2**31:
+        with span("engine.unsort"):
+            small = int(full.max()) < 2**31
+        if small:
             return DeviceCounts(full.to(torch.int32))
         return full.cpu().numpy()
 

@@ -7,8 +7,9 @@
 the int8 tensor cores at every shape, in one of four layouts that
 ``mma_plan`` picks from the shape (``MmaPlan``); ``body="dp4a"`` runs the
 ``__dp4a`` body (``pairs_kernel``) instead, where its tile fits (the
-phase-3 body sweep of ``chip_smoke.py``), and ``pairs_counts.bodies``
-counts each body's launches. ``pairs_probe`` (kernel H) runs one of the
+phase-3 body sweep of ``chip_smoke.py``), and the counters
+``pairs_counts.launches`` and ``pairs_counts.bodies.<body>``
+(``utils/observe.py``) count its launches and each body's. ``pairs_probe`` (kernel H) runs one of the
 cost-attribution variants of the tensor-core body
 (``experiments/probe_pairs.py:make_kernel``) on the same operands, in the
 layout kernel A takes. A CPU tensor takes the plain version
@@ -24,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..utils.observe import count
 from .pairs import PROBE_VARIANTS, pairs_counts_plain, pairs_probe_plain
 
 _CURRENT = PROBE_VARIANTS.index("current")  # kernel A's own variant of its body
@@ -226,8 +228,8 @@ def pairs_counts(x: torch.Tensor, *, g: int, k: int, p_pad: int, body=None) -> t
         out = _launch_mma(x, p_pad, k, _CURRENT, "pairs_counts")
     else:
         out = _launch_dp4a(x, p_pad, k)
-    pairs_counts.launches += 1
-    pairs_counts.bodies[body] += 1
+    count("pairs_counts.launches")
+    count(f"pairs_counts.bodies.{body}")
     return out
 
 
@@ -249,11 +251,5 @@ def pairs_probe(
         plan = mma_plan(x.shape[0] // p_pad, p_pad, mma_depth(x.shape[1]))
         return pairs_probe_plain(x, k=k, p_pad=p_pad, variant=variant, plan=plan)
     out = _launch_mma(x, p_pad, k, PROBE_VARIANTS.index(variant), "pairs_probe")
-    pairs_probe.launches += 1
+    count("pairs_probe.launches")  # the CPU path does not count
     return out
-
-
-# kernel launches; the CPU path does not count
-pairs_counts.launches = 0
-pairs_counts.bodies = {"mma": 0, "dp4a": 0}  # launches of each body
-pairs_probe.launches = 0

@@ -21,8 +21,9 @@ windows' code planes (``PackedRows.planes``), walked four ways.
 
 Each takes a ``PackedRows`` (the packed window codes and their layout).
 On a CPU tensor it runs the plain version (``ops/pairs_packed.py``); on a
-CUDA tensor it launches its kernel or raises. Outputs are int64 counts
-(F's stage-1 sums are int32).
+CUDA tensor it launches its kernel or raises, counted as
+``<wrapper>.launches`` (``utils/observe.py``; the CPU path does not
+count). Outputs are int64 counts (F's stage-1 sums are int32).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..utils.observe import count
 from .pairs_packed import (
     land_parts, onehot_rows, packed_block_plain, packed_counts_plain,
     packed_pair_parts_plain, packed_s1_plain,
@@ -231,7 +233,7 @@ def packed_band(rows: PackedRows, *, k: int, n_out: int) -> torch.Tensor:
         out.data_ptr(), planes.shape[0] // ROW_TILE, n_out, planes.shape[1], rows.g,
         rows.alpha, meta.cb, k,
     )
-    packed_band.launches += 1
+    count("packed_band.launches")
     return out
 
 
@@ -305,7 +307,7 @@ def packed_block(
         a0 * tile, a1 * tile, b0 * tile, b1 * tile, int(tri), out.data_ptr(),
         out.shape[1], row_off, wi.shape[1], rows_i.g, rows_i.alpha, max(mi.cb, mj.cb), k,
     )
-    packed_block.launches += 1
+    count("packed_block.launches")
     return out
 
 
@@ -344,7 +346,7 @@ def packed_grouped(
     else:
         pb = torch.arange(b0, b0 + n_b, dtype=torch.int32, device=rows.device)
         _launch_pairlist("packed_grouped", rows, torch.full_like(pb, a), pb, out, k, parts=True)
-    packed_grouped.launches += 1
+    count("packed_grouped.launches")
     return out
 
 
@@ -409,7 +411,7 @@ def packed_pairlist(
         c = rows.c_pad
         out = torch.zeros((pa.numel(), c, c), dtype=torch.int64, device=rows.device)
     _launch_pairlist("packed_pairlist", rows, pa, pb, out, k, parts=parts)
-    packed_pairlist.launches += 1
+    count("packed_pairlist.launches")
     return out
 
 
@@ -456,13 +458,5 @@ def packed_s1(
         a, tile, wb[b0 * tile :].data_ptr(), rows_b.seq_padded[b0 * tile :].data_ptr(),
         n_b * tile, c, wa.shape[1], k, 4 * wa.shape[1] - rows_a.g, out.data_ptr(),
     )
-    packed_s1.launches += 1
+    count("packed_s1.launches")
     return out
-
-
-# kernel launches; the CPU path does not count
-packed_band.launches = 0
-packed_block.launches = 0
-packed_grouped.launches = 0
-packed_pairlist.launches = 0
-packed_s1.launches = 0

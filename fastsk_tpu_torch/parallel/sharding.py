@@ -34,8 +34,9 @@ The JAX collectives become:
 A mesh whose entries belong to several processes (``parallel/
 multihost.py``) loops over this process's entries only. Under gloo every
 collective goes through host memory, explicitly; under nccl through this
-process's card. ``reduce_across.bytes`` and ``ring_shift.sent_bytes``
-count what this process sends through them. Every function here is
+process's card. The counters ``reduce_across.bytes`` and
+``ring_shift.sent_bytes`` (``utils/observe.py``) count what this process
+sends through them. Every function here is
 integer-identical to the single-device engine.
 """
 
@@ -46,6 +47,8 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.observe import count
 
 if TYPE_CHECKING:
     from ..ops.pairs_packed_cuda import PackedRows
@@ -180,13 +183,10 @@ def reduce_across(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
 
     buf = t.to(_stage_device(mesh))
     dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
-    reduce_across.bytes += buf.numel() * buf.element_size()
+    count("reduce_across.bytes", buf.numel() * buf.element_size())
     if buf is not t:
         t.copy_(buf)
     return t
-
-
-reduce_across.bytes = 0  # bytes of the tensors reduced across processes
 
 
 def gather_rows(blocks: Dict[int, torch.Tensor], mesh: Mesh, full_shape, dim: int,
@@ -517,7 +517,7 @@ def ring_shift(held: Dict[int, PackedRows], mesh: Mesh) -> Dict[int, PackedRows]
             for t in (rows.codes, rows.seq_of, rows.first_seq):
                 buf = t.to(stage).contiguous()
                 ops.append(dist.P2POp(dist.isend, buf, mesh.ranks[d]))
-                ring_shift.sent_bytes += buf.numel() * buf.element_size()
+                count("ring_shift.sent_bytes", buf.numel() * buf.element_size())
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
@@ -526,9 +526,6 @@ def ring_shift(held: Dict[int, PackedRows], mesh: Mesh) -> Dict[int, PackedRows]
         out[d] = PackedRows(codes=codes, seq_of=seq_of, first_seq=first_seq,
                             tile=like.tile, c_pad=like.c_pad, alpha=like.alpha)
     return out
-
-
-ring_shift.sent_bytes = 0  # bytes this process sent to other processes
 
 
 def packed_round_sharded(

@@ -16,7 +16,8 @@ binary or one-vs-one, with Platt probabilities), ``NuSVC``, ``NuSVR``,
   bias split into rho and r.
 
 Probability estimates use Platt scaling on 5-fold cross-validated
-decision values.
+decision values. A C-SVC fit's main solve and its Platt folds are the
+spans ``fit.solve`` and ``fit.platt`` (``utils/observe.py``).
 
 A Gram given as a numpy array is solved on the CPU; a torch tensor is
 solved where it lies, so a CUDA Gram never leaves the card and only O(n)
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.pairs import full_f32_matmul
+from ..utils.observe import span
 from .linear import stratified_kfold_indices
 from .platt import sigmoid_predict, sigmoid_train
 from .smo_cuda import (
@@ -395,14 +397,16 @@ class KernelSVC(_Classifier):
 
         c_vec = self._box(y, classes)
 
-        alpha, rho, iters = self._solve(gram, y_signed, c_vec)
+        with span("fit.solve"):
+            alpha, rho, iters = self._solve(gram, y_signed, c_vec)
         self.alpha_y_ = alpha * y_signed
         self.rho_ = float(rho)
         self.iters_ = int(iters)
         self.support_ = np.flatnonzero(alpha > 0)
 
         if self.probability:
-            self._fit_platt(gram, y, y_signed, c_vec)
+            with span("fit.platt"):
+                self._fit_platt(gram, y, y_signed, c_vec)
         return self
 
     def _solve(self, gram: torch.Tensor, y_signed, c_vec, alpha0=None):

@@ -10,7 +10,12 @@ takes the plain twin (``smo_loop_plain`` / ``smo_nu_loop_plain``); a CUDA
 tensor launches the kernel or raises. Every solve on the card goes
 through a kernel, at every n. Both kernels run one thread-block cluster
 a problem; ``smo_solve`` also takes a batch of problems over one Q (the
-Platt folds: one launch, one cluster a problem).
+Platt folds: one launch, one cluster a problem). Each solve is the span
+``smo.solve`` (``utils/observe.py``); the counters ``smo_solve.launches``,
+``smo_solve.problems`` and ``smo_nu_solve.launches`` count the card's
+launches and kernel B's problems, and ``smo.iterations`` adds each call
+of ``smo_solve``'s longest problem's iterations, on the card and the CPU
+alike: the serial loop's length, which sets the launch's time.
 
 No padding is needed: the kernels loop over exactly n rows. Rows whose
 C is 0 (the Platt folds' held-out rows) can join neither I_up nor I_low,
@@ -23,6 +28,7 @@ import torch
 
 from .. import _build
 from ..ops.pairs import full_f32_matmul
+from ..utils.observe import count, span
 
 _NEG_INF = -1e30
 _TAU = 1e-12
@@ -217,35 +223,37 @@ def smo_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int, *, cluster=None
         )
     C2, A0 = C_vec.reshape(-1, n), alpha0.reshape(-1, n)
     b = C2.shape[0]
-    # one mv a problem: the same grad0 as a lone solve of it, bit for bit
-    grad0 = torch.stack([initial_state(Q, p, a)[0] for a in A0])
-    qd = torch.diagonal(Q).contiguous()
-    if Q.device.type == "cpu":
-        runs = [
-            smo_loop_plain(Q, y, C2[f], qd, A0[f], grad0[f], eps, max_iter)
-            for f in range(b)
-        ]
-        alpha = torch.stack([r[0] for r in runs])
-        grad = torch.stack([r[1] for r in runs])
-        iters = [r[2] for r in runs]
-    else:
-        cluster = _cluster(cluster)
-        alpha = torch.empty_like(grad0)
-        grad = torch.empty_like(grad0)
-        row = torch.empty_like(grad0)
-        it = torch.empty(b, dtype=torch.int32, device=Q.device)
-        lib = _build.kernels()
-        with torch.cuda.device(Q.device):
-            status = lib.smo_solve_launch(
-                Q.data_ptr(), y.data_ptr(), C2.data_ptr(), qd.data_ptr(),
-                A0.data_ptr(), grad0.data_ptr(), alpha.data_ptr(), grad.data_ptr(),
-                row.data_ptr(), it.data_ptr(), n, b, float(eps), int(max_iter),
-                cluster, torch.cuda.current_stream().cuda_stream,
-            )
-        _build.check_launch(status, "smo_solve")
-        smo_solve.launches += 1
-        smo_solve.problems += b
-        iters = it.tolist()
+    with span("smo.solve"):
+        # one mv a problem: the same grad0 as a lone solve of it, bit for bit
+        grad0 = torch.stack([initial_state(Q, p, a)[0] for a in A0])
+        qd = torch.diagonal(Q).contiguous()
+        if Q.device.type == "cpu":
+            runs = [
+                smo_loop_plain(Q, y, C2[f], qd, A0[f], grad0[f], eps, max_iter)
+                for f in range(b)
+            ]
+            alpha = torch.stack([r[0] for r in runs])
+            grad = torch.stack([r[1] for r in runs])
+            iters = [r[2] for r in runs]
+        else:
+            cluster = _cluster(cluster)
+            alpha = torch.empty_like(grad0)
+            grad = torch.empty_like(grad0)
+            row = torch.empty_like(grad0)
+            it = torch.empty(b, dtype=torch.int32, device=Q.device)
+            lib = _build.kernels()
+            with torch.cuda.device(Q.device):
+                status = lib.smo_solve_launch(
+                    Q.data_ptr(), y.data_ptr(), C2.data_ptr(), qd.data_ptr(),
+                    A0.data_ptr(), grad0.data_ptr(), alpha.data_ptr(), grad.data_ptr(),
+                    row.data_ptr(), it.data_ptr(), n, b, float(eps), int(max_iter),
+                    cluster, torch.cuda.current_stream().cuda_stream,
+                )
+            _build.check_launch(status, "smo_solve")
+            count("smo_solve.launches")
+            count("smo_solve.problems", b)
+            iters = it.tolist()
+    count("smo.iterations", max(iters))
     if batched:
         return alpha, grad, iters
     return alpha[0], grad[0], iters[0]
@@ -263,28 +271,23 @@ def smo_nu_solve(Q, y, C_vec, p, alpha0, eps: float, max_iter: int, *, cluster=N
         raise ValueError(f"y, C, p and alpha0 must have shape ({n},)")
     if cluster is not None:
         _cluster(cluster)
-    grad0, qd = initial_state(Q, p, alpha0)
-    if Q.device.type == "cpu":
-        return smo_nu_loop_plain(Q, y, C_vec, qd, alpha0, grad0, eps, max_iter)
-    cluster = _cluster(cluster)
-    alpha = torch.empty_like(alpha0)
-    grad = torch.empty_like(grad0)
-    rows = torch.empty((2, n), dtype=torch.float32, device=Q.device)
-    iters = torch.empty(1, dtype=torch.int32, device=Q.device)
-    lib = _build.kernels()
-    with torch.cuda.device(Q.device):
-        status = lib.smo_nu_solve_launch(
-            Q.data_ptr(), y.data_ptr(), C_vec.data_ptr(), qd.data_ptr(),
-            alpha0.data_ptr(), grad0.data_ptr(), alpha.data_ptr(),
-            grad.data_ptr(), rows.data_ptr(), iters.data_ptr(), n, float(eps),
-            int(max_iter), cluster, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_launch(status, "smo_nu_solve")
-    smo_nu_solve.launches += 1
-    return alpha, grad, int(iters.item())
-
-
-# kernel launches, and kernel B's problems solved; the CPU path counts neither
-smo_solve.launches = 0
-smo_solve.problems = 0
-smo_nu_solve.launches = 0
+    with span("smo.solve"):
+        grad0, qd = initial_state(Q, p, alpha0)
+        if Q.device.type == "cpu":
+            return smo_nu_loop_plain(Q, y, C_vec, qd, alpha0, grad0, eps, max_iter)
+        cluster = _cluster(cluster)
+        alpha = torch.empty_like(alpha0)
+        grad = torch.empty_like(grad0)
+        rows = torch.empty((2, n), dtype=torch.float32, device=Q.device)
+        iters = torch.empty(1, dtype=torch.int32, device=Q.device)
+        lib = _build.kernels()
+        with torch.cuda.device(Q.device):
+            status = lib.smo_nu_solve_launch(
+                Q.data_ptr(), y.data_ptr(), C_vec.data_ptr(), qd.data_ptr(),
+                alpha0.data_ptr(), grad0.data_ptr(), alpha.data_ptr(),
+                grad.data_ptr(), rows.data_ptr(), iters.data_ptr(), n, float(eps),
+                int(max_iter), cluster, torch.cuda.current_stream().cuda_stream,
+            )
+        _build.check_launch(status, "smo_nu_solve")
+        count("smo_nu_solve.launches")
+        return alpha, grad, int(iters.item())

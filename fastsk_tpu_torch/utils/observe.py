@@ -1,4 +1,5 @@
-"""Observability: progress logging, timing and profiler traces.
+"""Observability: progress logging, timing, spans, counters and profiler
+traces.
 
 Counterpart of ``fastsk_tpu/utils/observe.py``:
 
@@ -6,7 +7,17 @@ Counterpart of ``fastsk_tpu/utils/observe.py``:
   with elapsed-time stamps;
 - ``timed``: context manager measuring a span and reporting a rate
   (e.g. sequence-pairs/s); given a CUDA ``device`` it synchronizes before
-  each clock read, so the span ends synchronized;
+  each clock read, so the span ends synchronized; it opens the ``span``
+  of its label, so a log line and a trace name the same stage;
+- ``span``: names a stage of the program in a ``torch.profiler`` trace
+  (``fastsk:<name>``, on the clock of the device's kernels and copies)
+  while a profiler records, and adds the stage's host wall to the
+  counter ``<name>.span_s`` and its entries to ``<name>.spans``; with no
+  profiler it is one flag read and a shared no-op. A span never
+  synchronizes and never reads a device value;
+- ``count``, ``counters``, ``reset_counters``: the one registry of the
+  program's counters (kernel launches, kernel B's iterations, bytes sent
+  between processes), always on: a dict add each;
 - ``profiler_trace``: a ``torch.profiler`` trace of the CPU and, where
   there is one, the card, exported as a Chrome trace (JSON) into
   ``log_dir``.
@@ -22,9 +33,49 @@ import contextlib
 import os
 import sys
 import time
+from collections import Counter
 from typing import Iterator, Optional, Union
 
 import torch
+import torch.autograd.profiler as _profiler
+
+_COUNTS: Counter = Counter()
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _COUNTS[name] += n
+
+
+def counters() -> Counter:
+    """A copy of every counter (a name never counted reads 0)."""
+    return Counter(_COUNTS)
+
+
+def reset_counters() -> None:
+    _COUNTS.clear()
+
+
+@contextlib.contextmanager
+def _recorded(name: str) -> Iterator[None]:
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(f"fastsk:{name}"):
+        try:
+            yield
+        finally:
+            count(f"{name}.span_s", time.perf_counter() - t0)
+            count(f"{name}.spans")
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The stage ``name`` as a context manager: ``fastsk:<name>`` in the
+    trace of a recording ``torch.profiler``, else a shared no-op."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _recorded(name)
 
 
 class Progress:
@@ -57,7 +108,8 @@ def timed(
     _sync(device)
     t0 = time.perf_counter()
     try:
-        yield out
+        with span(label):
+            yield out
     finally:
         _sync(device)
         wall = time.perf_counter() - t0

@@ -28,6 +28,7 @@ from fastsk_tpu_torch.ops.encode import encode_sequences
 from fastsk_tpu_torch.parallel import make_mesh
 from fastsk_tpu_torch.svm import smo_cuda
 from fastsk_tpu_torch.svm.kernel_svm import nu_svc_start, nu_svr_start
+from fastsk_tpu_torch.utils.observe import counters
 
 import oracle
 
@@ -53,11 +54,11 @@ def test_kernel_a_matches_plain_and_oracle(cuda, g, m, n, length, alpha):
     want = pairs.pairs_counts_plain(x, k=g - m, p_pad=eng.p_pad)
     oracle_counts = oracle.exact_counts(X, g, m)
     for body in ("dp4a", "mma"):
-        before = pairs_cuda.pairs_counts.launches, dict(pairs_cuda.pairs_counts.bodies)
+        before = counters()
         got = pairs_cuda.pairs_counts(x, g=g, k=g - m, p_pad=eng.p_pad, body=body)
         torch.cuda.synchronize()
-        assert pairs_cuda.pairs_counts.launches == before[0] + 1
-        assert pairs_cuda.pairs_counts.bodies[body] == before[1][body] + 1
+        assert counters()["pairs_counts.launches"] == before["pairs_counts.launches"] + 1
+        assert counters()[f"pairs_counts.bodies.{body}"] == before[f"pairs_counts.bodies.{body}"] + 1
         torch.testing.assert_close(got, want, rtol=0, atol=0)
         np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], oracle_counts)
 
@@ -89,9 +90,10 @@ def test_kernel_a_default_body_by_depth(cuda, g, m, alpha, n, length, layout):
     assert eng.alpha == alpha
     depth = pairs_cuda.mma_depth(g * alpha)
     assert pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth).layout == layout
-    before = dict(pairs_cuda.pairs_counts.bodies)
+    before = counters()
     got = eng.exact()
-    assert pairs_cuda.pairs_counts.bodies == {"mma": before["mma"] + 1, "dp4a": before["dp4a"]}
+    moved = counters() - before
+    assert (moved["pairs_counts.bodies.mma"], moved["pairs_counts.bodies.dp4a"]) == (1, 0)
     np.testing.assert_array_equal(got, oracle.exact_counts(X, g, m))
 
 
@@ -183,9 +185,9 @@ def test_kernel_b_matches_twin(cuda, n):
             torch.from_numpy(y).to(cuda), torch.from_numpy(c_mask).to(cuda),
             -torch.ones(n, device=cuda), torch.zeros(n, device=cuda),
         )
-        before = smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems
+        before = counters()["smo_solve.launches"], counters()["smo_solve.problems"]
         a_k, g_k, it_k = smo_cuda.smo_solve(Q, *args, 1e-3, max_iter)
-        assert (smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems) == (before[0] + 1, before[1] + 1)
+        assert (counters()["smo_solve.launches"], counters()["smo_solve.problems"]) == (before[0] + 1, before[1] + 1)
         assert smo_cuda.smo_smem_path(n, smo_cuda.smo_cluster_size())
         a_p, g_p, it_p = _twin(Q, *args[:2], args[2], args[3], max_iter)
         assert it_k == it_p
@@ -224,9 +226,9 @@ def test_kernel_b_batched_folds(cuda):
     for r, f in enumerate(stratified_kfold_indices(y, 5)):
         C[r, torch.as_tensor(f, device=cuda)] = 0.0
     a0 = torch.zeros((5, n), device=cuda)
-    before = smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems
+    before = counters()["smo_solve.launches"], counters()["smo_solve.problems"]
     a_b, g_b, it_b = smo_cuda.smo_solve(Q, yt, C, p, a0, 1e-3, 10**6)
-    assert (smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems) == (before[0] + 1, before[1] + 5)
+    assert (counters()["smo_solve.launches"], counters()["smo_solve.problems"]) == (before[0] + 1, before[1] + 5)
     assert a_b.shape == g_b.shape == (5, n) and len(it_b) == 5
     for r in range(5):
         a_s, g_s, it_s = smo_cuda.smo_solve(Q, yt, C[r].contiguous(), p, a0[r].contiguous(), 1e-3, 10**6)
@@ -275,9 +277,9 @@ def _nu_problem(kind, n, rng):
 def test_kernel_c_matches_twin(cuda, kind, n, max_iter):
     rng = np.random.default_rng(5)
     Q, y, C, p, a0 = (torch.from_numpy(v).to(cuda) for v in _nu_problem(kind, n, rng))
-    before = smo_cuda.smo_nu_solve.launches
+    before = counters()["smo_nu_solve.launches"]
     a_k, g_k, it_k = smo_cuda.smo_nu_solve(Q, y, C, p, a0, 1e-3, max_iter)
-    assert smo_cuda.smo_nu_solve.launches == before + 1
+    assert counters()["smo_nu_solve.launches"] == before + 1
     assert smo_cuda.smo_smem_path(n, smo_cuda.smo_cluster_size(), "C")
     grad0, qd = smo_cuda.initial_state(Q, p, a0)
     a_p, g_p, it_p = smo_cuda.smo_nu_loop_plain(Q, y, C, qd, a0, grad0, 1e-3, max_iter)
@@ -345,28 +347,28 @@ def test_kernels_d_e_g_match_plain_and_oracle(cuda, monkeypatch, X, g, m, tile):
         oracle_counts = oracle.exact_counts(X, g, m)
     np.testing.assert_array_equal(want.cpu().numpy(), oracle_counts[np.ix_(order, order)])
 
-    before = pairs_packed_cuda.packed_band.launches
+    before = counters()["packed_band.launches"]
     band = pairs_packed_cuda.packed_band(rows, k=k, n_out=eng.n)
     torch.cuda.synchronize()
-    assert pairs_packed_cuda.packed_band.launches == before + 1
+    assert counters()["packed_band.launches"] == before + 1
     torch.testing.assert_close(band, want, rtol=0, atol=0)
 
     ns = eng.n_strips
     pa = torch.repeat_interleave(torch.arange(ns), torch.arange(ns, 0, -1)).to(cuda, torch.int32)
     pb = torch.cat([torch.arange(a, ns) for a in range(ns)]).to(cuda, torch.int32)
-    before = pairs_packed_cuda.packed_pairlist.launches
+    before = counters()["packed_pairlist.launches"]
     parts = pairs_packed_cuda.packed_pairlist(rows, pa, pb, k=k)
     torch.cuda.synchronize()
-    assert pairs_packed_cuda.packed_pairlist.launches == before + 1
+    assert counters()["packed_pairlist.launches"] == before + 1
     parts_plain = pairs_packed.packed_pair_parts_plain(
         rows.onehot, rows.seq_of, rows.first_seq, pa.tolist(), pb.tolist(), k=k, tile=tile, c_pad=eng.c_pad
     )
     torch.testing.assert_close(parts, parts_plain, rtol=0, atol=0)
 
-    before = pairs_packed_cuda.packed_grouped.launches
+    before = counters()["packed_grouped.launches"]
     grp = pairs_packed_cuda.packed_grouped(rows, 0, 0, k=k, group=eng.group)
     torch.cuda.synchronize()
-    assert pairs_packed_cuda.packed_grouped.launches == before + 1
+    assert counters()["packed_grouped.launches"] == before + 1
     grp_plain = pairs_packed.packed_pair_parts_plain(
         rows.onehot, rows.seq_of, rows.first_seq, [0] * eng.group, range(eng.group),
         k=k, tile=tile, c_pad=eng.c_pad,
@@ -392,10 +394,10 @@ def test_kernel_d_bytes_body_above_depth(cuda, monkeypatch):
     want = pairs_packed.packed_counts_plain(
         rows.onehot, rows.seq_of, rows.first_seq, k=5, tile=256, c_pad=eng.c_pad, n_out=eng.n
     )
-    before = pairs_packed_cuda.packed_band.launches
+    before = counters()["packed_band.launches"]
     got = pairs_packed_cuda.packed_band(rows, k=5, n_out=eng.n)
     torch.cuda.synchronize()
-    assert pairs_packed_cuda.packed_band.launches == before + 1
+    assert counters()["packed_band.launches"] == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     np.testing.assert_array_equal(eng.exact(), oracle.exact_counts(X, 12, 7))
 
@@ -424,11 +426,11 @@ def test_kernel_e_landings_match_plain(cuda, monkeypatch, tile, kind):
     want = torch.zeros((m, m), dtype=torch.int64, device=cuda)
     fs = rows.first_seq.long()
     pairs_packed.land_parts(want, parts_plain, fs[pa.long()], fs[pb.long()], pb > pa)
-    before = pairs_packed_cuda.packed_pairlist.launches
+    before = counters()["packed_pairlist.launches"]
     parts = pairs_packed_cuda.packed_pairlist(rows, pa, pb, k=k)
     mat = pairs_packed_cuda.packed_pairlist(rows, pa, pb, k=k, out=torch.zeros_like(want))
     torch.cuda.synchronize()
-    assert pairs_packed_cuda.packed_pairlist.launches == before + 2
+    assert counters()["packed_pairlist.launches"] == before + 2
     torch.testing.assert_close(parts, parts_plain, rtol=0, atol=0)
     torch.testing.assert_close(mat, want, rtol=0, atol=0)
     if kind == "upper":
@@ -449,9 +451,9 @@ def test_kernel_e_route_is_one_launch(cuda, monkeypatch):
     landed = []
     land = pairs_packed.land_parts
     monkeypatch.setattr(pairs_packed, "land_parts", lambda *a: landed.append(1) or land(*a))
-    before = pairs_packed_cuda.packed_pairlist.launches
+    before = counters()["packed_pairlist.launches"]
     got = eng.exact()
-    assert pairs_packed_cuda.packed_pairlist.launches == before + 1 and not landed
+    assert counters()["packed_pairlist.launches"] == before + 1 and not landed
     eng.route = "band"
     np.testing.assert_array_equal(got, eng.exact())
     np.testing.assert_array_equal(got, oracle.exact_counts(X, 8, 4))
@@ -475,10 +477,10 @@ def test_bytes_body_every_width_matches_plain(cuda, monkeypatch, g, tile, alpha)
     want = pairs_packed.packed_counts_plain(
         rows.onehot, rows.seq_of, rows.first_seq, k=k, tile=tile, c_pad=eng.c_pad, n_out=eng.n
     )
-    before = pairs_packed_cuda.packed_band.launches
+    before = counters()["packed_band.launches"]
     band = pairs_packed_cuda.packed_band(rows, k=k, n_out=eng.n)
     torch.cuda.synchronize()
-    assert pairs_packed_cuda.packed_band.launches == before + 1
+    assert counters()["packed_band.launches"] == before + 1
     torch.testing.assert_close(band, want, rtol=0, atol=0)
 
     # F: every strip's triangle (they add up to D), and the rectangle of the
@@ -598,10 +600,10 @@ def test_kernel_f_matches_plain(cuda, monkeypatch, X, g, m, tile):
     rows = eng.rows()
     ns, k = eng.n_strips, g - m
     for a, b0, n_b in ((0, 0, ns), (ns // 2, ns // 2, ns - ns // 2), (ns - 1, 0, ns)):
-        before = pairs_packed_cuda.packed_s1.launches
+        before = counters()["packed_s1.launches"]
         got = pairs_packed_cuda.packed_s1(rows, a, rows, b0, n_b, k=k)
         torch.cuda.synchronize()
-        assert pairs_packed_cuda.packed_s1.launches == before + 1
+        assert counters()["packed_s1.launches"] == before + 1
         want = pairs_packed.packed_s1_plain(
             rows.onehot[a * tile : (a + 1) * tile], rows.seq_of[a * tile : (a + 1) * tile],
             rows.first_seq[a], rows.onehot[b0 * tile : (b0 + n_b) * tile],
@@ -645,7 +647,7 @@ def test_kernel_f_block_matches_plain(cuda, monkeypatch, tile, n, lmax, alpha):
     want_diag = pairs_packed.packed_block_plain(
         torch.zeros((blk_d, n_pad), dtype=torch.int64, device=cuda), rows, (d0, ns), **diag
     )
-    before = pairs_packed_cuda.packed_block.launches
+    before = counters()["packed_block.launches"]
     tri = torch.zeros_like(want_tri)
     for a in range(ns):
         one = pairs_packed_cuda.packed_block(torch.zeros_like(tri), rows, (a, a + 1), k=k)
@@ -660,7 +662,7 @@ def test_kernel_f_block_matches_plain(cuda, monkeypatch, tile, n, lmax, alpha):
         torch.zeros((blk_d, n_pad), dtype=torch.int64, device=cuda), rows, (d0, ns), **diag
     )
     torch.cuda.synchronize()
-    assert pairs_packed_cuda.packed_block.launches == before + ns + 2
+    assert counters()["packed_block.launches"] == before + ns + 2
     torch.testing.assert_close(tri, want_tri, rtol=0, atol=0)
     torch.testing.assert_close(got, want_rect, rtol=0, atol=0)
     torch.testing.assert_close(got_diag, want_diag, rtol=0, atol=0)
@@ -678,10 +680,10 @@ def test_kernel_g_groups_match_plain(cuda, monkeypatch, tile):
     for a in (0, group + 1, ns - 1):
         gidx = a // group
         n_groups = ns // group - gidx
-        before = pairs_packed_cuda.packed_grouped.launches
+        before = counters()["packed_grouped.launches"]
         got = pairs_packed_cuda.packed_grouped(rows, a, gidx, k=4, group=group, n_groups=n_groups)
         torch.cuda.synchronize()
-        assert pairs_packed_cuda.packed_grouped.launches == before + 1
+        assert counters()["packed_grouped.launches"] == before + 1
         want = pairs_packed.packed_pair_parts_plain(
             rows.onehot, rows.seq_of, rows.first_seq, [a] * (n_groups * group),
             range(gidx * group, ns), k=4, tile=tile, c_pad=eng.c_pad,
@@ -710,14 +712,14 @@ def test_mesh_routes_match_kernel_d(cuda, monkeypatch, shape, state):
     monkeypatch.setattr(pairs_packed_cuda, "packed_block_plain", refuse)
     mesh = make_mesh(*shape, devices=[cuda] * (shape[0] * shape[1]))
     eng = PackedPairsEngine(enc, 8, 4, KernelConfig(device=cuda, mesh=mesh, mesh_state=state))
-    before = pairs_packed_cuda.packed_block.launches, pairs_packed_cuda.packed_s1.launches
+    before = counters()["packed_block.launches"], counters()["packed_s1.launches"]
     got = eng.exact()
     ns, n_dev = eng.n_strips, mesh.size
     spd = -(-ns // n_dev)
     live = sum(d * spd < ns for d in range(n_dev))
     launches = live**2 if state == "sharded" else ns
-    assert pairs_packed_cuda.packed_block.launches == before[0] + launches
-    assert pairs_packed_cuda.packed_s1.launches == before[1]
+    assert counters()["packed_block.launches"] == before[0] + launches
+    assert counters()["packed_s1.launches"] == before[1]
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, oracle.exact_counts(X, 8, 4))
 
@@ -757,11 +759,11 @@ def test_kernel_h_variants_match_plain(cuda, monkeypatch, g, m, alpha, n, lmin, 
     kw = dict(g=g, k=g - m, p_pad=eng.p_pad)
     counts = oracle.exact_counts(X, g, m)
     for variant in pairs.PROBE_VARIANTS:
-        before = pairs_cuda.pairs_probe.launches
+        before = counters()["pairs_probe.launches"]
         got = pairs_cuda.pairs_probe(x, variant=variant, **kw)
         again = pairs_cuda.pairs_probe(x, variant=variant, **kw)
         torch.cuda.synchronize()
-        assert pairs_cuda.pairs_probe.launches == before + 2
+        assert counters()["pairs_probe.launches"] == before + 2
         torch.testing.assert_close(got, again, rtol=0, atol=0)
         want = pairs.pairs_probe_plain(x, k=g - m, p_pad=eng.p_pad, variant=variant, plan=plan)
         torch.testing.assert_close(got, want, rtol=0, atol=0)

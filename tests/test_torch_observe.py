@@ -2,7 +2,9 @@
 
 ``fastsk_tpu_torch/utils/observe.py`` (``Progress``, ``timed``,
 ``profiler_trace``, the ``profile_dir`` knob on seeded
-``compute_kernel`` runs) and ``utils/roofline.py`` (device classes on
+``compute_kernel`` runs; ``span`` and the counter registry: a shared no-op
+without a profiler, each stage of a traced exact and approx job nested
+where it belongs, kernel B's iterations counted) and ``utils/roofline.py`` (device classes on
 card names, ``mfu``, the bound helpers ``chip_smoke.py`` takes from it,
 and kernel A's and kernel D's work against brute-force counts of the
 port's tiles on seeded sequences; the JAX test of the same kind reads the
@@ -33,6 +35,8 @@ from fastsk_tpu_torch.ops.encode import encode_sequences
 from fastsk_tpu_torch.ops.pairs_cuda import mma_depth, padded_width, tile_sequences
 from fastsk_tpu_torch.ops.pairs_packed_cuda import ROW_TILE, code_planes
 from fastsk_tpu_torch.utils import roofline
+from fastsk_tpu_torch.svm import kernel_svm
+from fastsk_tpu_torch.utils import observe
 from fastsk_tpu_torch.utils.observe import Progress, profiler_trace, timed
 
 from conftest import random_ragged_seqs
@@ -95,6 +99,141 @@ def test_profile_dir_traces_a_seeded_compute_kernel(tmp_path, rng, capsys, engin
     assert len(_traces(tmp_path)) == 1
     err = capsys.readouterr().err
     assert "[fastsk +" in err and "pairs/s" in err
+
+
+# -------------------------------------------------------- spans, counters
+
+
+def _traced(fn, path):
+    """``fn()`` under a CPU ``torch.profiler``; the trace's annotations on
+    the calling thread as (name, start, end), by start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    prof.export_chrome_trace(str(path))
+    events = json.load(open(path))["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation" and "dur" in e]
+    tid = next(e["tid"] for e in spans if e["name"].startswith("job:"))
+    return sorted(((e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in spans if e["tid"] == tid), key=lambda s: (s[1], -s[2]))
+
+
+def _parents(spans):
+    """Each span's name with the name of the innermost span around it."""
+    out = []
+    for i, (name, a, b) in enumerate(spans):
+        around = [s for j, s in enumerate(spans) if j != i and s[1] <= a and b <= s[2]]
+        inner = min(around, key=lambda s: s[2] - s[1])[0] if around else None
+        out.append((name, inner))
+    return out
+
+
+def _job(fsk, X, y, ntr):
+    def run():
+        with torch.profiler.record_function("job:compute_kernel"):
+            fsk.compute_kernel(X[:ntr], X[ntr:], y[:ntr], y[ntr:])
+        with torch.profiler.record_function("job:fit"):
+            fsk.fit(C=1.0)
+        with torch.profiler.record_function("job:score"):
+            fsk.score("auc")
+    return run
+
+
+def test_span_without_a_profiler_is_one_shared_noop(rng):
+    assert observe.span("encode") is observe.span("count") is observe._OFF
+    X = random_ragged_seqs(rng, 16, 12, 20, 4)
+    y = np.array([0, 1] * 8)
+    before = observe.counters()
+    plain = FastSK(5, 2, config=KernelConfig(device="cpu", device_resident=True))
+    _job(plain, X, y, 12)()
+    assert not [k for k in observe.counters() - before if k.endswith((".span_s", ".spans"))]
+    fsk = FastSK(5, 2, config=KernelConfig(device="cpu", device_resident=True))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        _job(fsk, X, y, 12)()
+    np.testing.assert_array_equal(fsk.kernel_counts, plain.kernel_counts)
+    np.testing.assert_array_equal(fsk.kernel, plain.kernel)
+    moved = observe.counters() - before
+    assert moved["encode.spans"] == 1 and moved["encode.span_s"] > 0
+
+
+# the innermost span around each span of a traced exact job (the engines'
+# ``timed`` label around their staging and count kernel)
+EXACT_PARENTS = {
+    "pairs": {
+        ("fastsk:encode", "job:compute_kernel"), ("fastsk:engine.build", "job:compute_kernel"),
+        ("fastsk:pairs exact kernel", "job:compute_kernel"),
+        ("fastsk:engine.stage", "fastsk:pairs exact kernel"),
+        ("fastsk:count", "fastsk:pairs exact kernel"),
+        ("fastsk:normalize", "job:compute_kernel"),
+    },
+    "packed": {
+        ("fastsk:encode", "job:compute_kernel"), ("fastsk:engine.build", "job:compute_kernel"),
+        ("fastsk:packed pairs kernel", "job:compute_kernel"),
+        ("fastsk:engine.stage", "fastsk:packed pairs kernel"),
+        ("fastsk:count", "fastsk:packed pairs kernel"),
+        ("fastsk:engine.unsort", "fastsk:packed pairs kernel"),
+        ("fastsk:engine.unsort", "job:compute_kernel"),
+        ("fastsk:normalize", "job:compute_kernel"),
+    },
+}
+FIT_SCORE_PARENTS = {
+    ("fastsk:fit.gram", "job:fit"), ("fastsk:fit.solve", "job:fit"),
+    ("fastsk:fit.platt", "job:fit"), ("fastsk:smo.solve", "fastsk:fit.solve"),
+    ("fastsk:smo.solve", "fastsk:fit.platt"),
+    ("fastsk:score.gram", "job:score"), ("fastsk:score.predict", "job:score"),
+}
+
+
+@pytest.mark.parametrize("engine", ["pairs", "packed"])
+def test_a_traced_exact_job_names_each_stage_where_it_runs(tmp_path, rng, engine):
+    X = random_ragged_seqs(rng, 20, 14, 20 if engine == "pairs" else 60, 4)
+    y = np.array([0, 1] * 10)
+    cfg = KernelConfig(device="cpu", device_resident=True, exact_engine=engine)
+    spans = _traced(_job(FastSK(5, 2, config=cfg), X, y, 15), tmp_path / "t.json")
+    got = {p for p in _parents(spans) if p[0].startswith("fastsk:")}
+    assert got == EXACT_PARENTS[engine] | FIT_SCORE_PARENTS
+
+
+def test_a_traced_approx_job_names_its_batches_and_pulls(tmp_path, rng):
+    X = random_ragged_seqs(rng, 16, 14, 20, 4)
+    y = np.array([0, 1] * 8)
+    fsk = FastSK(6, 3, approx=True, max_iters=6, seed=3,
+                 config=KernelConfig(device="cpu", device_resident=True, theta_batch=2))
+    spans = _traced(_job(fsk, X, y, 12), tmp_path / "t.json")
+    parents = _parents(spans)
+    compute = {p for p in parents if p[1] == "job:compute_kernel"}
+    assert compute == {("fastsk:encode", "job:compute_kernel"),
+                       ("fastsk:engine.build", "job:compute_kernel"),
+                       ("fastsk:theta.batch", "job:compute_kernel"),
+                       ("fastsk:theta.pull", "job:compute_kernel"),
+                       ("fastsk:normalize", "job:compute_kernel")}
+    batches = [p for p in parents if p[0] == "fastsk:theta.batch"]
+    assert len(batches) == len([p for p in parents if p[0] == "fastsk:theta.pull"]) == 3
+    assert {p for p in parents if p[0].startswith("fastsk:") and p not in compute} == FIT_SCORE_PARENTS
+
+
+def test_smo_iterations_are_the_main_solve_and_the_longest_fold(rng, monkeypatch):
+    n = 60
+    X = rng.normal(size=(n, 8)).astype(np.float32)
+    y = np.where(X[:, 0] + 0.5 * rng.normal(size=n) > 0, 1, 0)
+    gram = torch.as_tensor(X @ X.T)
+    folds, real = [], kernel_svm.smo_solve
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if args[2].dim() == 2:
+            folds.append(out[2])
+        return out
+
+    monkeypatch.setattr(kernel_svm, "smo_solve", spy)
+    before = observe.counters()
+    model = kernel_svm.KernelSVC(C=1.0, probability=True).fit(gram, y)
+    moved = observe.counters() - before
+    assert len(folds) == 1 and len(folds[0]) == 5
+    assert moved["smo.iterations"] == model.iters_ + max(folds[0]) > model.iters_ > 0
 
 
 # ------------------------------------------------------------ roofline

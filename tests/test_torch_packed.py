@@ -20,6 +20,7 @@ from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine as JPacked
 from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngine
 from fastsk_tpu_torch.ops import pairs_packed, pairs_packed_cuda
 from fastsk_tpu_torch.ops.encode import encode_sequences
+from fastsk_tpu_torch.utils.observe import counters
 
 import oracle
 from conftest import random_ragged_seqs
@@ -238,17 +239,17 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch(rng, small_tile):
     eng = _port(random_ragged_seqs(rng, 5, 20, 90, alphabet=4), 6, 3)
     rows = eng.rows()
     before = (
-        pairs_packed_cuda.packed_band.launches,
-        pairs_packed_cuda.packed_pairlist.launches,
-        pairs_packed_cuda.packed_grouped.launches,
+        counters()["packed_band.launches"],
+        counters()["packed_pairlist.launches"],
+        counters()["packed_grouped.launches"],
     )
     pairs_packed_cuda.packed_band(rows, k=3, n_out=eng.n)
     pairs_packed_cuda.packed_pairlist(rows, torch.tensor([0]), torch.tensor([1]), k=3)
     pairs_packed_cuda.packed_grouped(rows, 0, 0, k=3, group=2)
     after = (
-        pairs_packed_cuda.packed_band.launches,
-        pairs_packed_cuda.packed_pairlist.launches,
-        pairs_packed_cuda.packed_grouped.launches,
+        counters()["packed_band.launches"],
+        counters()["packed_pairlist.launches"],
+        counters()["packed_grouped.launches"],
     )
     assert after == before  # CPU path: no launch
     with pytest.raises(ValueError, match="k <= g"):
@@ -425,10 +426,10 @@ def test_kernel_e_matrix_landing_model(rng, monkeypatch, tile, kind):
         order = eng.order
         np.testing.assert_array_equal(got[: eng.n, : eng.n],
                                       oracle.exact_counts(X, 7, 3)[np.ix_(order, order)])
-    before = pairs_packed_cuda.packed_pairlist.launches
+    before = counters()["packed_pairlist.launches"]
     out = torch.zeros((m, m), dtype=torch.int64)
     assert pairs_packed_cuda.packed_pairlist(rows, pa_t, pb_t, k=eng.k, out=out) is out
-    assert pairs_packed_cuda.packed_pairlist.launches == before  # CPU path: no launch
+    assert counters()["packed_pairlist.launches"] == before  # CPU path: no launch
     np.testing.assert_array_equal(out.numpy(), got)
     with pytest.raises(ValueError, match="int64"):
         pairs_packed_cuda.packed_pairlist(rows, pa_t, pb_t, k=eng.k, out=out.int())
@@ -569,9 +570,9 @@ def test_packed_band_on_cpu_takes_the_plain_version(monkeypatch):
     X = [rng.integers(1, 6, size=int(rng.integers(8, 60))).tolist() for _ in range(9)]
     eng = PackedPairsEngine(encode_sequences(X), 5, 2, T.KernelConfig(device="cpu"))
     rows = eng.rows()
-    before = pc.packed_band.launches
+    before = counters()["packed_band.launches"]
     got = pc.packed_band(rows, k=3, n_out=eng.n)
-    assert pc.packed_band.launches == before
+    assert counters()["packed_band.launches"] == before
     pos = np.argsort(eng.order)
     np.testing.assert_array_equal(got.numpy()[np.ix_(pos, pos)], oracle.exact_counts(X, 5, 2))
 

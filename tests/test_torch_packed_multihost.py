@@ -58,7 +58,7 @@ from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine
 from fastsk_tpu_torch.ops import pairs_packed_cuda
 from fastsk_tpu_torch.ops.encode import encode_sequences
 from fastsk_tpu_torch.parallel import multihost
-from fastsk_tpu_torch.parallel import sharding as shd
+from fastsk_tpu_torch.utils.observe import counters, reset_counters
 
 coord, pid, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 spec = json.loads(sys.argv[4])
@@ -86,13 +86,14 @@ for name, (rows, theta, per) in spec["meshes"].items():
     for state in spec["states"]:
         for data, X in spec["sets"].items():
             calls.clear()
-            shd.ring_shift.sent_bytes = shd.reduce_across.bytes = 0
+            reset_counters()
             fsk = FastSK(g, m, config=KernelConfig(device="cpu", mesh=mesh, mesh_state=state,
                                                    exact_engine="packed"))
             fsk.compute_train(X)
             res[name][f"{state} {data}"] = dict(
                 counts=fsk.kernel_counts.tolist(), calls=list(calls),
-                ring_bytes=shd.ring_shift.sent_bytes, merge_bytes=shd.reduce_across.bytes,
+                ring_bytes=counters()["ring_shift.sent_bytes"],
+                merge_bytes=counters()["reduce_across.bytes"],
             )
     Xtr, Xte, ytr, yte = spec["uniform"]
     fsk = FastSK(g, m, config=KernelConfig(device="cpu", mesh=mesh))

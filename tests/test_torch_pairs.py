@@ -25,6 +25,7 @@ from fastsk_tpu.ops.pairs import onehot_windows as j_onehot_windows
 from fastsk_tpu_torch.kernel.pairs_engine import PairsGkmEngine
 from fastsk_tpu_torch.ops import pairs, pairs_cuda
 from fastsk_tpu_torch.ops.encode import encode_sequences
+from fastsk_tpu_torch.utils.observe import counters
 
 import oracle
 from conftest import random_ragged_seqs
@@ -138,9 +139,9 @@ def test_kernel_a_wrapper_checks_inputs():
         pairs_cuda.pairs_counts(x[:, ::2], g=4, k=2, p_pad=8)
     with pytest.raises(ValueError, match="k <= g"):
         pairs_cuda.pairs_counts(x, g=4, k=0, p_pad=8)
-    before = pairs_cuda.pairs_counts.launches
+    before = counters()["pairs_counts.launches"]
     pairs_cuda.pairs_counts(x, g=4, k=2, p_pad=8)
-    assert pairs_cuda.pairs_counts.launches == before  # CPU path: no launch
+    assert counters()["pairs_counts.launches"] == before  # CPU path: no launch
 
 
 @pytest.mark.parametrize(
@@ -212,15 +213,15 @@ def test_kernel_a_body_argument_checked_and_cpu_plain():
     x = torch.zeros((16, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="body"):
         pairs_cuda.pairs_counts(x, g=4, k=2, p_pad=8, body="wgmma")
-    before = dict(pairs_cuda.pairs_counts.bodies)
+    before = counters()
     for body in ("mma", "dp4a", None):
         pairs_cuda.pairs_counts(x, g=4, k=2, p_pad=8, body=body)
-    assert pairs_cuda.pairs_counts.bodies == before  # CPU path: no launch
+    assert counters() == before  # CPU path: no launch
     # kernel H's variants of the same body: the plain versions on the CPU
-    before = pairs_cuda.pairs_probe.launches
+    before = counters()["pairs_probe.launches"]
     current = pairs_cuda.pairs_probe(x, g=4, k=2, p_pad=8, variant="current")
     torch.testing.assert_close(current, pairs_cuda.pairs_counts(x, g=4, k=2, p_pad=8), rtol=0, atol=0)
-    assert pairs_cuda.pairs_probe.launches == before
+    assert counters()["pairs_probe.launches"] == before
 
 
 def _load_tri(path):

@@ -22,6 +22,7 @@ from fastsk_tpu.kernel.pairs_engine import PairsGkmEngine as JPairsGkmEngine
 from fastsk_tpu_torch.kernel.pairs_engine import PairsGkmEngine
 from fastsk_tpu_torch.ops import pairs, pairs_cuda
 from fastsk_tpu_torch.ops.encode import encode_sequences
+from fastsk_tpu_torch.utils.observe import counters
 
 CPU = T.KernelConfig(device="cpu")
 
@@ -174,8 +175,8 @@ def test_cpu_wrapper_follows_the_plan(name):
     X, enc, g, m, want = _set(name)
     eng = PairsGkmEngine(enc, g, m, CPU)
     x = eng._build_x()
-    before = pairs_cuda.pairs_counts.launches, dict(pairs_cuda.pairs_counts.bodies)
+    before = counters()
     for body in (None, "dp4a"):
         got = pairs_cuda.pairs_counts(x, g=g, k=g - m, p_pad=eng.p_pad, body=body)
         np.testing.assert_array_equal(got[: eng.n, : eng.n].numpy(), want)
-    assert (pairs_cuda.pairs_counts.launches, pairs_cuda.pairs_counts.bodies) == before
+    assert counters() == before

@@ -32,6 +32,7 @@ from fastsk_tpu_torch.ops import pairs, pairs_cuda, pairs_packed, pairs_packed_c
 from fastsk_tpu_torch.ops.encode import encode_sequences
 from fastsk_tpu_torch.parallel import default_mesh_shape, make_mesh
 from fastsk_tpu_torch.parallel import sharding as shd
+from fastsk_tpu_torch.utils.observe import counters
 
 import oracle
 from conftest import random_ragged_seqs
@@ -231,9 +232,9 @@ def test_kernel_f_wrapper_checks_inputs(rng, small_tile):
         T.KernelConfig(**CPU),
     )
     rows = eng.rows()
-    before = pairs_packed_cuda.packed_s1.launches
+    before = counters()["packed_s1.launches"]
     pairs_packed_cuda.packed_s1(rows, 0, rows, 0, eng.n_strips, k=3)
-    assert pairs_packed_cuda.packed_s1.launches == before  # CPU path: no launch
+    assert counters()["packed_s1.launches"] == before  # CPU path: no launch
     with pytest.raises(ValueError, match="out of range"):
         pairs_packed_cuda.packed_s1(rows, 0, rows, 1, eng.n_strips, k=3)
     with pytest.raises(ValueError, match="k <= g"):
@@ -326,10 +327,10 @@ def test_kernel_f_block_wrapper_checks_inputs(rng, small_tile):
     rows, ns = eng.rows(), eng.n_strips
     out = torch.zeros((eng.n + eng.c_pad,) * 2, dtype=torch.int64)
     pc = pairs_packed_cuda
-    before = pc.packed_block.launches
+    before = counters()["packed_block.launches"]
     pc.packed_block(out, rows, (0, ns), k=3)
     pc.packed_block(out, rows, (0, 1), k=3, rows_j=rows, strips_j=(0, ns))
-    assert pc.packed_block.launches == before  # CPU path: no launch
+    assert counters()["packed_block.launches"] == before  # CPU path: no launch
     with pytest.raises(ValueError, match="come together"):
         pc.packed_block(out, rows, (0, 1), k=3, rows_j=rows)
     with pytest.raises(ValueError, match="must start at its rows"):
@@ -360,10 +361,10 @@ def test_kernel_g_wrapper_checks_groups(rng, small_tile):
     rows, group = eng.rows(), eng.group
     pc = pairs_packed_cuda
     assert eng.n_strips == 2 * group and rows.tile == 64  # narrower than a 128-row tile
-    before = pc.packed_grouped.launches
+    before = counters()["packed_grouped.launches"]
     both = pc.packed_grouped(rows, 3, 0, k=3, group=group, n_groups=2)
     assert both.shape == (2 * group, eng.c_pad, eng.c_pad)
-    assert pc.packed_grouped.launches == before
+    assert counters()["packed_grouped.launches"] == before
     second = pc.packed_grouped(rows, 3, 1, k=3, group=group)
     np.testing.assert_array_equal(both[group:].numpy(), second.numpy())
     with pytest.raises(ValueError, match="outside"):
@@ -562,7 +563,7 @@ def test_probe_wrapper_variants_on_cpu(rng, monkeypatch, layout):
     kw = dict(g=5, k=3, p_pad=eng.p_pad)
     want = oracle.exact_counts(X, 5, 2)
     np.testing.assert_array_equal(want, JPairs(encode_sequences(X), 5, 2).exact())
-    before = pairs_cuda.pairs_probe.launches
+    before = counters()["pairs_probe.launches"]
     for variant in pairs.PROBE_VARIANTS:
         got = pairs_cuda.pairs_probe(x, variant=variant, **kw)
         assert got.dtype == torch.int32 and got.shape == (eng.n_pad, eng.n_pad)
@@ -575,7 +576,7 @@ def test_probe_wrapper_variants_on_cpu(rng, monkeypatch, layout):
                 x, k=3, p_pad=eng.p_pad, variant=variant, plan=H_PLANS[layout]
             )
             np.testing.assert_array_equal(got.numpy(), plain.numpy())
-    assert pairs_cuda.pairs_probe.launches == before
+    assert counters()["pairs_probe.launches"] == before
     with pytest.raises(ValueError, match="unknown probe variant"):
         pairs_cuda.pairs_probe(x, variant="fast", **kw)
     with pytest.raises(ValueError, match="exceed int32"):

@@ -21,6 +21,7 @@ from fastsk_tpu.svm.kernel_svm import _smo_solve_general as j_smo_general
 from fastsk_tpu.svm.smo_pallas import smo_solve_fused
 from fastsk_tpu_torch.svm import smo_cuda
 from fastsk_tpu_torch.svm.kernel_svm import KernelSVC, _smo_solve_general
+from fastsk_tpu_torch.utils.observe import counters
 
 
 def _problem(rng, n=40):
@@ -102,9 +103,9 @@ def test_wrapper_takes_twin_on_cpu_and_checks_inputs(rng):
     n = len(y)
     Q = torch.from_numpy(K * np.outer(y, y))
     args = (torch.from_numpy(y), torch.ones(n), -torch.ones(n), torch.zeros(n))
-    before = smo_cuda.smo_solve.launches
+    before = counters()["smo_solve.launches"]
     a, g, it = smo_cuda.smo_solve(Q, *args, 1e-3, 100000)
-    assert smo_cuda.smo_solve.launches == before
+    assert counters()["smo_solve.launches"] == before
     qd = torch.diagonal(Q).contiguous()
     a2, g2, it2 = smo_cuda.smo_loop_plain(
         Q, args[0], args[1], qd, args[3], -torch.ones(n), 1e-3, 100000
@@ -218,9 +219,9 @@ def test_batched_wrapper_equals_single_solves(rng):
     yt, p = torch.from_numpy(y), -torch.ones(n)
     C = torch.from_numpy(_fold_masks(y))
     a0 = torch.zeros(5, n)
-    before = smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems
+    before = counters()["smo_solve.launches"], counters()["smo_solve.problems"]
     a_b, g_b, it_b = smo_cuda.smo_solve(Q, yt, C, p, a0, 1e-3, 100000)
-    assert (smo_cuda.smo_solve.launches, smo_cuda.smo_solve.problems) == before
+    assert (counters()["smo_solve.launches"], counters()["smo_solve.problems"]) == before
     assert a_b.shape == g_b.shape == (5, n) and len(it_b) == 5
     for r in range(5):
         a_s, g_s, it_s = smo_cuda.smo_solve(Q, yt, C[r].contiguous(), p, a0[r].contiguous(), 1e-3, 100000)

@@ -36,6 +36,7 @@ from fastsk_tpu_torch.svm import kernel_svm as tk
 from fastsk_tpu_torch.svm import libsvm_io as tio
 from fastsk_tpu_torch.svm import ovo as tovo
 from fastsk_tpu_torch.svm import smo_cuda
+from fastsk_tpu_torch.utils.observe import counters
 
 # The model-level tests solve to this stopping tolerance: their RBF Grams
 # are full rank, so the optimum is unique, and near it the packages' few-ulp
@@ -101,9 +102,9 @@ def test_nu_twin_matches_jax_solvers(rng, kind):
 
 def test_nu_wrapper_takes_twin_on_cpu_and_checks_inputs(rng):
     Q, y, C, p, a0 = (torch.from_numpy(np.ascontiguousarray(v)) for v in _nu_problem(rng, "nu_svc"))
-    before = smo_cuda.smo_nu_solve.launches
+    before = counters()["smo_nu_solve.launches"]
     a, g, it = smo_cuda.smo_nu_solve(Q, y, C, p, a0, 1e-3, 100000)
-    assert smo_cuda.smo_nu_solve.launches == before
+    assert counters()["smo_nu_solve.launches"] == before
     grad0, qd = smo_cuda.initial_state(Q, p, a0)
     a2, g2, it2 = smo_cuda.smo_nu_loop_plain(Q, y, C, qd, a0, grad0, 1e-3, 100000)
     assert it == it2
