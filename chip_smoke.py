@@ -22,11 +22,13 @@ raises and the exit code is non-zero:
           equal. Then the KAT2B counts through kernel D
           (exact_engine="packed"), timed, equal to kernel A's; and both
           bodies timed on seeded 1000 x 200 sets at g=8 over 16, 24, 40,
-          48 and 56 letters (one-hot depths 128 to 448 bytes, the deepest
-          whose resident tensor-core tile fits), equal. Then three seeded
-          uniform sets past the resident tile (STREAM_SETS: DNA 512 x
-          4,007 at g8 m4, the windows layout, where the dp4a body ran
-          before; 21 letters 1,024 x 1,307 at g8 m4, windows; 60 letters
+          48 and 56 letters (one-hot rows of 128 to 448 bytes: resident
+          tiles of 8, 4, 2, 1 and 1 sequences, the last with a ring of
+          two), equal. Then five seeded uniform sets (STREAM_SETS: DNA
+          512 x 4,007 at g8 m4, one sequence a tile in the resident
+          layout, where the dp4a body ran before; 21 letters 1,024 x
+          1,307 at g8 m4, likewise; 21 letters 256 x 2,000 at g8 m4, past
+          one sequence's resident tile: the windows layout; 60 letters
           2,048 x 300 at g10 m4, a 600-byte one-hot row, the depth
           layout; 130 letters 1,024 x 300 at g12 m6, a 1,560-byte row,
           the slabs layout): FastSK.compute_kernel
@@ -155,10 +157,11 @@ raises and the exit code is non-zero:
           line says it was skipped.
 16. probe   kernel H (csrc/pairs.cu: noop, loads, matmul, skeleton,
           no_mma, current and int32, variants of kernel A's tensor-core
-          body) at six of phase 3's sets, each in the layout mma_plan
-          must give it (PROBE_SETS: KAT2B and 7230 x 200 g16 m10
-          resident, DNA 512 x 4,007 and 21 letters windows, 60 letters
-          depth, 130 letters slabs), best of 3 each, the counter zeroed
+          body) at seven of phase 3's sets, each in the layout mma_plan
+          must give it (PROBE_SETS: KAT2B, 7230 x 200 g16 m10,
+          DNA 512 x 4,007 and 21 letters 1,024 x 1,307 resident, 21
+          letters 256 x 2,000 windows, 60 letters depth, 130 letters
+          slabs), best of 3 each, the counter zeroed
           before: every variant equal to its plain version (current and
           int32 to phase 3's plain counts), the same checksum in every
           repetition, launches = sets x variants x reps; each set's split
@@ -545,11 +548,11 @@ def jax_exact_engine(enc, g: int, m: int) -> str:
     return "PairsGkmEngine"
 
 
-# phase 3's sets past kernel A's resident tile: name, seed, sequences,
-# length, letters, g, m
+# phase 3's sets beside KAT2B: name, seed, sequences, length, letters, g, m
 STREAM_SETS = (
     ("dna512x4007", 41, 512, 4007, 4, 8, 4),
     ("l21_1024x1307", 42, 1024, 1307, 21, 8, 4),
+    ("l21_256x2000", 45, 256, 2000, 21, 8, 4),  # 8 paired chunks a sequence: the windows layout
     ("l60_2048x300", 43, 2048, 300, 60, 10, 4),
     ("l130_1024x300", 44, 1024, 300, 130, 12, 6),  # 1,560-byte rows: the slabs layout
 )
@@ -588,8 +591,7 @@ def stream_sets_phase(dev, sets=STREAM_SETS, keep=None) -> dict:
 
         eng = PairsGkmEngine(enc, g, m, KernelConfig(device=dev))
         x = eng._build_x()
-        depth = pairs_cuda.mma_depth(x.shape[1])
-        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
+        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, x.shape[1], g)
         want, plain_ms = cuda_ms(pairs.pairs_counts_plain, x, k=k, p_pad=eng.p_pad)
         run_a(x, g=g, k=k, p_pad=eng.p_pad)
         got, a_ms = cuda_ms(run_a, x, g=g, k=k, p_pad=eng.p_pad)
@@ -646,9 +648,10 @@ def probe_case(x, g: int, k: int, p_pad: int, want, windows: int, width: int) ->
 def pairs_body_sweep(dev, n: int = 1000, length: int = 200, alphas=(16, 24, 40, 48, 56)) -> dict:
     """Part of phase 3: kernel A's two bodies on seeded sets of ``n``
     sequences of ``length`` letters at g=8, m=4 over each of ``alphas``
-    letters (one-hot depths 128, 192, 320, 384 and 448 bytes, 448 the
-    deepest whose tensor-core tile fits at p_pad = 200; KAT2B and the
-    g=16 set give 64), each warmed up then timed, integer-equal."""
+    letters (one-hot rows of 128, 192, 320, 384 and 448 bytes: the
+    tensor-core body's resident layout at p_pad = 200, tiles of 8, 4, 2, 1
+    and 1 sequences, the last beside a ring of two), each warmed up then
+    timed, integer-equal."""
     from fastsk_tpu_torch import KernelConfig
     from fastsk_tpu_torch.kernel.pairs_engine import PairsGkmEngine
     from fastsk_tpu_torch.ops import pairs_cuda
@@ -664,11 +667,11 @@ def pairs_body_sweep(dev, n: int = 1000, length: int = 200, alphas=(16, 24, 40, 
         for body in ("mma", "dp4a"):
             run_a(x, g=8, k=4, p_pad=eng.p_pad, body=body)
             got[body], ms[body] = cuda_ms(run_a, x, g=8, k=4, p_pad=eng.p_pad, body=body)
-        depth = pairs_cuda.mma_depth(x.shape[1])
-        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
+        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, x.shape[1], 8)
         sweep[alpha] = dict(
-            depth=depth, alpha=eng.alpha, layout=plan.layout,
-            mma_ms=ms["mma"], dp4a_ms=ms["dp4a"], tile_mma=plan.tile,
+            depth=plan.slab if plan.layout in ("resident", "windows") else
+            pairs_cuda.mma_depth(x.shape[1]), alpha=eng.alpha, layout=plan.layout,
+            mma_ms=ms["mma"], dp4a_ms=ms["dp4a"], tile_mma=plan.tile, stages=plan.stages,
             equal=bool(torch.equal(got["mma"], got["dp4a"])),
         )
         del eng, x, got
@@ -2416,8 +2419,9 @@ def mesh_phase(dev, full=(2564, 16, 905)) -> dict:
 PROBE_SETS = (
     ("KAT2B", "resident"),
     ("dna7230x200", "resident"),
-    ("dna512x4007", "windows"),
-    ("l21_1024x1307", "windows"),
+    ("dna512x4007", "resident"),
+    ("l21_1024x1307", "resident"),
+    ("l21_256x2000", "windows"),
     ("l60_2048x300", "depth"),
     ("l130_1024x300", "slabs"),
 )
@@ -2911,8 +2915,8 @@ def main() -> None:
                 kat2b_counts = got[: eng.n, : eng.n].clone()
             del got
         default_key = "mma"
-        depth = pairs_cuda.mma_depth(x.shape[1])
-        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
+        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, x.shape[1], g)
+        depth = plan.slab
         emit(
             "pairs", shape=name, n=eng.n, p_pad=eng.p_pad, width=x.shape[1], depth_mma=depth,
             body=default_key, layout=plan.layout,
@@ -3171,7 +3175,7 @@ def main() -> None:
             {
                 # the top-level numbers are the `current` variant's at KAT2B;
                 # `sets` has each set's layout, split and variants. Every
-                # variant is an instantiation of pairs_mma_kernel (resident,
+                # variant is an instantiation of pairs_ws_kernel (resident,
                 # windows) or pairs_mma_deep_kernel (depth, slabs); the
                 # library has no dp4a probe entry point
                 "name": "pairs_probe", "route": "cuda",
@@ -3189,7 +3193,7 @@ def main() -> None:
                 "library_ms": None,
                 "variants": list(pairs.PROBE_VARIANTS),
                 "kernels": {
-                    layout: ("pairs_mma_kernel" if layout in ("resident", "windows")
+                    layout: ("pairs_ws_kernel" if layout in ("resident", "windows")
                              else "pairs_mma_deep_kernel")
                     for layout in pairs_cuda.MMA_LAYOUTS
                 },

@@ -118,7 +118,7 @@ def kernels() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pairs_counts_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
         lib.pairs_counts_launch.restype = ci
-        lib.pairs_mma_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.pairs_mma_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.pairs_mma_launch.restype = ci
         lib.smo_solve_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, cf, ci, ci, vp

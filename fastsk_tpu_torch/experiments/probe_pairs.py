@@ -51,7 +51,7 @@ from ..kernel.config import KernelConfig
 from ..kernel.pairs_engine import PairsGkmEngine
 from ..ops.encode import encode_sequences
 from ..ops.pairs import PROBE_VARIANTS, pairs_probe_plain
-from ..ops.pairs_cuda import mma_depth, mma_plan, pairs_probe
+from ..ops.pairs_cuda import mma_plan, pairs_probe
 
 SPLITS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -124,7 +124,7 @@ def run_probe(
     ``pairs_counts_plain(x)`` where the caller has it (``current`` and
     ``int32`` are held to it; else to their plain versions). Returns
     {"layout", "plan", "variants": {variant: fields}, "split"}."""
-    plan = mma_plan(x.shape[0] // p_pad, p_pad, mma_depth(x.shape[1]))
+    plan = mma_plan(x.shape[0] // p_pad, p_pad, x.shape[1], g)
     results = {}
     for variant in variants:
         sums, times = [], []
@@ -140,7 +140,7 @@ def run_probe(
         if variant in ("current", "int32") and counts_plain is not None:
             want = counts_plain
         else:
-            want = pairs_probe_plain(x, k=k, p_pad=p_pad, variant=variant, plan=plan)
+            want = pairs_probe_plain(x, k=k, p_pad=p_pad, variant=variant, plan=plan, g=g)
         err = int((first.long() - want.long()).abs().max())
         del first, want
         results[variant] = dict(

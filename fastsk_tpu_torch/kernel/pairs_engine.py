@@ -47,7 +47,7 @@ import torch
 
 from ..ops import pairs, pairs_packed
 from ..ops.encode import EncodedSeqs
-from ..ops.pairs_cuda import mma_depth, mma_plan, pairs_counts
+from ..ops.pairs_cuda import mma_plan, pairs_counts
 from ..ops.pairs_packed_cuda import (
     PackedRows, packed_band, packed_grouped, packed_pairlist,
 )
@@ -104,7 +104,7 @@ class PairsGkmEngine:
         # kernel A tiles up to 8 sequences a side; padding sequences have
         # no valid windows and count 0
         self.n_pad = _next_multiple(self.n, 8)
-        mma_plan(self.n_pad, self.p_pad, mma_depth(g * self.alpha))
+        mma_plan(self.n_pad, self.p_pad, g * self.alpha, g)
 
     def _build_x(self) -> torch.Tensor:
         """One-hot windows ``[n_pad * p_pad, g * alpha]`` int8 on the device."""

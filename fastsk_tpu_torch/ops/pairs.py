@@ -130,7 +130,8 @@ def pairs_counts_plain(
 def _counts_as_planned(x, k, p_pad, plan, weight, strip_rows):
     """Kernel A's partition of the count sums: a block a tile pair
     ``bi <= bj`` (``plan.tile`` sequences a side) and a range of
-    ``plan.range_chunks`` 128-row j chunks of tile bj; its match counts
+    ``plan.range_chunks`` 128-row j chunks of tile bj (of paired rows, two
+    windows a row, in the resident and windows layouts); its match counts
     summed over ``plan.slab``-byte k-slabs, weighed once, summed into int32
     per-sequence bins; the bins added into a zeroed int32 matrix at
     ``K[i, j]`` and, off the diagonal tile, at ``K[j, i]``. Strips of
@@ -139,7 +140,9 @@ def _counts_as_planned(x, k, p_pad, plan, weight, strip_rows):
     s = plan.tile
     rows = s * p_pad  # a tile's window rows
     nt = n_pad // s
-    span = plan.range_chunks * 128  # j rows a range
+    # j windows a range (a paired row holds two; one sequence a tile
+    # wherever there are several ranges, so its re-padding is at its end)
+    span = plan.range_chunks * (256 if plan.layout in ("resident", "windows") else 128)
     ct = max(1, strip_rows // rows)  # tiles a strip
     xf = x.to(torch.float32).reshape(nt, rows, -1)
     f = xf.shape[-1]
@@ -199,6 +202,7 @@ def pairs_probe_plain(
     p_pad: int,
     variant: str,
     plan,
+    g: int = 0,
 ) -> torch.Tensor:
     """What each of kernel H's variants writes, ``[n_pad, n_pad]`` int32,
     under ``plan`` (``ops/pairs_cuda.py:mma_plan``'s ``MmaPlan``):
@@ -208,7 +212,9 @@ def pairs_probe_plain(
       counts (``sum_{p, q} <x_ip, x_jq>`` over its sequences) at its corner
       entry ``K[bi s, bj s]`` and the mirror, modulo 2^32 as int32 (the
       kernel's int32 sums): the same whatever ranges of j chunks the plan
-      splits the pair into;
+      splits the pair into. In the resident and windows layouts the sums
+      of pair indices instead, ``(g + 1) d0 + d1`` over the even and odd
+      windows q of the resident tile, the lower of the two (``g`` needed);
     - skeleton: ``S S^T`` with ``S_i = sum_p x_ip``, the match counts
       summed with weight d (modulo 2^32 likewise);
     - current: kernel A's counts; int32: the same through
@@ -222,7 +228,15 @@ def pairs_probe_plain(
         # the one-hot sums of each tile (or sequence): S_a . S_b sums the
         # match counts of a tile pair; exact in f64 (sums < 2^53)
         sums = x.reshape(n_pad // s, s * p_pad, -1).sum(1, dtype=torch.float64)
-        prod = (sums @ sums.T).round().to(torch.int64).to(torch.int32)
+        other = sums
+        if variant == "matmul" and plan.layout in ("resident", "windows"):
+            if g < 1:
+                raise ValueError("the paired layouts' matmul needs g")
+            win = x.reshape(n_pad // s, s, p_pad, -1).to(torch.float64)
+            other = (g + 1) * win[:, :, 0::2].sum((1, 2)) + win[:, :, 1::2].sum((1, 2))
+        prod = sums @ other.T  # [streamed tile, resident tile]
+        lower = torch.ones_like(prod, dtype=torch.bool).tril()
+        prod = torch.where(lower, prod, prod.T).round().to(torch.int64).to(torch.int32)
         if variant == "skeleton":
             return prod
         out = torch.zeros((n_pad, n_pad), dtype=torch.int32, device=x.device)

@@ -8,8 +8,11 @@ the int8 tensor cores at every shape, in one of four layouts that
 ``mma_plan`` picks from the shape (``MmaPlan``); ``body="dp4a"`` runs the
 ``__dp4a`` body (``pairs_kernel``) instead, where its tile fits (the
 phase-3 body sweep of ``chip_smoke.py``), and the counters
-``pairs_counts.launches`` and ``pairs_counts.bodies.<body>``
-(``utils/observe.py``) count its launches and each body's. ``pairs_probe`` (kernel H) runs one of the
+``pairs_counts.launches``, ``pairs_counts.bodies.<body>`` and
+``pairs_counts.layouts.<layout>`` (``utils/observe.py``; the tensor-core
+body's layout, "resident" and "windows" being its persistent loop,
+``pairs_ws_kernel``) count its launches, each body's and each layout's.
+``pairs_probe`` (kernel H) runs one of the
 cost-attribution variants of the tensor-core body
 (``experiments/probe_pairs.py:make_kernel``) on the same operands, in the
 layout kernel A takes. A CPU tensor takes the plain version
@@ -67,16 +70,26 @@ def mma_depth(f: int) -> int:
     return -(-f // 64) * 64
 
 
+def ws_depth(f: int) -> int:
+    """Bytes a one-hot row of ``f`` bytes takes in the resident and windows
+    layouts: ``f`` rounded up to 32 (one k-step of the int8 wgmma); the
+    padding bytes are zero and add no matches."""
+    return -(-f // 32) * 32
+
+
 MMA_CHUNK = 128  # window rows of a chunk
 MMA_SLAB = 64  # bytes of a k-slab in the depth and slabs layouts
 MMA_LAYOUTS = ("resident", "windows", "depth", "slabs")  # in the order of the C entry point
+MMA_EPILOGUES = ("one", "two", "runs")  # pairs_ws_kernel's, in the order of the C entry point
 # the depth layout's ring: 4 i slabs; the slabs layout's: 6 slab pairs
 # (csrc/pairs.cu:Ring); each 1 KB aligned in shared memory
 _DEPTH_RING_BYTES = 1024 + 4 * MMA_CHUNK * MMA_SLAB
 _SLABS_RING_BYTES = 1024 + 6 * 2 * MMA_CHUNK * MMA_SLAB
-_BLOCK_BYTES = 113 * 1024  # a block's share when two fit an SM
-_WINDOWS_MIN_CHUNKS = 4  # the windows layout takes two blocks an SM from 4 j chunks each
 _DEEP_BLOCKS = 8 * 132  # depth and slabs split tile pairs into ranges up to 8 blocks an SM
+_SMS = 132  # the H100's SMs: the resident and windows layouts' grid, one block each
+_WS_STAGES = (3, 4)  # the fewest and the most i chunks in their ring
+_WS_LAST_STAGES = 2  # one sequence a tile's fewest, where 3 leave no room for a chunk
+_WS_TILE_ROWS = 2048  # a resident tile of several sequences holds at most 16 i chunks
 
 
 class MmaPlan(NamedTuple):
@@ -84,75 +97,159 @@ class MmaPlan(NamedTuple):
 
     layout: str  # "resident", "windows", "depth" or "slabs"
     tile: int  # sequences a tile side
-    range_chunks: int  # 128-row j chunks a block holds or walks (all of a tile's, resident)
-    ranges: int  # blocks a tile pair
-    slab: int  # bytes of depth a step multiplies (the whole depth but in "depth", "slabs")
+    range_chunks: int  # 128-row j chunks a block holds or walks (all of a tile's, resident; paired
+    # rows, two windows a row, in the resident and windows layouts)
+    ranges: int  # j ranges a tile pair
+    slab: int  # bytes of depth a step multiplies (the whole row but in "depth", "slabs")
     smem: int  # shared memory a block, bytes
-    blocks: int  # the grid
+    blocks: int  # the grid (on 132 SMs)
+    stages: int = 0  # the resident and windows layouts' ring of i chunks
+    epilogue: str = ""  # their epilogue (``mma_epilogue``)
 
 
 def _bins_bytes(s: int) -> int:
     return (s * s + 32) * 4
 
 
-def _chunks_smem(s: int, chunks: int, depth: int) -> int:
+def _ws_smem(s: int, chunks: int, stages: int, depth: int, g: int) -> int:
     """A resident or windows block's shared memory
-    (``csrc/pairs.cu:mma_smem_bytes``): ``chunks`` j chunks, two streamed i
-    chunks, the s x s bins and the C(d, k) table."""
-    return (chunks + 2) * MMA_CHUNK * depth + _bins_bytes(s)
+    (``csrc/pairs.cu:ws_smem_bytes``): ``chunks`` resident j chunks,
+    ``stages`` streamed i chunks, the pair table (a copy a lane of
+    C(d0, k) + C(d1, k), d0, d1 <= g), two sets of s x s bins and the
+    ring's and the strip's mbarriers."""
+    return ((chunks + stages) * MMA_CHUNK * depth + (g + 1) ** 2 * 32 * 4 + 2 * s * s * 4
+            + (2 * stages + 2) * 8)
 
 
-def mma_plan(n_pad: int, p_pad: int, depth: int) -> MmaPlan:
+def _ws_stages(s: int, chunks: int, depth: int, g: int) -> int:
+    """The most ring stages (up to 4) that fit beside ``chunks`` resident
+    chunks (0 where none does)."""
+    room = _MAX_SMEM_BYTES - _ws_smem(s, chunks, 0, depth, g)
+    return max(0, min(_WS_STAGES[1], room // (MMA_CHUNK * depth + 16)))
+
+
+def ws_windows(p_pad: int) -> int:
+    """Windows a sequence takes in the resident and windows layouts:
+    ``p_pad`` re-padded with zero rows to a multiple of 16, so that a
+    warp's 16 fragment rows, and the 8-column groups of the paired rows,
+    each lie in one sequence."""
+    return -(-p_pad // 16) * 16
+
+
+def mma_epilogue(s: int, p_pad: int) -> str:
+    """The resident and windows layouts' epilogue at ``s`` sequences a
+    tile of ``p_pad`` windows (re-padded by ``ws_windows``): "one" where
+    every 32 paired columns of a product lie in one sequence (one
+    sequence a tile, or a multiple of 64 windows), "two" where each
+    64-column half spans at most two (128 windows or more), else "runs"
+    (a run per column sequence)."""
+    p = ws_windows(p_pad)
+    if s == 1 or p % 64 == 0:
+        return "one"
+    return "two" if p >= 128 else "runs"
+
+
+def mma_plan(n_pad: int, p_pad: int, depth: int, g: int) -> MmaPlan:
     """Kernel A's layout at ``n_pad`` sequences of ``p_pad`` windows of
-    ``depth`` bytes (a multiple of 64). The kernel library refuses a plan
-    whose block does not fit, so this rule is the only one.
+    one-hot rows ``depth`` bytes wide (the rows' own width, or any padding
+    of it), ``g`` codes a row (the pair table's side). The kernel library
+    refuses a plan whose block does not fit, so this rule is the only one.
 
-    - resident: a tile's j windows stay in shared memory; the tile side is
-      the largest power of two <= 8 dividing ``n_pad`` whose block fits
-      two to an SM, else 1 where one sequence's block fits the SM alone;
-    - windows: one sequence a tile, and a block holds a range of its j
-      chunks (two blocks an SM where each holds at least 4 chunks, else
-      one), ranges as even as the chunk count allows;
-    - depth: where not even one j chunk and two i chunks fit at full
-      depth, a block holds one j chunk at full depth and streams the i
-      chunks past it in 64-byte k-slabs; tiles of up to 8 sequences,
-      split into ranges of j chunks until the grid has about 8 blocks an
-      SM;
+    - resident: rows padded to 32 bytes and each sequence to a multiple
+      of 16 windows (``ws_windows``); a tile's paired j rows (two windows
+      a row, ``ws_operands``) stay in shared memory beside a ring of 3 or
+      4 i chunks (``stages``), one persistent block an SM walking the tile
+      triangle; the tile side is the largest power of two <= 8 dividing
+      ``n_pad`` whose block fits and whose tile holds at most 2,048
+      windows (longer sequences gain little from sharing a tile, and one
+      sequence a tile takes the cheapest epilogue); ``range_chunks``
+      counts paired chunks;
+    - windows: the same with one sequence a tile, a block holding a range
+      of its paired chunks at a time, ranges as even as the chunk count
+      allows;
+    - where not even one chunk fits beside three i chunks, one sequence a
+      tile with a ring of 2 (resident where the range is the whole
+      tile, else windows);
+    - depth: where not one chunk fits beside two i chunks either, rows
+      padded to 64 bytes; a block holds one j chunk at full depth and
+      streams the i chunks past it in 64-byte k-slabs; tiles of up to 8
+      sequences, split into ranges of j chunks until the grid has about 8
+      blocks an SM;
     - slabs: where one j chunk does not fit at full depth either, both
       operands stream in k-slabs; tiles and ranges as in depth.
 
-    Raises where the grid would pass the launch limit (2^31 - 1 blocks)."""
+    Raises where the depth or slabs layout's grid would pass the launch
+    limit (2^31 - 1 blocks)."""
 
-    def plan(layout: str, s: int, rc: int, slab: int, smem: int) -> MmaPlan:
-        nc = -(-s * p_pad // MMA_CHUNK)
-        nr = -(-nc // rc)
+    def plan(layout: str, s: int, rc: int, nj: int, slab: int, smem: int,
+             stages: int = 0) -> MmaPlan:
+        nr = -(-nj // rc)  # nj: j chunks a tile
         nt = n_pad // s
-        blocks = nt * (nt + 1) // 2 * nr
-        if blocks > 2**31 - 1:
-            raise ValueError(f"kernel A's grid of {blocks} blocks exceeds the launch limit")
-        return MmaPlan(layout, s, rc, nr, slab, smem, blocks)
+        units = nt * (nt + 1) // 2 * nr
+        if layout in ("depth", "slabs"):
+            if units > 2**31 - 1:
+                raise ValueError(f"kernel A's grid of {units} blocks exceeds the launch limit")
+            return MmaPlan(layout, s, rc, nr, slab, smem, units)
+        return MmaPlan(layout, s, rc, nr, slab, smem, min(units, _SMS), stages,
+                       mma_epilogue(s, p_pad))
 
+    d32, pw = ws_depth(depth), ws_windows(p_pad)
     for s in (8, 4, 2, 1):
-        nc = -(-s * p_pad // MMA_CHUNK)
-        if n_pad % s == 0 and _chunks_smem(s, nc, depth) <= _BLOCK_BYTES:
-            return plan("resident", s, nc, depth, _chunks_smem(s, nc, depth))
-    nc = -(-p_pad // MMA_CHUNK)
-    if _chunks_smem(1, nc, depth) <= _MAX_SMEM_BYTES:
-        return plan("resident", 1, nc, depth, _chunks_smem(1, nc, depth))
-    fit2 = (_BLOCK_BYTES - _bins_bytes(1)) // (MMA_CHUNK * depth) - 2
-    fit1 = (_MAX_SMEM_BYTES - _bins_bytes(1)) // (MMA_CHUNK * depth) - 2
-    fit = fit2 if fit2 >= _WINDOWS_MIN_CHUNKS else fit1
-    if fit >= 1:
-        rc = -(-nc // -(-nc // fit))
-        return plan("windows", 1, rc, depth, _chunks_smem(1, rc, depth))
+        ny = -(-s * pw // (2 * MMA_CHUNK))  # paired chunks a tile
+        stages = _ws_stages(s, ny, d32, g)
+        if n_pad % s == 0 and stages >= _WS_STAGES[0] and (s == 1 or s * pw <= _WS_TILE_ROWS):
+            return plan("resident", s, ny, ny, d32, _ws_smem(s, ny, stages, d32, g), stages)
+    ny = -(-pw // (2 * MMA_CHUNK))
+    for least in (_WS_STAGES[0], _WS_LAST_STAGES):
+        fit = (_MAX_SMEM_BYTES - _ws_smem(1, 0, least, d32, g)) // (MMA_CHUNK * d32)
+        if fit >= 1:
+            rc = -(-ny // -(-ny // fit))
+            stages = _ws_stages(1, rc, d32, g)
+            return plan("resident" if rc == ny else "windows", 1, rc, ny, d32,
+                        _ws_smem(1, rc, stages, d32, g), stages)
+    depth = mma_depth(depth)
     s = next(t for t in (8, 4, 2, 1) if n_pad % t == 0)
     nc = -(-s * p_pad // MMA_CHUNK)
     nt = n_pad // s
     nr = min(nc, max(1, -(-_DEEP_BLOCKS // (nt * (nt + 1) // 2))))
     smem = _DEPTH_RING_BYTES + MMA_CHUNK * depth + _bins_bytes(s)
     if smem <= _MAX_SMEM_BYTES:
-        return plan("depth", s, -(-nc // nr), MMA_SLAB, smem)
-    return plan("slabs", s, -(-nc // nr), MMA_SLAB, _SLABS_RING_BYTES + _bins_bytes(s))
+        return plan("depth", s, -(-nc // nr), nc, MMA_SLAB, smem)
+    return plan("slabs", s, -(-nc // nr), nc, MMA_SLAB, _SLABS_RING_BYTES + _bins_bytes(s))
+
+
+def _core_order(rows: torch.Tensor) -> torch.Tensor:
+    """``rows [tiles, r, depth]`` padded with zero rows to whole 128-row
+    chunks, each chunk in wgmma's K-major core-matrix order (row r, byte b
+    at ``(r // 8) * 8 * depth + (b // 16) * 128 + (r % 8) * 16 + b % 16``,
+    csrc/hopper.cuh:onehot_at), so that a chunk is one contiguous copy."""
+    nt, r, depth = rows.shape
+    chunks = -(-r // MMA_CHUNK)
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, chunks * MMA_CHUNK - r))
+    return (
+        rows.reshape(nt, chunks * MMA_CHUNK // 8, 8, depth // 16, 16)
+        .permute(0, 1, 3, 2, 4)
+        .contiguous()
+        .view(nt, chunks * MMA_CHUNK, depth)
+    )
+
+
+def ws_operands(x: torch.Tensor, p_pad: int, s: int, depth: int, g: int):
+    """The resident and windows layouts' operands from ``x [n_pad * p_pad,
+    F]``: each sequence re-padded with zero rows to ``ws_windows(p_pad)``
+    windows and each row with zero bytes to ``depth``; tiles of ``s``
+    sequences. Returns (i rows, paired j rows), each ``[n_pad / s, chunks
+    * 128, depth]`` int8 in ``_core_order``: the one-hot rows, and
+    ``(g + 1) x_2q + x_2q+1`` (two windows of one sequence a row, entries
+    <= g + 2), whose product with a one-hot row is the pair index
+    ``(g + 1) d0 + d1`` of two match counts."""
+    n_pad = x.shape[0] // p_pad
+    pw = ws_windows(p_pad)
+    rows = torch.nn.functional.pad(
+        x.view(n_pad, p_pad, x.shape[1]), (0, depth - x.shape[1], 0, pw - p_pad)
+    ).view(n_pad // s, s * pw, depth)
+    paired = rows[:, 0::2] * (g + 1) + rows[:, 1::2]
+    return _core_order(rows), _core_order(paired)
 
 
 def _check_x(x: torch.Tensor, g: int, k: int, p_pad: int) -> None:
@@ -186,26 +283,35 @@ def _launch_dp4a(x: torch.Tensor, p_pad: int, k: int):
     return out
 
 
-def _launch_mma(x: torch.Tensor, p_pad: int, k: int, variant: int, name: str):
-    """Pad ``x`` to its tensor-core depth and launch the body's ``variant``
-    (an index of ``PROBE_VARIANTS``; "current" gives the counts) in
-    ``mma_plan``'s layout; returns the ``[n_pad, n_pad]`` int32 output
-    (zeroed first where blocks add into it)."""
-    depth = mma_depth(x.shape[1])
+def _launch_mma(x: torch.Tensor, p_pad: int, g: int, k: int, variant: int, name: str):
+    """Lay ``x`` out for ``mma_plan``'s layout and launch the body's
+    ``variant`` (an index of ``PROBE_VARIANTS``; "current" gives the
+    counts) in it; returns the ``[n_pad, n_pad]`` int32 output (zeroed
+    first where blocks add into it) and the plan."""
     n_pad = x.shape[0] // p_pad
-    plan = mma_plan(n_pad, p_pad, depth)
-    if depth != x.shape[1]:
-        x = torch.nn.functional.pad(x, (0, depth - x.shape[1]))
-    alloc = torch.empty if plan.layout == "resident" else torch.zeros
-    out = alloc((n_pad, n_pad), dtype=torch.int32, device=x.device)
+    plan = mma_plan(n_pad, p_pad, x.shape[1], g)
+    s, rc, stages = plan.tile, plan.range_chunks, plan.stages
+    if plan.layout in ("resident", "windows"):
+        depth = plan.slab
+        epilogue = MMA_EPILOGUES.index(plan.epilogue)
+        rows, paired = ws_operands(x, p_pad, s, depth, g)
+        adds = rc < paired.shape[1] // MMA_CHUNK  # several ranges a tile
+        x = torch.cat((rows.view(-1), paired.view(-1)))
+        period = ws_windows(p_pad)
+    else:
+        depth, epilogue, adds = mma_depth(x.shape[1]), 0, True
+        if depth != x.shape[1]:
+            x = torch.nn.functional.pad(x, (0, depth - x.shape[1]))
+        period = p_pad
+    out = (torch.zeros if adds else torch.empty)((n_pad, n_pad), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _build.kernels().pairs_mma_launch(
-            x.data_ptr(), out.data_ptr(), n_pad, p_pad, depth, k, plan.tile,
-            plan.range_chunks, MMA_LAYOUTS.index(plan.layout), variant, stream,
+            x.data_ptr(), out.data_ptr(), n_pad, period, depth, k, s, rc,
+            MMA_LAYOUTS.index(plan.layout), variant, g, stages, epilogue, stream,
         )
     _build.check_launch(status, name)
-    return out
+    return out, plan
 
 
 def pairs_counts(x: torch.Tensor, *, g: int, k: int, p_pad: int, body=None) -> torch.Tensor:
@@ -222,10 +328,11 @@ def pairs_counts(x: torch.Tensor, *, g: int, k: int, p_pad: int, body=None) -> t
     if x.device.type == "cpu":
         plan = None
         if body == "mma":
-            plan = mma_plan(x.shape[0] // p_pad, p_pad, mma_depth(x.shape[1]))
+            plan = mma_plan(x.shape[0] // p_pad, p_pad, x.shape[1], g)
         return pairs_counts_plain(x, k=k, p_pad=p_pad, plan=plan)
     if body == "mma":
-        out = _launch_mma(x, p_pad, k, _CURRENT, "pairs_counts")
+        out, plan = _launch_mma(x, p_pad, g, k, _CURRENT, "pairs_counts")
+        count(f"pairs_counts.layouts.{plan.layout}")
     else:
         out = _launch_dp4a(x, p_pad, k)
     count("pairs_counts.launches")
@@ -248,8 +355,8 @@ def pairs_probe(
     if variant == "int32" and 16 * math.perm(g, k) >= 2**31:
         raise ValueError(f"g!/(g-k)! = {math.perm(g, k)}: 16 of them exceed int32")
     if x.device.type == "cpu":
-        plan = mma_plan(x.shape[0] // p_pad, p_pad, mma_depth(x.shape[1]))
-        return pairs_probe_plain(x, k=k, p_pad=p_pad, variant=variant, plan=plan)
-    out = _launch_mma(x, p_pad, k, PROBE_VARIANTS.index(variant), "pairs_probe")
+        plan = mma_plan(x.shape[0] // p_pad, p_pad, x.shape[1], g)
+        return pairs_probe_plain(x, k=k, p_pad=p_pad, variant=variant, plan=plan, g=g)
+    out, _ = _launch_mma(x, p_pad, g, k, PROBE_VARIANTS.index(variant), "pairs_probe")
     count("pairs_probe.launches")  # the CPU path does not count
     return out

@@ -114,12 +114,13 @@ def pairs_engine_flops(engine, body: str = "mma") -> dict:
 
     ``flops`` counts the operations the kernel executes, padding included.
     The tensor-core body (``body="mma"``, in ``pairs_cuda.mma_plan``'s
-    layout): blocks over pairs of s-sequence tiles ``bi <= bj``, which
-    multiply every 128-row j chunk of tile bj (all of them in one block,
-    or split into ranges over several), ``depth`` bytes deep, by the i
-    rows of tile bi: in the resident and windows layouts each 64-row
-    warpgroup that holds a window row of the tile, in the depth and slabs
-    layouts every 128-row i chunk whole. The dp4a body (``body="dp4a"``): the same
+    layout): pairs of s-sequence tiles ``bi <= bj``, each multiplying every
+    128-row j chunk of tile bj (all of them at once, or in ranges) by
+    every 128-row i chunk of tile bi; in the resident and windows layouts
+    rows padded to 32 bytes and sequences to ``ws_windows``, the j chunks
+    of paired rows (two windows a row), in the depth and slabs layouts
+    rows padded to 64 bytes.
+    The dp4a body (``body="dp4a"``): the same
     tile pairs, every window pair of the two tiles at the padded width.
     ``useful_flops`` counts the work itself: every unordered pair of
     valid windows once, ``g * alpha`` bytes wide (``count_bound``'s
@@ -129,18 +130,21 @@ def pairs_engine_flops(engine, body: str = "mma") -> dict:
     live_tiles, bytes_hbm, ai): ``bytes_hbm`` counts the operand read
     once and the int32 matrix written once; ``ai`` is executed flops a
     byte."""
-    from ..ops.pairs_cuda import MMA_CHUNK, mma_depth, mma_plan, padded_width, tile_sequences
+    from ..ops.pairs_cuda import (MMA_CHUNK, mma_depth, mma_plan, padded_width, tile_sequences,
+                                  ws_windows)
 
     f = engine.g * engine.alpha
     n_pad, p_pad = engine.n_pad, engine.p_pad
     if body == "mma":
-        width = mma_depth(f)
-        plan = mma_plan(n_pad, p_pad, width)
+        plan = mma_plan(n_pad, p_pad, f, engine.g)
         s, layout = plan.tile, plan.layout
-        rows = s * p_pad
-        cols = -(-rows // MMA_CHUNK) * MMA_CHUNK
-        live = cols if layout in ("depth", "slabs") else -(-rows // 64) * 64
-        macs_block = live * cols * width
+        if layout in ("resident", "windows"):
+            width, rows = plan.slab, s * ws_windows(p_pad)
+            cols = -(-rows // (2 * MMA_CHUNK)) * MMA_CHUNK
+        else:
+            width, rows = mma_depth(f), s * p_pad
+            cols = -(-rows // MMA_CHUNK) * MMA_CHUNK
+        macs_block = -(-rows // MMA_CHUNK) * MMA_CHUNK * cols * width
     elif body == "dp4a":
         width, layout = padded_width(f), None
         s = tile_sequences(n_pad, p_pad, width)

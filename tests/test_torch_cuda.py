@@ -64,20 +64,27 @@ def test_kernel_a_matches_plain_and_oracle(cuda, g, m, n, length, alpha):
 
 
 # one-hot depths and lengths that take each of the tensor-core body's
-# layouts: 40 B (pads to 64), 320 B (one block an SM), 420 B (448, short
-# sequences: a run per column sequence) and 512 B at p_pad = 200 (past
-# the resident tile: the windows layout), DNA of 3,400 windows (windows)
-# and 60 letters at g10 (600 B: the depth layout); a tile of several
-# 128-row chunks (p_pad = 200, four sequences a side) and sequences that
-# end inside a chunk
+# layouts: 40 B (pads to 64) at p_pad = 200 (the two-sum epilogue), 320 B
+# at p_pad = 64 (one sum a quarter), 420 B and 512 B (one sequence a tile
+# with a ring of two, as three leave no room), DNA of 3,400 windows (one
+# sequence a tile), 48 letters at 1,300 windows and 40 at 3,400 (past one
+# sequence's tile: the windows layout), 64 letters at 1,000 windows (ranges
+# of one paired chunk beside a ring of two), 640 B at p_pad = 200 (past a
+# ring of two: the depth layout) and 60 letters at g10 (600 B: the depth
+# layout); a tile of several 128-row chunks and sequences that end inside
+# a chunk
 @pytest.mark.parametrize(
     "g,m,alpha,n,length,layout",
     [
         (8, 4, 5, 21, 200, "resident"),
         (8, 4, 40, 9, 60, "resident"),
         (6, 3, 70, 9, 40, "resident"),
-        (8, 4, 64, 5, 200, "windows"),
-        (8, 4, 4, 5, 3407, "windows"),
+        (8, 4, 64, 5, 200, "resident"),
+        (8, 4, 4, 5, 3407, "resident"),
+        (8, 4, 48, 5, 1307, "windows"),
+        (8, 4, 40, 5, 3407, "windows"),
+        (8, 4, 64, 3, 1000, "windows"),
+        (8, 4, 80, 5, 200, "depth"),
         (10, 4, 60, 11, 300, "depth"),
         (14, 7, 130, 5, 150, "slabs"),
     ],
@@ -88,19 +95,39 @@ def test_kernel_a_default_body_by_depth(cuda, g, m, alpha, n, length, layout):
     X[0] = list(range(1, alpha + 1)) + X[0][alpha:]  # every code, so the alphabet is alpha
     eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
     assert eng.alpha == alpha
-    depth = pairs_cuda.mma_depth(g * alpha)
-    assert pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth).layout == layout
+    assert pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, g * alpha, g).layout == layout
     before = counters()
     got = eng.exact()
     moved = counters() - before
     assert (moved["pairs_counts.bodies.mma"], moved["pairs_counts.bodies.dp4a"]) == (1, 0)
+    assert {name: moved[f"pairs_counts.layouts.{name}"] for name in pairs_cuda.MMA_LAYOUTS} == {
+        name: int(name == layout) for name in pairs_cuda.MMA_LAYOUTS}
     np.testing.assert_array_equal(got, oracle.exact_counts(X, g, m))
+
+
+def _forced_plan(layout, tile, range_chunks, f, p_pad, g):
+    """A plan forced at a small shape: rows of ``f`` bytes padded to 64,
+    or 64-byte k-slabs (depth, slabs); the resident and windows layouts'
+    ring and epilogue those ``mma_plan`` gives such a tile."""
+    if layout in ("depth", "slabs"):
+        return pairs_cuda.MmaPlan(layout, tile, range_chunks, 0, 64, 0, 0)
+    depth = pairs_cuda.mma_depth(f)
+    return pairs_cuda.MmaPlan(layout, tile, range_chunks, 0, depth, 0, 0,
+                              pairs_cuda._ws_stages(tile, range_chunks, depth, g),
+                              pairs_cuda.mma_epilogue(tile, p_pad))
 
 
 # plans forced at small shapes (the kernel takes any plan that fits):
 # windows ranges ending inside a sequence and on the diagonal tile, short
 # sequences (p_pad < 64) in the windows and slabs layouts, the depth and
-# slabs layouts at several tiles, ranges and one or more k-slabs
+# slabs layouts at several tiles, ranges and one or more k-slabs; the
+# resident layout's persistent loop at tiles of 8, 4, 2 and 1 sequences
+# (range_chunks: the tile's paired chunks, two windows a row) and p_pad 8,
+# 56 (runs a column sequence), 64, 192 (one sum a quarter) and 200 (two
+# sums), 78 and 136 units over up to 132 blocks (uneven shares), and tile
+# 0: mma_plan's own plan at the KAT2B shape (g13 m7 over 5 letters,
+# length 200: 8 sequences a tile, 6 paired chunks) on a cut set of 500
+# sequences, held to the plain version only
 @pytest.mark.parametrize(
     "g,m,alpha,n,lmin,lmax,layout,tile,range_chunks",
     [
@@ -111,6 +138,14 @@ def test_kernel_a_default_body_by_depth(cuda, g, m, alpha, n, length, layout):
         (6, 2, 4, 16, 150, 200, "depth", 4, 3),
         (10, 4, 60, 11, 250, 300, "depth", 8, 5),
         (10, 4, 60, 11, 250, 300, "slabs", 8, 5),
+        (8, 4, 5, 16, 14, 14, "resident", 8, 1),
+        (8, 4, 5, 13, 62, 62, "resident", 4, 1),
+        (8, 4, 5, 21, 70, 70, "resident", 2, 1),
+        (8, 4, 5, 21, 198, 198, "resident", 2, 2),
+        (8, 4, 5, 11, 198, 198, "resident", 1, 1),
+        (13, 7, 5, 37, 200, 200, "resident", 8, 6),
+        (8, 4, 5, 21, 200, 200, "resident", 4, 4),
+        (13, 7, 5, 500, 200, 200, "resident", 0, 0),
     ],
 )
 def test_kernel_a_stream_layouts_match_plain(cuda, monkeypatch, g, m, alpha, n, lmin, lmax,
@@ -118,16 +153,18 @@ def test_kernel_a_stream_layouts_match_plain(cuda, monkeypatch, g, m, alpha, n, 
     rng = np.random.default_rng(n * 7 + alpha)
     X = [rng.integers(1, alpha + 1, size=rng.integers(lmin, lmax + 1)).tolist() for _ in range(n)]
     eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
-    depth = pairs_cuda.mma_depth(g * eng.alpha)
-    forced = pairs_cuda.MmaPlan(layout, tile, range_chunks, 0,
-                                64 if layout in ("depth", "slabs") else depth, 0, 0)
-    monkeypatch.setattr(pairs_cuda, "mma_plan", lambda *shape: forced)
+    if tile:
+        forced = _forced_plan(layout, tile, range_chunks, g * eng.alpha, eng.p_pad, g)
+        monkeypatch.setattr(pairs_cuda, "mma_plan", lambda *shape: forced)
+    plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, g * eng.alpha, g)
+    assert plan.layout == layout
     x = eng._build_x()
     want = pairs.pairs_counts_plain(x, k=g - m, p_pad=eng.p_pad)
     got = pairs_cuda.pairs_counts(x, g=g, k=g - m, p_pad=eng.p_pad)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], oracle.exact_counts(X, g, m))
+    if n <= 64:
+        np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], oracle.exact_counts(X, g, m))
 
 
 # tests/test_torch_observe.py holds its copy of the resident rule to the
@@ -135,26 +172,28 @@ def test_kernel_a_stream_layouts_match_plain(cuda, monkeypatch, g, m, alpha, n, 
 @pytest.mark.parametrize(
     "n_pad,p_pad,depth,tile",
     [
-        (7024, 200, 64, 4),   # KAT2B: 8 sequences would leave one block an SM
+        (7024, 200, 64, 8),   # KAT2B at g8
         (7232, 192, 64, 8),   # 7230 x 200 DNA, g=16
         (24, 96, 64, 8),
         (12, 8, 64, 4),
-        (8, 200, 192, 1),
-        (8, 200, 320, 1),     # one block an SM
-        (8, 200, 448, 1),     # the deepest resident tile at p_pad = 200
-        (8, 200, 512, 0),     # one sequence's tile does not fit: the windows layout
-        (8, 904, 320, 0),
+        (8, 200, 192, 4),
+        (8, 200, 256, 2),
+        (8, 200, 320, 1),     # the deepest resident tile with a ring of three at p_pad = 200
+        (8, 200, 384, 1),     # one sequence with a ring of two
+        (8, 200, 512, 0),     # not one chunk beside a ring of two: the depth layout
+        (8, 904, 320, 0),     # one sequence's tile does not fit: the windows layout
     ],
 )
 def test_kernel_a_mma_tiling(cuda, n_pad, p_pad, depth, tile):
-    """The plan's resident tile where it fits, else a streaming layout
-    whose block the kernel library accepts (a launch on zeros)."""
-    plan = pairs_cuda.mma_plan(n_pad, p_pad, depth)
+    """The plan's resident tile where it fits (at g = 20, the widest pair
+    table), else a streaming layout whose block the kernel library accepts
+    (a launch on zeros)."""
+    plan = pairs_cuda.mma_plan(n_pad, p_pad, depth, 20)
     assert (plan.layout == "resident") == (tile > 0)
     assert plan.tile == (tile or plan.tile) and n_pad % plan.tile == 0
     if n_pad * p_pad * depth <= 2**28:
         x = torch.zeros((n_pad * p_pad, depth), dtype=torch.int8, device=cuda)
-        got = pairs_cuda.pairs_counts(x, g=8, k=4, p_pad=p_pad)
+        got = pairs_cuda.pairs_counts(x, g=20, k=4, p_pad=p_pad)
         torch.cuda.synchronize()
         assert int(got.abs().max()) == 0
 
@@ -726,14 +765,21 @@ def test_mesh_routes_match_kernel_d(cuda, monkeypatch, shape, state):
 
 # kernel H (variants of kernel A's tensor-core body) in each layout: the
 # resident plans mma_plan gives KAT2B's width (g=8 over 5 codes) and g=16
-# DNA, then plans forced at small shapes as in kernel A's stream test
-# (windows ranges ending inside a sequence, short sequences, depth and
-# slabs at several tiles, ranges and k-slabs)
+# DNA at short lengths (runs a column sequence), KAT2B's g13 (one sum a
+# half) and g8 (two sums) at length 200, 64 letters at length 200 (a ring
+# of two beside one sequence's 512-byte rows), then plans forced at small shapes
+# as in kernel A's stream test (a resident tile of one sequence, windows
+# ranges ending inside a sequence, short sequences, depth and slabs at
+# several tiles, ranges and k-slabs)
 @pytest.mark.parametrize(
     "g,m,alpha,n,lmin,lmax,layout,tile,range_chunks",
     [
         (8, 4, 5, 40, 60, 60, "resident", 0, 0),
         (16, 10, 4, 24, 60, 60, "resident", 0, 0),
+        (13, 7, 5, 24, 200, 200, "resident", 0, 0),
+        (8, 4, 5, 21, 200, 200, "resident", 0, 0),
+        (8, 4, 64, 5, 200, 200, "resident", 0, 0),
+        (8, 4, 5, 11, 199, 199, "resident", 1, 1),
         (8, 4, 4, 5, 900, 1000, "windows", 1, 3),
         (8, 4, 4, 9, 20, 40, "windows", 1, 1),
         (8, 4, 24, 13, 20, 40, "depth", 2, 1),
@@ -748,12 +794,10 @@ def test_kernel_h_variants_match_plain(cuda, monkeypatch, g, m, alpha, n, lmin, 
     X = [rng.integers(1, alpha + 1, size=rng.integers(lmin, lmax + 1)).tolist() for _ in range(n)]
     X[0][:alpha] = list(range(1, alpha + 1))  # every code, so hash_base = alpha
     eng = PairsGkmEngine(encode_sequences(X), g, m, KernelConfig(device=cuda))
-    depth = pairs_cuda.mma_depth(g * eng.alpha)
     if tile:
-        forced = pairs_cuda.MmaPlan(layout, tile, range_chunks, 0,
-                                    64 if layout in ("depth", "slabs") else depth, 0, 0)
+        forced = _forced_plan(layout, tile, range_chunks, g * eng.alpha, eng.p_pad, g)
         monkeypatch.setattr(pairs_cuda, "mma_plan", lambda *shape: forced)
-    plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
+    plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, g * eng.alpha, g)
     assert plan.layout == layout
     x = eng._build_x()
     kw = dict(g=g, k=g - m, p_pad=eng.p_pad)
@@ -765,7 +809,8 @@ def test_kernel_h_variants_match_plain(cuda, monkeypatch, g, m, alpha, n, lmin, 
         torch.cuda.synchronize()
         assert counters()["pairs_probe.launches"] == before + 2
         torch.testing.assert_close(got, again, rtol=0, atol=0)
-        want = pairs.pairs_probe_plain(x, k=g - m, p_pad=eng.p_pad, variant=variant, plan=plan)
+        want = pairs.pairs_probe_plain(x, k=g - m, p_pad=eng.p_pad, variant=variant, plan=plan,
+                                       g=g)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
         if variant in ("current", "int32"):
             np.testing.assert_array_equal(got.cpu().numpy()[:n, :n], counts)

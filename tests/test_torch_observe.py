@@ -273,32 +273,37 @@ def test_bounds_are_the_smoke_record_s():
 
 
 def _mma_tile_rule(n_pad, p_pad, depth):
-    """The resident layout's tile side: 128-row chunks, two blocks an SM in
-    113 KB each, or one in 227 KB; 0 where one sequence's windows do not
-    fit (``pairs_cuda.mma_plan`` then streams them). These tests' own copy
-    of the rule, held to the table that tests/test_torch_cuda.py holds the
-    card to."""
-    if n_pad < 1 or p_pad < 8 or depth < 64:
+    """The resident layout's tile side: rows padded to 32 bytes, sequences
+    to 16 windows, the tile's paired j rows (two windows a row) in 128-row
+    chunks beside a ring of three, the pair table at g = 20 and two sets of
+    bins in one block's 227 KB, at most 2,048 windows a tile of several
+    sequences; else one sequence beside a ring of two; 0 where one
+    sequence's windows do not fit (``pairs_cuda.mma_plan`` then streams
+    them). These tests' own copy of the rule, held to the table that
+    tests/test_torch_cuda.py holds the card to."""
+    if n_pad < 1 or p_pad < 8 or depth < 32:
         return 0
+    d32, pw = -(-depth // 32) * 32, -(-p_pad // 16) * 16
 
-    def smem(s):
-        return (-(-s * p_pad // 128) + 2) * 128 * depth + (s * s + 32) * 4
+    def smem(s, stages=3):
+        return ((-(-s * pw // 256) + stages) * 128 * d32 + 21 * 21 * 128 + 8 * s * s
+                + (2 * stages + 2) * 8)
 
     for s in (8, 4, 2, 1):
-        if n_pad % s == 0 and smem(s) <= 113 * 1024:
+        if n_pad % s == 0 and smem(s) <= 227 * 1024 and (s == 1 or s * pw <= 2048):
             return s
-    return 1 if smem(1) <= 227 * 1024 else 0
+    return 1 if smem(1, 2) <= 227 * 1024 else 0
 
 
 @pytest.mark.parametrize("n_pad,p_pad,depth,tile", [
-    (7024, 200, 64, 4), (7232, 192, 64, 8), (24, 96, 64, 8), (12, 8, 64, 4), (8, 200, 192, 1),
-    (8, 200, 320, 1), (8, 200, 448, 1), (8, 200, 512, 0), (8, 904, 320, 0),
+    (7024, 200, 64, 8), (7232, 192, 64, 8), (24, 96, 64, 8), (12, 8, 64, 4), (8, 200, 192, 4),
+    (8, 200, 256, 2), (8, 200, 320, 1), (8, 200, 384, 1), (8, 200, 512, 0), (8, 904, 320, 0),
 ])
 def test_tile_rule_is_the_library_s(n_pad, p_pad, depth, tile):
     """The same table as tests/test_torch_cuda.py::test_kernel_a_mma_tiling;
     ``mma_plan`` keeps the resident layout exactly where the rule fits."""
     assert _mma_tile_rule(n_pad, p_pad, depth) == tile
-    plan = pairs_cuda.mma_plan(n_pad, p_pad, depth)
+    plan = pairs_cuda.mma_plan(n_pad, p_pad, depth, 20)
     assert (plan.layout == "resident") == (tile > 0)
     if tile:
         assert plan.tile == tile and plan.ranges == 1
@@ -311,20 +316,22 @@ def _brute_kernel_a(eng, body):
     f = eng.g * eng.alpha
     macs = 0
     if body == "mma":
-        depth = mma_depth(f)
-        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, depth)
-        rows = plan.tile * eng.p_pad
+        plan = pairs_cuda.mma_plan(eng.n_pad, eng.p_pad, f, eng.g)
+        paired = plan.layout in ("resident", "windows")
+        # rows padded to 32 bytes and sequences to 16 windows, j rows paired
+        # (resident, windows), or rows padded to 64 bytes (depth, slabs)
+        depth = plan.slab if paired else mma_depth(f)
+        rows = plan.tile * (pairs_cuda.ws_windows(eng.p_pad) if paired else eng.p_pad)
         nc = -(-rows // 128)
+        ncj = -(-rows // 256) if paired else nc
         nt = eng.n_pad // plan.tile
         for bi in range(nt):
             for bj in range(bi, nt):
                 for r in range(plan.ranges):
-                    j_chunks = min(nc, (r + 1) * plan.range_chunks) - r * plan.range_chunks
+                    j_chunks = min(ncj, (r + 1) * plan.range_chunks) - r * plan.range_chunks
                     for ci in range(nc):
-                        for wg in range(2):
-                            # a live warpgroup; the depth and slabs layouts run them all
-                            if plan.layout in ("depth", "slabs") or ci * 128 + 64 * wg < rows:
-                                macs += j_chunks * 64 * 128 * depth
+                        for wg in range(2):  # every warpgroup of every i chunk
+                            macs += j_chunks * 64 * 128 * depth
         return macs, plan.layout
     width = padded_width(f)
     s = tile_sequences(eng.n_pad, eng.p_pad, width)
@@ -347,17 +354,19 @@ def test_pairs_engine_flops_counts_kernel_a_s_tiles(n, length, g, m, body):
     rl = roofline.pairs_engine_flops(eng, body=body)
     macs, layout = _brute_kernel_a(eng, body)
     assert rl["body"] == body and rl["layout"] == layout
-    assert layout == {"mma": "windows" if length > 3000 else "resident", "dp4a": None}[body]
+    assert layout == {"mma": "resident", "dp4a": None}[body]
     assert rl["flops"] == 2.0 * macs
     windows = n * (length - g + 1)
     useful = sum(2 * g * eng.alpha for a in range(windows) for b in range(a, windows))
-    assert rl["useful_flops"] == useful <= rl["flops"]
+    # the resident and windows layouts multiply paired j rows: a product
+    # column serves two windows, so they execute at least half the work
+    assert rl["useful_flops"] == useful <= rl["flops"] * (2 if body == "mma" else 1)
     assert roofline.count_bound(windows, g * eng.alpha, 1.0)["bound_ms"] == useful / 1979e12 * 1e3
     assert rl["ai"] > 0 and rl["bytes_hbm"] > 0 and rl["dtype"] == "int8"
 
 
 @pytest.mark.parametrize("n,length,alpha,g,m,layout", [
-    (5, 300, 60, 10, 4, "depth"), (12, 120, 100, 8, 4, "depth"), (4, 1307, 21, 8, 4, "windows"),
+    (5, 300, 60, 10, 4, "depth"), (12, 120, 100, 8, 4, "depth"), (4, 2507, 21, 8, 4, "windows"),
     (5, 150, 130, 14, 7, "slabs"),
 ])
 def test_pairs_engine_flops_counts_kernel_a_s_stream_layouts(n, length, alpha, g, m, layout):
@@ -369,7 +378,8 @@ def test_pairs_engine_flops_counts_kernel_a_s_stream_layouts(n, length, alpha, g
     rl = roofline.pairs_engine_flops(eng)
     macs, brute_layout = _brute_kernel_a(eng, "mma")
     assert rl["layout"] == brute_layout == layout
-    assert rl["flops"] == 2.0 * macs >= rl["useful_flops"]
+    paired = layout in ("resident", "windows")  # a product column serves two windows
+    assert rl["flops"] * (2 if paired else 1) >= rl["useful_flops"] and rl["flops"] == 2.0 * macs
 
 
 @pytest.mark.parametrize("n,alpha", [(30, 4), (60, 24)])

@@ -193,8 +193,8 @@ def test_kernel_a_mma_depth_padding(rng, g, alpha, depth):
 
 
 # the alphabets of chip_smoke.py's phase-3 depth sweep (one-hot depths
-# 128 to 448 bytes at g=8) and 64 letters (512 bytes, past the
-# tensor-core tile at p_pad = 200), on uniform and ragged lengths
+# 128 to 448 bytes at g=8) and 64 letters (512 bytes), on uniform and
+# ragged lengths
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("alpha", [16, 24, 40, 48, 56, 64])
 def test_counts_match_jax_at_sweep_alphabets(rng, alpha, ragged):

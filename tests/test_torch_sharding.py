@@ -500,8 +500,9 @@ def _plan(layout, tile, range_chunks, slab):
 
 
 # small plans of each of kernel A's layouts, forced: the tile, the range
-# of 128-row j chunks a block and the k-slab; 16 sequences of <= 20
-# letters, p_pad = 16, so a tile of 8 spans one chunk and 4 half of one
+# of 128-row j chunks a block (paired rows in the resident and windows
+# layouts) and the k-slab; 16 sequences of <= 20 letters, p_pad = 16, so
+# a tile of 8 spans one chunk and 4 half of one
 H_PLANS = {
     "resident": _plan("resident", 8, 1, 64),
     "windows": _plan("windows", 1, 1, 64),
@@ -520,7 +521,10 @@ def _probe_set(rng, alpha=4):
 def test_probe_skeleton_and_matmul_plain_match_numpy(rng, layout):
     """skeleton: sum_{p,q} <x_ip, x_jq> by brute force in numpy; matmul:
     each tile pair's total at its corner entry and the mirror, the same
-    under the plan's ranges and slabs as under one block a tile pair."""
+    under the plan's ranges and slabs as under one block a tile pair (in
+    the resident and windows layouts the totals of the pair indices
+    (g + 1) d0 + d1: window q of the lower tile weighs g + 1 where q is
+    even)."""
     plan = H_PLANS[layout]
     X, eng, x = _probe_set(rng)
     xn = x.numpy().astype(np.int64).reshape(eng.n_pad, eng.p_pad, -1)
@@ -528,16 +532,21 @@ def test_probe_skeleton_and_matmul_plain_match_numpy(rng, layout):
     want = d.sum((2, 3))
     skel = pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="skeleton", plan=plan)
     np.testing.assert_array_equal(skel.numpy(), want)
-    mm = pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="matmul", plan=plan)
+    paired = layout in ("resident", "windows")
+    mm = pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="matmul", plan=plan, g=5)
     s, nt = plan.tile, eng.n_pad // plan.tile
+    wq = np.where(np.arange(eng.p_pad) % 2 == 0, 6, 1) if paired else np.ones(eng.p_pad, int)
+    tiles = (d * wq).sum((2, 3)).reshape(nt, s, nt, s).sum((1, 3))  # [streamed, resident]
     corner = np.zeros_like(want)
-    corner[::s, ::s] = want.reshape(nt, s, nt, s).sum((1, 3))
+    corner[::s, ::s] = np.where(np.tri(nt, dtype=bool), tiles, tiles.T)
     np.testing.assert_array_equal(mm.numpy(), corner)
-    whole = _plan("resident", s, -(-s * eng.p_pad // 128), 64)
-    np.testing.assert_array_equal(
-        pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="matmul", plan=whole).numpy(),
-        corner,
-    )
+    if paired:
+        whole = _plan("resident", s, -(-s * eng.p_pad // 256), 64)
+        np.testing.assert_array_equal(
+            pairs.pairs_probe_plain(x, k=3, p_pad=eng.p_pad, variant="matmul", plan=whole,
+                                    g=5).numpy(),
+            corner,
+        )
 
 
 @pytest.mark.parametrize("g,k", [(8, 4), (16, 6), (10, 5), (5, 1), (12, 9)])
@@ -573,7 +582,7 @@ def test_probe_wrapper_variants_on_cpu(rng, monkeypatch, layout):
             assert not got.any()
         else:
             plain = pairs.pairs_probe_plain(
-                x, k=3, p_pad=eng.p_pad, variant=variant, plan=H_PLANS[layout]
+                x, k=3, p_pad=eng.p_pad, variant=variant, plan=H_PLANS[layout], g=5
             )
             np.testing.assert_array_equal(got.numpy(), plain.numpy())
     assert counters()["pairs_probe.launches"] == before
