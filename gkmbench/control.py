@@ -8,11 +8,12 @@ path (``harness.run_job``) and judges it as a run does (the lower
 readings); ``--control 1`` puts the plain reference in the program's place
 one precision step down and judges that the same way (the upper
 readings): the normalized kernel in bf16 (f32 in the configuration), the
-kernel-row Grams with TF32 (f32 without TF32), the SMO in f32 on them;
-its Platt sigmoid on its own 5-fold cross-validation, each fold's SMO in
-f32; in approx mode the stop rule's statistics in bf16 (f32). Counts are
-exact integers in both. ``--fault NAME`` plants one of ``faults.py``'s
-faults in the program's timed path for the program's runs.
+kernel-row Grams with TF32 (f32 without TF32), the SMO in f32 on them at
+each C the mix fits at; its Platt sigmoid on its own 5-fold
+cross-validation, each fold's SMO in f32; in approx mode the stop rule's
+statistics in bf16 (f32). Counts are exact integers in both. ``--fault
+NAME`` plants one of ``faults.py``'s faults in the program's timed path
+for the program's runs.
 ``--stream-seeds 1`` gives approx mode's stream the run's seed instead of
 the mix's, so that the stop and sd readings cover many streams. One JSON
 line a seed and side. Needs the card.
@@ -39,7 +40,8 @@ from gkmbench import faults, harness  # noqa: E402
 def control_outputs(cell, data, seed: int, device: str):
     """The control's outputs: (the last job's outputs as
     ``harness.last_job_outputs`` gives them, its JobOut) from the
-    reference run one precision step down."""
+    reference run one precision step down, one fit for each ``fit`` of the
+    mix at its C."""
     import numpy as np
     import torch
 
@@ -67,15 +69,26 @@ def control_outputs(cell, data, seed: int, device: str):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     y = np.where(np.asarray(data.ytr) == np.unique(data.ytr)[-1], 1.0, -1.0).astype(np.float32)
-    C = float(np.float32(cfg["C"]))
-    a, rho, _ = ref.smo(gram, y, C)
-    out.alpha_y = (a * y).astype(np.float64)
-    out.rho = rho
-    out.platt = ref.sigmoid_train(ref.cv_decisions(gram, y, C, ref.stratified_folds(y, 5)), y)
-    proba = ref.sigmoid(test_gram @ out.alpha_y - rho, *out.platt)
-    out.auc = ref.auc(data.yte, proba)
+    Cs = harness.fit_Cs(cell, seed)
+    C32s = [float(np.float32(C)) for C in Cs]
+    decs = ref.cv_decisions_at(gram, y, C32s, ref.stratified_folds(y, 5))
+    for C, C32, dec in zip(Cs, C32s, decs):
+        a, rho, _ = ref.smo(gram, y, C32)
+        fit = harness.FitOut(C, (a * y).astype(np.float64), rho, ref.sigmoid_train(dec, y))
+        proba = ref.sigmoid(test_gram @ fit.alpha_y - rho, *fit.platt)
+        fit.auc = ref.auc(data.yte, proba)
+        out.fits.append(fit)
     out.digest = int(counts.sum())
     return {"counts": counts.cpu().numpy(), "proba": proba}, out
+
+
+def log(msg: str) -> None:
+    print(f"control: {msg}", file=sys.stderr, flush=True)
+
+
+def fits_seen(job):
+    """Each fit's C, AUC and sigmoid, for the readings' lines."""
+    return [{"C": f.C, "auc": f.auc, "platt": f.platt} for f in job.fits]
 
 
 def with_stream_seed(cell):
@@ -112,17 +125,17 @@ def main(argv=None) -> int:
                 last = harness.last_job_outputs(fsk, os.path.join(ROOT, "build", "gkmbench"))
             fsk = None
             window = harness.Window(time.perf_counter() - t0, [job], 0, [])
-            numbers = harness.compare(cell, data, seed, last, window, "cuda")
+            numbers = harness.compare(cell, data, seed, last, window, "cuda", log)
             print(json.dumps({"workload": args.workload, "seed": seed,
                               "side": "program" + (f"+{args.fault}" if args.fault else ""),
-                              "iterations": job.iterations, "auc": job.auc,
-                              "platt": job.platt, "numbers": numbers}), flush=True)
+                              "iterations": job.iterations, "fits": fits_seen(job),
+                              "numbers": numbers}), flush=True)
         if args.control:
             last, job = control_outputs(cell, data, seed, "cuda")
             window = harness.Window(0.0, [job], 0, [])
-            numbers = harness.compare(cell, data, seed, last, window, "cuda")
+            numbers = harness.compare(cell, data, seed, last, window, "cuda", log)
             print(json.dumps({"workload": args.workload, "seed": seed, "side": "control",
-                              "iterations": job.iterations, "auc": job.auc,
+                              "iterations": job.iterations, "fits": fits_seen(job),
                               "numbers": numbers}), flush=True)
     return 0
 

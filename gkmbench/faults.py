@@ -16,6 +16,21 @@ def solve_unchanged(setattr):
             lambda Q, y, C, p, alpha0, eps, it: (alpha0, alpha0.sum() * 0, 0))
 
 
+def solve_unchanged_at_C100(setattr):
+    """The SVM's main solve returns its start unchanged when C is 100, and
+    solves at every other C: a fault that only one fit of a sweep shows."""
+    from fastsk_tpu_torch.svm import kernel_svm
+
+    real = kernel_svm._solve_general
+
+    def solve(Q, y, C, p, alpha0, eps, it):
+        if float(C.max()) == 100.0:
+            return alpha0, alpha0.sum() * 0, 0
+        return real(Q, y, C, p, alpha0, eps, it)
+
+    setattr(kernel_svm, "_solve_general", solve)
+
+
 def rho_altered(setattr):
     """The fitted bias comes out 1% high."""
     from fastsk_tpu_torch.svm import kernel_svm
@@ -102,9 +117,9 @@ def stream_seed_ignored(setattr):
     setattr(engine.DenseGkmEngine, "approx", lambda self, **kw: real(self, **dict(kw, seed=0)))
 
 
-FAULTS = {f.__name__: f for f in (solve_unchanged, rho_altered, welford_unchanged, half_windows,
-                                  counts_altered, auc_altered, iterations_altered, platt_sign,
-                                  platt_flat, stream_seed_ignored)}
+FAULTS = {f.__name__: f for f in (solve_unchanged, solve_unchanged_at_C100, rho_altered,
+                                  welford_unchanged, half_windows, counts_altered, auc_altered,
+                                  iterations_altered, platt_sign, platt_flat, stream_seed_ignored)}
 
 
 @contextlib.contextmanager

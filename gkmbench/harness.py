@@ -85,16 +85,30 @@ def resolve(value, config: dict, seed: int):
 
 
 @dataclass
+class FitOut:
+    """One ``fit`` of a job and the ``score`` that follows it (host
+    values)."""
+    C: float
+    alpha_y: np.ndarray
+    rho: float
+    platt: tuple  # the fitted sigmoid's (A, B)
+    auc: Optional[float] = None
+
+
+@dataclass
 class JobOut:
     """What one job leaves for the comparison (host values only)."""
-    auc: Optional[float] = None
-    alpha_y: Optional[np.ndarray] = None
-    rho: Optional[float] = None
-    platt: Optional[tuple] = None  # the fitted sigmoid's (A, B)
+    fits: List[FitOut] = field(default_factory=list)  # in the order of the calls
     iterations: int = 0
     stdevs: List[float] = field(default_factory=list)
     digest: Optional[int] = None  # the int64 sum of the job's exact counts
     seconds: float = 0.0  # the job's wall, host clock, synchronized
+
+
+def fit_Cs(cell: Cell, seed: int) -> List[float]:
+    """The C of each ``fit`` call of the cell's mix, in order."""
+    return [float(resolve(c["args"]["C"], cell.config, seed))
+            for c in cell.traffic["calls"] if c["call"] == "fit"]
 
 
 def counts_digest(fsk):
@@ -113,7 +127,9 @@ def counts_digest(fsk):
 def run_job(api, cell: Cell, data, seed: int, device: str, span: Callable):
     """One job as a user's script runs it: a ``FastSK`` from the
     configuration and the mix, then the mix's calls in order, each inside
-    ``span(call)``. Returns the ``FastSK`` and its ``JobOut``."""
+    ``span(call)``; each ``fit`` is read with its C once it returns, and
+    the AUC of a ``score`` goes to the fit before it. Returns the
+    ``FastSK`` and its ``JobOut``."""
     cfg, traffic = cell.config, cell.traffic
     kcfg = api.KernelConfig(device=device, **cfg.get("kernel_config", {}))
     fsk = api.FastSK(cfg["g"], cfg["m"], config=kcfg,
@@ -126,13 +142,12 @@ def run_job(api, cell: Cell, data, seed: int, device: str, span: Callable):
                 r = fsk.compute_kernel(data.Xtr, data.Xte, data.ytr, data.yte)
             else:
                 r = getattr(fsk, name)(**args)
-        if name == "score":
-            out.auc = float(r)
-    model = getattr(fsk, "_model", None)
-    if model is not None:
-        out.alpha_y = np.asarray(model.alpha_y_, dtype=np.float64)
-        out.rho = float(model.rho_)
-        out.platt = tuple(float(v) for v in model.platt_)
+        if name == "fit":
+            model = fsk._model
+            out.fits.append(FitOut(float(args["C"]), np.asarray(model.alpha_y_, dtype=np.float64),
+                                   float(model.rho_), tuple(float(v) for v in model.platt_)))
+        elif name == "score" and out.fits:
+            out.fits[-1].auc = float(r)
     out.iterations = int(fsk.iterations)
     out.stdevs = [float(s) for s in fsk.get_stdevs()]
     out.digest = counts_digest(fsk)
@@ -204,13 +219,30 @@ def last_job_outputs(fsk, workdir: str) -> dict:
     return {"counts": fsk.kernel_counts, "proba": proba}
 
 
+def check_name(name: str, C: float, multi: bool) -> str:
+    """A compared number's name: plain in a cell whose mix fits once, else
+    with the C of the fits it judges (``svm_gap_C0.001``)."""
+    return f"{name}_C{C:g}" if multi else name
+
+
+def check_names(cell: Cell, seed: int = 0) -> set:
+    """The names of the numbers that ``compare`` gives in ``cell``."""
+    Cs = fit_Cs(cell, seed)
+    multi = len(Cs) > 1
+    approx = bool(cell.traffic.get("construct", {}).get("approx", False))
+    return ({"counts"} | ({"stop", "sd_trace"} if approx else set())
+            | {check_name(k, C, multi) for C in Cs for k in ("svm_gap", "rho", "auc", "platt")}
+            | {check_name("proba", Cs[-1], multi)})
+
+
 def compare(cell: Cell, data, seed: int, last: dict, window: Window, device: str,
             log: Callable[[str], None] = lambda s: None) -> Dict[str, float]:
     """The numbers compared, each the worst over the jobs it covers: the
-    last job's counts and every job's count digest, the last job's
-    probabilities (``last``, from ``last_job_outputs``), every job's
-    alphas, bias, Platt sigmoid and AUC, approx mode's stop and sd
-    trace."""
+    last job's counts and every job's count digest, the last fit's
+    probabilities (``last``, from ``last_job_outputs``), every fit's
+    alphas, bias, Platt sigmoid and AUC, judged at its own C, approx
+    mode's stop and sd trace. The reference's kernel and Grams are built
+    once; each C of the mix has its own judge."""
     import torch
 
     from gkmbench import reference as ref
@@ -239,20 +271,34 @@ def compare(cell: Cell, data, seed: int, last: dict, window: Window, device: str
                         + [math.inf if j.digest is None else float(abs(int(j.digest) - digest))
                            for j in window.jobs])
     log(f"reference counts {time.perf_counter() - t0:.3f} s")
-    judge = ref.SvmJudge(counts, nt, data.ytr, data.yte, cfg["C"])
-    judge.cv_sigmoid()
-    log(f"reference folds {time.perf_counter() - t0:.3f} s")
-    worst = {"svm_gap": 0.0, "rho": 0.0, "auc": 0.0, "platt": 0.0}
+    Cs = fit_Cs(cell, seed)
+    multi = len(Cs) > 1
+    if any([f.C for f in j.fits] != Cs or any(f.auc is None for f in j.fits)
+           for j in window.jobs):
+        return dict(out, **{n: math.inf for n in check_names(cell, seed) if n not in out})
+    base = ref.SvmJudge(counts, nt, data.ytr, data.yte, Cs[0])
+    judges = {C: base if C == Cs[0] else base.at(C) for C in Cs}
+    ref.cv_sigmoids(list(judges.values()))
+    log(f"reference folds at {len(judges)} C {time.perf_counter() - t0:.3f} s")
+    worst: Dict[str, float] = {}
+    judged = set()  # a fit that reads the same as one judged already reads the same verdict
     for j in window.jobs:
-        if j.alpha_y is None or j.auc is None or j.platt is None:
-            return dict(out, svm_gap=math.inf, rho=math.inf, auc=math.inf, platt=math.inf,
-                        proba=math.inf)
-        verdict = dict(judge.judge(j.alpha_y, j.rho), auc=abs(j.auc - judge.test_auc(j.alpha_y, j.rho)),
-                       platt=judge.platt_gap(j.platt))
-        for k, v in verdict.items():
-            worst[k] = max(worst[k], v)
+        for f in j.fits:
+            key = (f.C, f.alpha_y.tobytes(), f.rho, f.platt, f.auc)
+            if key in judged:
+                continue
+            judged.add(key)
+            judge = judges[f.C]
+            verdict = dict(judge.judge(f.alpha_y, f.rho),
+                           auc=abs(f.auc - judge.test_auc(f.alpha_y, f.rho)),
+                           platt=judge.platt_gap(f.platt))
+            for k, v in verdict.items():
+                name = check_name(k, f.C, multi)
+                worst[name] = max(worst.get(name, 0.0), v)
     out.update(worst)
-    out["proba"] = judge.proba_gap(final.alpha_y, final.rho, final.platt, last["proba"])
+    fit = final.fits[-1]  # the model the job leaves, which save_predictions reads
+    out[check_name("proba", fit.C, multi)] = judges[fit.C].proba_gap(
+        fit.alpha_y, fit.rho, fit.platt, last["proba"])
     log(f"reference total {time.perf_counter() - t0:.3f} s")
     return out
 

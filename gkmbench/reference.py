@@ -13,25 +13,30 @@ bias, the AUC, approx mode's iterations and sd trace) only to judge them.
 - ``ThetaCounter`` / ``approx_reference``: approx mode's seeded stream of
   position subsets, each subset's exact partial kernel (k-mer counts a
   sequence, one f64 product), and the stop rule on the train block.
-- ``SvmJudge``: the C-SVC dual on the reference's own f64 kernel, judged
-  at the program's alphas: the KKT gap, the bias, the test probabilities
+- ``SvmJudge``: the C-SVC dual on the reference's own f64 kernel at one
+  C (``at`` gives the same Grams at another), judged at the program's
+  alphas: the KKT gap, the bias, the test probabilities
   and the test AUC of the program's decision values; and the program's
   Platt sigmoid against the reference's own, fitted on decision values
   of the reference's 5-fold cross-validation (``stratified_folds``,
-  ``cv_decisions``); ``auc`` is FastSK's AUC.
-- ``smo``: a plain SMO (LIBSVM's second-order working set), which solves
-  the reference's folds, and the control's whole problem
-  (``gkmbench/control.py``).
+  ``cv_decisions``, whose fold solves run in a pool of processes at the
+  cells' sizes: ``svm_solve.py``); ``auc`` is FastSK's AUC.
+- ``smo`` (``svm_solve.py``): a plain SMO (LIBSVM's second-order working
+  set), which solves the reference's folds, and the control's whole
+  problem (``gkmbench/control.py``).
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 import math
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from gkmbench.svm_solve import _kkt, cv_decisions, cv_decisions_at, smo  # noqa: F401
 
 # the stop rule's statistic is f32 in the configuration: a step whose f64
 # ratio lies within this share of the threshold is not held against the
@@ -282,36 +287,6 @@ def stratified_folds(y, k: int = 5) -> List[np.ndarray]:
     return [np.flatnonzero(fold_of == i) for i in range(k)]
 
 
-def cv_decisions(gram: np.ndarray, y: np.ndarray, C: float, folds, eps: float = 1e-3) -> np.ndarray:
-    """Each training row's decision value from the C-SVC that ``smo``
-    fits, in the dtype of ``gram``, on the rows of the other folds (f64
-    out)."""
-    dec = np.zeros(len(y), dtype=np.float64)
-    rows = np.arange(len(y))
-    for f in folds:
-        tr = np.setdiff1d(rows, f)
-        a, rho, _ = smo(np.ascontiguousarray(gram[np.ix_(tr, tr)]), y[tr], C, eps)
-        dec[f] = gram[np.ix_(f, tr)] @ (a * y[tr]).astype(gram.dtype) - rho
-    return dec
-
-
-def _kkt(grad: np.ndarray, y: np.ndarray, a: np.ndarray, C: float):
-    """(gap, rho) of a C-SVC dual point: the largest KKT violation m - M
-    over LIBSVM's I_up and I_low, and the bias as LIBSVM's
-    calculate_rho (the free alphas' mean of y grad, else the midpoint)."""
-    up = np.where(y > 0, a < C, a > 0)
-    low = np.where(y > 0, a > 0, a < C)
-    myg = -y * grad
-    gap = float(myg[up].max() - myg[low].min()) if up.any() and low.any() else 0.0
-    yg = y * grad
-    free = (a > 0) & (a < C)
-    if free.any():
-        rho = float(yg[free].mean())
-    else:
-        rho = float((yg[up].min() + yg[low].max()) / 2.0)
-    return gap, rho
-
-
 class SvmJudge:
     """The C-SVC problem of a job on the reference's kernel (f64): the
     train Gram of kernel rows (the ``linear`` kernel over rows that the
@@ -327,6 +302,13 @@ class SvmJudge:
         self.yte = np.asarray(yte)
         self.C = float(C)
         self._cv = None
+
+    def at(self, C: float) -> "SvmJudge":
+        """The same problem at another C: this judge's kernel and Grams,
+        its own cross-validated sigmoid."""
+        other = copy.copy(self)
+        other.C, other._cv = float(C), None
+        return other
 
     def judge(self, alpha_y: np.ndarray, rho: float) -> Dict[str, float]:
         """``svm_gap``: the KKT gap of the program's alphas on this
@@ -360,11 +342,10 @@ class SvmJudge:
     def cv_sigmoid(self):
         """(decision values, A, B, its NLL): the reference's Platt fit on
         the decision values of its own 5-fold cross-validation, each fold
-        solved by ``smo`` in f64. Worked out once."""
+        solved by ``smo`` in f64. Worked out once (``cv_sigmoids`` works
+        out several judges' at once)."""
         if self._cv is None:
-            dec = cv_decisions(self.gram, self.y, self.C, stratified_folds(self.y, 5))
-            A, B = sigmoid_train(dec, self.y)
-            self._cv = (dec, A, B, platt_nll(dec, self.y, A, B))
+            cv_sigmoids([self])
         return self._cv
 
     def platt_gap(self, platt) -> float:
@@ -375,79 +356,17 @@ class SvmJudge:
         return (platt_nll(dec, self.y, *platt) - best) / best
 
 
-def smo(gram: np.ndarray, y: np.ndarray, C: float, eps: float = 1e-3,
-        max_iter: Optional[int] = None):
-    """A plain SMO for min 0.5 a^T Q a - sum a, 0 <= a <= C, y^T a = 0,
-    Q = y y^T * gram, with LIBSVM's second-order working set and stop
-    (m - M < eps), in the dtype of ``gram``: (alpha, rho, iterations)."""
-    dt = gram.dtype
-    n = len(y)
-    y = y.astype(dt)
-    a = np.zeros(n, dtype=dt)
-    grad = -np.ones(n, dtype=dt)
-    qd = np.diag(gram).astype(dt)
-    up = y > 0  # a = 0: I_up holds y = +1, I_low y = -1
-    low = ~up
-    tau = 1e-12
-    max_iter = max_iter or max(10_000_000, 100 * n)
-    it = 0
-    while it < max_iter:
-        myg = -y * grad
-        i = int(np.argmax(np.where(up, myg, -np.inf)))
-        gmax = myg[i]
-        low_myg = np.where(low, myg, np.inf)
-        if gmax - low_myg.min() < eps:
-            break
-        b = gmax - low_myg
-        quad = np.maximum(qd[i] + qd - 2.0 * gram[i], tau)
-        obj = np.where(b > 0, -(b * b) / quad, np.inf)
-        j = int(np.argmin(obj))
-        if not np.isfinite(obj[j]):
-            break
-        it += 1
-        qi = y[i] * y * gram[i]
-        qj = y[j] * y * gram[j]
-        ai, aj = float(a[i]), float(a[j])
-        if y[i] != y[j]:
-            quad_ij = max(float(qd[i] + qd[j] + 2.0 * qi[j]), tau)
-            delta = (-grad[i] - grad[j]) / quad_ij
-            diff = ai - aj
-            ai += delta
-            aj += delta
-            if diff > 0:
-                if aj < 0:
-                    aj, ai = 0.0, diff
-            elif ai < 0:
-                ai, aj = 0.0, -diff
-            if diff > 0:
-                if ai > C:
-                    ai, aj = C, C - diff
-            elif aj > C:
-                aj, ai = C, C + diff
-        else:
-            quad_ij = max(float(qd[i] + qd[j] - 2.0 * qi[j]), tau)
-            delta = (grad[i] - grad[j]) / quad_ij
-            s = ai + aj
-            ai -= delta
-            aj += delta
-            if s > C:
-                if ai > C:
-                    ai, aj = C, s - C
-            elif aj < 0:
-                aj, ai = 0.0, s
-            if s > C:
-                if aj > C:
-                    aj, ai = C, s - C
-            elif ai < 0:
-                ai, aj = 0.0, s
-        dai, daj = ai - a[i], aj - a[j]
-        a[i], a[j] = ai, aj
-        grad += qi * dai + qj * daj
-        for t in (i, j):
-            up[t] = a[t] < C if y[t] > 0 else a[t] > 0
-            low[t] = a[t] > 0 if y[t] > 0 else a[t] < C
-    _, rho = _kkt(grad.astype(np.float64), y.astype(np.float64), a.astype(np.float64), C)
-    return a, rho, it
+def cv_sigmoids(judges: Sequence[SvmJudge]) -> None:
+    """Each judge's ``cv_sigmoid``, for judges of one problem (``at``) at
+    their Cs, with every fold solve of them in one pool."""
+    todo = [j for j in judges if j._cv is None]
+    if not todo:
+        return
+    y = todo[0].y
+    decs = cv_decisions_at(todo[0].gram, y, [j.C for j in todo], stratified_folds(y, 5))
+    for j, dec in zip(todo, decs):
+        A, B = sigmoid_train(dec, y)
+        j._cv = (dec, A, B, platt_nll(dec, y, A, B))
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:

@@ -9,7 +9,7 @@ import torch
 from gkmbench import control, harness
 from gkmbench.tests.tiny import tiny_cell
 
-CELLS = ["kat2b.train", "p219.train", "kat2b.approx"]
+CELLS = ["kat2b.train", "p219.train", "kat2b.approx", "kat2b.grid"]
 
 
 @pytest.fixture

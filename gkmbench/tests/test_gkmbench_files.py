@@ -32,7 +32,7 @@ def test_cell_loads_by_name(cell):
     assert c.workload["chips"] == 1
     assert c.config["name"] == c.workload["config"]
     assert harness.load_module("loaders", c.config["loader"]).load
-    assert {"counts", "svm_gap", "rho", "proba", "auc", "platt"} <= set(c.limits)
+    assert harness.check_names(c) == set(c.limits)
     names = {m["name"] for m in c.end_to_end}
     assert {"job_s", "setup_s"} <= names
     assert c.per_layer, "every cell reports a per-layer metric"

@@ -13,7 +13,7 @@ from gkmbench.run_view import RunView
 from gkmbench.tests.tiny import tiny_cell
 from gkmbench.trace import reduce_trace
 
-CELLS = ["kat2b.train", "p219.train", "kat2b.approx"]
+CELLS = ["kat2b.train", "p219.train", "kat2b.approx", "kat2b.grid"]
 NEW = ["encode.host_s", "engine.stage_s", "svm.iter_us", "svm.iters"]
 OLD = ["api.kernel_s", "api.fit_s", "engine.host_s", "count_roofline", "theta.ms",
        "svm.device_s", "device.idle_pct", "job_mfu"]

@@ -128,3 +128,31 @@ def test_platt_and_auc_judged_against_the_reference():
 def test_auc_counts_ties_wrong():
     assert ref.auc([0, 1, 0, 1], [0.1, 0.2, 0.2, 0.3]) == pytest.approx(0.75)
     assert ref.auc([1, 0], [0.0, 1.0]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_pooled_fold_solves_are_the_serial_ones(dtype):
+    from gkmbench.loaders.ragged_fixed import ragged_set
+
+    X, y = ragged_set(9, 70, 20, 40, 4, [1, 2, 3, 4, 1, 2, 3, 4])
+    K = ref.normalize(ref.allpairs_counts(X, 6, 3, "cpu")).numpy()
+    gram = (K @ K.T).astype(dtype)
+    ys = np.where(y == 1, 1.0, -1.0).astype(dtype)
+    folds = ref.stratified_folds(ys, 5)
+    Cs = [0.01, 1.0, 100.0]
+    serial = [ref.cv_decisions(gram, ys, C, folds) for C in Cs]
+    pooled = ref.cv_decisions_at(gram, ys, Cs, folds, workers=3)
+    assert all(np.array_equal(a, b) for a, b in zip(serial, pooled))
+
+
+def test_judges_at_other_Cs_share_the_problem():
+    X, y = seqs(8, 50, 30, 40, 4), np.array([0, 1] * 25)
+    nt = 40
+    base = ref.SvmJudge(ref.allpairs_counts(X, 6, 3, "cpu"), nt, y[:nt], y[nt:], 1.0)
+    judges = [base, base.at(0.1), base.at(10.0)]
+    ref.cv_sigmoids(judges)
+    for j in judges:
+        alone = ref.SvmJudge(ref.allpairs_counts(X, 6, 3, "cpu"), nt, y[:nt], y[nt:], j.C)
+        assert j.gram is base.gram
+        dec, A, B, nll = alone.cv_sigmoid()
+        assert np.array_equal(j.cv_sigmoid()[0], dec) and j.cv_sigmoid()[1:] == (A, B, nll)

@@ -13,7 +13,7 @@ from gkmbench import control, faults, harness, run
 from gkmbench.tests.tiny import tiny_cell
 from gkmbench.trace import reduce_trace
 
-CELLS = ["kat2b.train", "p219.train", "kat2b.approx"]
+CELLS = ["kat2b.train", "p219.train", "kat2b.approx", "kat2b.grid"]
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
@@ -42,6 +42,9 @@ FAULTS = [
     ("kat2b.approx", "iterations_altered"),
     ("kat2b.train", "platt_sign"), ("p219.train", "platt_sign"), ("kat2b.approx", "platt_sign"),
     ("kat2b.train", "platt_flat"), ("p219.train", "platt_flat"), ("kat2b.approx", "platt_flat"),
+    ("kat2b.grid", "solve_unchanged"), ("kat2b.grid", "solve_unchanged_at_C100"),
+    ("kat2b.grid", "rho_altered"), ("kat2b.grid", "half_windows"), ("kat2b.grid", "counts_altered"),
+    ("kat2b.grid", "auc_altered"), ("kat2b.grid", "platt_sign"), ("kat2b.grid", "platt_flat"),
 ]
 
 
@@ -51,6 +54,50 @@ def test_fault_in_the_timed_path_is_not_correct(cell, fault, monkeypatch):
     faults.FAULTS[fault](monkeypatch.setattr)
     r = run.run(c, 23, 0.2, False, device="cpu")
     assert not r["correct"], r["checks"]
+
+
+def test_a_fault_at_one_C_fails_that_Cs_numbers_only(monkeypatch):
+    faults.FAULTS["solve_unchanged_at_C100"](monkeypatch.setattr)
+    r = run.run(tiny_cell("kat2b.grid"), 29, 0.2, False, device="cpu")
+    over = {n for n, c in r["checks"].items() if c["value"] is None or c["value"] > c["limit"]}
+    assert not r["correct"] and over and all(n.endswith("_C100") for n in over), r["checks"]
+    assert run.run(tiny_cell("kat2b.train"), 29, 0.2, False, device="cpu")["correct"]
+
+
+SINGLE_FIT = {
+    "kat2b.train": {"counts", "svm_gap", "rho", "proba", "platt", "auc"},
+    "p219.train": {"counts", "svm_gap", "rho", "proba", "platt", "auc"},
+    "kat2b.approx": {"counts", "svm_gap", "rho", "proba", "platt", "auc", "stop", "sd_trace"},
+}
+
+
+@pytest.mark.parametrize("cell", sorted(SINGLE_FIT))
+def test_a_single_fit_cell_keeps_its_plain_names(cell, tmp_path):
+    c = tiny_cell(cell)
+    data = harness.load_module("loaders", c.config["loader"]).load(c.config, 31, harness.HERE)
+    fsk, job = harness.run_job(harness.import_program(), c, data, 31, "cpu", harness.no_span)
+    assert [f.C for f in job.fits] == [c.config["C"]]
+    last = harness.last_job_outputs(fsk, str(tmp_path))
+    numbers = harness.compare(c, data, 31, last, harness.Window(0.0, [job, job], 0, []), "cpu")
+    assert set(numbers) == SINGLE_FIT[cell] == harness.check_names(c)
+
+
+def test_a_sweep_judges_each_fit_at_its_own_C(tmp_path):
+    c = tiny_cell("kat2b.grid")
+    data = harness.load_module("loaders", c.config["loader"]).load(c.config, 37, harness.HERE)
+    fsk, job = harness.run_job(harness.import_program(), c, data, 37, "cpu", harness.no_span)
+    assert [f.C for f in job.fits] == [0.001, 0.01, 0.1, 1, 10, 100]
+    assert all(f.auc is not None and f.platt is not None for f in job.fits)
+    last = harness.last_job_outputs(fsk, str(tmp_path))
+    good = harness.compare(c, data, 37, last, harness.Window(0.0, [job], 0, []), "cpu")
+    assert set(good) == harness.check_names(c) and harness.passed(harness.checks(good, c.limits))
+    # the C = 100 fit's alphas judged at C = 0.001 break the box there
+    swap = {0.001: 100.0, 100.0: 0.001}
+    fits = sorted((harness.FitOut(swap.get(f.C, f.C), f.alpha_y, f.rho, f.platt, f.auc)
+                   for f in job.fits), key=lambda f: f.C)
+    swapped = harness.JobOut(fits=fits, digest=job.digest)
+    bad = harness.compare(c, data, 37, last, harness.Window(0.0, [swapped], 0, []), "cpu")
+    assert bad["svm_gap_C0.001"] > c.limits["svm_gap_C0.001"]
 
 
 STREAM_SEEDS = [1, 2, 2**31 + 5]
