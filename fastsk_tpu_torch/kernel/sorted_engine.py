@@ -15,6 +15,10 @@ a pass at a time by default. Under ``KernelConfig.mesh`` the exact sums
 rows x theta (``mesh_state="sharded"``) or private replicas over theta
 (``"replicated"``), parallel/sharding.py; the Welford path runs on
 ``config.device``, as the JAX engine's never reads the mesh.
+
+A pass's sort and products are spans of ``ops/sorted_theta.py``; approx
+mode's done-flag read, once a batch, is the span ``theta.pull``, as in
+the dense engine.
 """
 
 from __future__ import annotations
@@ -27,11 +31,12 @@ import torch
 
 from ..ops.combinatorics import enumerate_combinations
 from ..ops.encode import EncodedSeqs
-from ..ops.gkm import welford_step
+from ..ops import gkm  # the Welford step by its module: one patch reaches both engines
 from ..ops.sorted_theta import hash_plan, sorted_theta_pass
 from .config import KernelConfig
 from .device_counts import DeviceCounts, _carry_spill
 from ..parallel import sharding as shd
+from ..utils.observe import span
 from .engine import ApproxResult, theta_stream
 
 
@@ -354,12 +359,14 @@ class SortedGkmEngine:
         for start in range(0, total, bsz):
             batch = stream[start : start + bsz]
             for theta in batch:
-                state, sd = welford_step(
+                state, sd = gkm.welford_step(
                     state, self._pass(theta), n_train=self.enc.n_train, conv_delta=conv_delta,
                     max_iters=max_iters,
                 )
                 sd_buf.append(sd)
-            if bool(state[3]):
+            with span("theta.pull"):
+                done = bool(state[3])
+            if done:
                 break
             # the int32 count sum spills as the exact stream does (the
             # Welford mean and variance stay f32 on the device)

@@ -28,6 +28,11 @@ Exactness: count matrices are integer-valued; a pass's entries are at most
 largest count fits bf16 (<= 256) on the card, f32 (no TF32) otherwise,
 both exact below 2^24 (``p_max <= 4095``), and f64 past that
 (``count_split``, the JAX package's int8 digit range): exact below 2^53.
+
+A pass's two stages are the spans ``sorted.sort`` (phase 1) and
+``sorted.products`` (the slab products) of ``utils/observe.py``; the
+counters ``sorted.passes`` and ``sorted.slabs`` count the passes and the
+slab products, always on, from values the host already holds.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import List, Tuple
 
 import torch
 
+from ..utils.observe import count, span
 from .gkm import gram
 
 _WORD_BITS = 62  # each int64 word (and a packed key) stays below 2^62
@@ -124,6 +130,7 @@ def _pass_phase1(windows, seq_of, theta, *, base, code_min, n, dpw, n_words):
     diag.index_add_(0, pseq[single], pcount[single] ** 2)
     multi = ~single
     mrank = torch.cumsum(first[multi], 0) - 1
+    count("sorted.passes")
     return diag, pseq[multi], mrank, pcount[multi]
 
 
@@ -159,6 +166,7 @@ def pass_products(diag, mseq, mrank, mcount, *, n, run_width, slab, count_split,
         )
         n_runs = bounds.shape[0] - 1
         bnd = bounds.tolist()
+    count("sorted.slabs", n_runs)
     if n_runs:
         if count_split:
             dtype = torch.float64
@@ -193,8 +201,10 @@ def sorted_theta_pass(
 ) -> torch.Tensor:
     """One exact counting pass over subset ``theta``: ``K_theta [n, n]``
     int32, or its row strip ``[row0, row0 + n_rows)`` (``pass_products``)."""
-    diag, mseq, mrank, mcount = _pass_phase1(
-        windows, seq_of, theta, base=base, code_min=code_min, n=n, dpw=dpw, n_words=n_words,
-    )
-    return pass_products(diag, mseq, mrank, mcount, n=n, run_width=run_width, slab=slab,
-                         count_split=count_split, row0=row0, n_rows=n_rows)
+    with span("sorted.sort"):
+        diag, mseq, mrank, mcount = _pass_phase1(
+            windows, seq_of, theta, base=base, code_min=code_min, n=n, dpw=dpw, n_words=n_words,
+        )
+    with span("sorted.products"):
+        return pass_products(diag, mseq, mrank, mcount, n=n, run_width=run_width, slab=slab,
+                             count_split=count_split, row0=row0, n_rows=n_rows)

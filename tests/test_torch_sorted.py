@@ -5,8 +5,13 @@
 numpy inputs given to both packages: every pass, exact sum and approx
 count integer-equal, iterations equal, the sd trace within rtol 1e-4 (the
 f32 Welford statistic summed in another order, as in
-``tests/test_torch_theta.py``).
+``tests/test_torch_theta.py``). ``FastSK``'s approx job on protein
+letters, which takes this engine, against the benchmark's plain
+reference, and the engine's spans and counters.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -21,6 +26,11 @@ from fastsk_tpu_torch.ops.combinatorics import enumerate_combinations, sample_co
 
 import oracle
 from conftest import random_ragged_seqs
+
+# the benchmark's plain reference (``gkmbench/``) lies at the repo root
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
 
 
 def _engines(X, g, m, **cfg):
@@ -180,3 +190,77 @@ def test_hash_plan_and_refusals():
     assert sorted_theta.hash_plan(100, 20) == (9, 3)
     with pytest.raises(ValueError, match="16384"):
         TSorted(encode_sequences([[1, 2] * 8200]), 4, 2, T.KernelConfig(device="cpu"))
+
+
+# ------------------------------------------------ the API's approx job
+
+
+def _protein_set(seed):
+    """A protein-shaped ragged set: 40 sequences of 16-60 letters over 24,
+    so ``hash_base**k`` at g 8, m 4 (24^4) passes ``b_max_dense`` and
+    ``FastSK`` takes the sorted engine by the alphabet alone."""
+    rng = np.random.default_rng(seed)
+    X = random_ragged_seqs(rng, 40, 16, 60, alphabet=24)
+    X[0] = list(range(1, 25))  # every letter observed: hash_base 24
+    return X, np.array([0, 1] * 20)
+
+
+def _approx_job(X, y, seed, **fsk_kw):
+    fsk = T.FastSK(8, 4, approx=True, delta=0.025, seed=seed,
+                   config=T.KernelConfig(device="cpu", device_resident=True), **fsk_kw)
+    built = []
+    real = fsk._make_engine
+    fsk._make_engine = lambda enc: built.append(real(enc)) or built[-1]
+    fsk.compute_kernel(X[:30], X[30:], y[:30], y[30:])
+    assert [type(e) for e in built] == [TSorted]
+    return fsk
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_sorted_approx_job_follows_the_plain_reference(seed):
+    """FastSK's default approx call on protein letters against the
+    benchmark's plain reference (``gkmbench/reference.py``: PyTorch and
+    NumPy, nothing of the program): the same iterations by the reference's
+    own stop rule, bit-equal counts, no step that contradicts the rule, and
+    the sd trace within 1e-5."""
+    from gkmbench import reference as ref
+
+    X, y = _protein_set(seed)
+    fsk = _approx_job(X, y, seed)
+    r = ref.approx_reference(X, 30, 8, 4, seed, 0.025, None, -1, "cpu")
+    assert r["iters"] == fsk.iterations
+    judged = ref.approx_reference(X, 30, 8, 4, seed, 0.025, fsk.iterations, -1, "cpu")
+    assert judged["stop"] == 0
+    np.testing.assert_array_equal(judged["counts"].numpy(), fsk.kernel_counts)
+    assert ref.sd_gap(fsk.get_stdevs(), judged["sd"]) < 1e-5
+    if fsk.iterations < len(enumerate_combinations(8, 4)):
+        late = ref.approx_reference(X, 30, 8, 4, seed, 0.025, fsk.iterations + 1, -1, "cpu")
+        assert late["stop"] >= 1
+
+
+def test_sorted_passes_slabs_and_spans_are_counted():
+    """The counters ``sorted.passes`` (one a pass) and ``sorted.slabs``
+    (the slab products) are always on; under a recording profiler the
+    spans ``sorted.sort``, ``sorted.products`` and ``theta.pull`` are
+    entered once a pass; neither changes the counts or the sd trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastsk_tpu_torch.utils import observe
+
+    X, y = _protein_set(3)
+    before = observe.counters()
+    plain = _approx_job(X, y, 3)
+    moved = observe.counters() - before
+    passes = plain.iterations
+    assert moved["sorted.passes"] == passes and moved["sorted.slabs"] >= 1
+    assert not [k for k in moved if k.endswith((".span_s", ".spans"))]
+
+    before = observe.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = _approx_job(X, y, 3)
+    moved = observe.counters() - before
+    assert moved["sorted.passes"] == passes
+    for name in ("sorted.sort", "sorted.products", "theta.pull"):
+        assert moved[f"{name}.spans"] == passes and moved[f"{name}.span_s"] > 0, name
+    np.testing.assert_array_equal(traced.kernel_counts, plain.kernel_counts)
+    assert traced.get_stdevs() == plain.get_stdevs()
