@@ -54,15 +54,25 @@ raises and the exit code is non-zero:
           for 6 problems (the main solve, then the 5 Platt folds in one
           batch), AUC 0.904993 to 6 decimals and |AUC - 0.903321| <= 0.005.
 5b. theta-dense  KAT2B (g=8, m=4) through exact_engine="theta": the
-          dense theta engine (kernel/engine.py, no kernel of its own),
-          device-resident; counts integer-equal to phase 5's kernel A
-          counts; kernel_s, ms a theta, peak memory, and a theta's time
-          split with CUDA events (histogram, products, one Welford step).
+          dense theta engine (kernel/engine.py), device-resident; counts
+          integer-equal to phase 5's kernel A counts; every subset on the
+          u8 route (theta_gram.routes.u8_wgmma), one theta Gram launch a
+          batch; kernel_s, ms a theta, peak memory, and a theta's time
+          split with CUDA events (histogram, cast, products, one Welford
+          step).
 5c. approx-kat2b  FastSK(8, 4, approx=True, delta=0.025, seed=0) on KAT2B
-          (device-resident) -> fit (C=1; kernel B twice for 6 problems)
-          -> score("auc") within 0.02 of 0.904993; the first 8 thetas
-          with skip_variance integer-equal to the port on the CPU, and
-          the same Welford call on the CPU: equal iterations and counts.
+          (device-resident; every subset on the u8 route, one theta Gram
+          launch a subset: the kernels line's count) -> fit (C=1; kernel
+          B twice for 6 problems) -> score("auc") within 0.02 of
+          0.904993; the first 8 thetas with skip_variance integer-equal
+          to the port on the CPU, and the same Welford call on the CPU:
+          equal iterations and counts.
+5d. theta-gram  the theta Gram kernel (csrc/theta_gram.cu, the dense
+          engine's u8 route) at KAT2B's g13 m7 shape (7,020 x 15,625
+          buckets, one subset's counts): one launch, equal to the exact
+          product and symmetric; timed beside the bf16 torch.mm it
+          replaced, cuBLAS bf16 with K padded to a multiple of 8, both
+          operand casts and its bound (utils/roofline.py:theta_gram_bound).
 6. golden tests/golden/ep_sl at g=6, m=2 with device_resident=False on the
           card: the f64 kernel equals ep_sl_g6m2.txt bit for bit.
 7. packed kernels D, E and G (the packed engine's band, pair-list and
@@ -302,6 +312,19 @@ def launched(before, names) -> dict:
     return {n: now[f"{n}.launches"] - before[f"{n}.launches"] for n in names}
 
 
+def theta_gram_taken(before) -> dict:
+    """The dense engine's products since ``before``, a snapshot of
+    ``counters()``: the subsets each route took (``theta_gram.routes.*``,
+    ops/gkm.py:theta_gram) and the theta Gram kernel's launches."""
+    from fastsk_tpu_torch.ops import gkm
+
+    now = counters()
+    out = {r: now[f"theta_gram.routes.{r}"] - before[f"theta_gram.routes.{r}"]
+           for r in (gkm.U8_ROUTE, *gkm.ROUTE_DTYPES)}
+    out["launches"] = launched(before, ("theta_gram_launch",))["theta_gram_launch"]
+    return out
+
+
 def cuda_ms(fn, *args, **kwargs):
     """(result, milliseconds) of one call, timed with CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -312,6 +335,18 @@ def cuda_ms(fn, *args, **kwargs):
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop)
+
+
+def mean_ms(fn, *args, reps: int = 20) -> float:
+    """Milliseconds a call of ``fn(*args)``, warmed up: the mean of ``reps``
+    calls timed together with CUDA events, each output dropped before the
+    next call (the allocator reuses its block, as a job's loop does)."""
+    def calls():
+        for _ in range(reps):
+            fn(*args)
+
+    fn(*args)
+    return cuda_ms(calls)[1] / reps
 
 
 def wall(fn, *args, **kwargs):
@@ -765,30 +800,31 @@ def welford_ms(ks_int) -> float:
     return cuda_ms(welford_step, state, ks_int, **kw)[1]
 
 
-def dense_split(eng) -> dict:
+def dense_split(eng, reps: int = 20) -> dict:
     """Where a dense theta's time goes (CUDA events, ms a theta, warmed
-    up): one batch's histogram (ops/gkm.py:_counts_for_batch), its
-    products (count_gram_int32), one theta's product alone (the Welford
-    loop's unit) and one Welford step."""
+    up): one batch's histogram (ops/gkm.py:_counts_for_batch), its cast
+    to the route's operand (theta_operand), its products (theta_gram over
+    the batch), one theta's product alone (the Welford loop's unit, the
+    mean of ``reps`` calls) and one Welford step."""
     from fastsk_tpu_torch.ops import gkm
     from fastsk_tpu_torch.ops.combinatorics import enumerate_combinations
 
     thetas = enumerate_combinations(eng.g, eng.k)[: eng.theta_batch]
     batch = eng._batch(thetas)
-    kw = {key: v for key, v in eng._static_kwargs().items()
-          if key not in ("matmul_dtype", "count_split")}
+    kw = eng._hash_kwargs()
     gkm._counts_for_batch(eng._ids, eng._lengths, batch, **kw)
     counts, hist_ms = cuda_ms(gkm._counts_for_batch, eng._ids, eng._lengths, batch, **kw)
-    counts = counts.to(eng.matmul_dtype)
-    gkm.count_gram_int32(counts, eng.count_split)
-    _, prod_ms = cuda_ms(gkm.count_gram_int32, counts, eng.count_split)
-    ks, one_ms = cuda_ms(gkm.gram, counts[0], counts[0])
+    gkm.theta_operand(counts, eng.route)
+    c, cast_ms = cuda_ms(gkm.theta_operand, counts, eng.route)
+    gkm.theta_gram(c, eng.route)
+    _, prod_ms = cuda_ms(gkm.theta_gram, c, eng.route)
+    ks = gkm.theta_gram(c[:1], eng.route)
+    one_ms = mean_ms(gkm.theta_gram, c[:1], eng.route, reps=reps)
     t = len(thetas)
     return dict(
-        thetas_timed=t, histogram_ms=hist_ms / t, products_ms=prod_ms / t,
-        product_one_theta_ms=one_ms, welford_ms=welford_ms(ks.to(torch.int32)),
-        matmul_dtype=str(eng.matmul_dtype), theta_batch=eng.theta_batch,
-        row_chunk=eng.row_chunk,
+        thetas_timed=t, histogram_ms=hist_ms / t, cast_ms=cast_ms / t, products_ms=prod_ms / t,
+        product_one_theta_ms=one_ms, welford_ms=welford_ms(ks), route=eng.route,
+        theta_batch=eng.theta_batch, row_chunk=eng.row_chunk,
     )
 
 
@@ -824,8 +860,9 @@ def sorted_split(eng, n_thetas: int = 4) -> dict:
 def theta_dense_phase(dev, a_counts, Xtr, Xte) -> dict:
     """Phase 5b: KAT2B (g=8, m=4) through exact_engine="theta", the dense
     engine, device-resident: its counts integer-equal to kernel A's of
-    phase 5 (``a_counts``, on the card); kernel_s, ms a theta, peak memory
-    and the split of a theta's time."""
+    phase 5 (``a_counts``, on the card), every subset on the u8 route at
+    one theta Gram launch a batch; kernel_s, ms a theta, peak memory and
+    the split of a theta's time."""
     from fastsk_tpu_torch import FastSK, KernelConfig
     from fastsk_tpu_torch.kernel.engine import DenseGkmEngine
     from fastsk_tpu_torch.ops.combinatorics import nchoosek
@@ -835,17 +872,75 @@ def theta_dense_phase(dev, a_counts, Xtr, Xte) -> dict:
     # the host's share of kernel_s: encoding and the engine's set-up
     eng, setup_s = wall(lambda: fsk._make_exact_engine(encode_sequences(Xtr, Xte)))
     require(isinstance(eng, DenseGkmEngine), f"exact_engine='theta' took {type(eng).__name__}")
+    before = counters()
     (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, Xtr, Xte)
+    taken = theta_gram_taken(before)
     counts = fsk._counts_dev
     equal = counts.hi is None and torch.equal(counts.counts, a_counts)
     thetas = nchoosek(8, 4)
+    want = dict(u8_wgmma=thetas, bf16=0, f32=0, f64=0, launches=-(-thetas // eng.theta_batch))
     fields = dict(
         dataset="KAT2B", g=8, m=4, n=eng.n, p_max=eng.p_max, buckets=eng.b_total,
         thetas=thetas, kernel_s=kernel_s, ms_a_theta=kernel_s * 1e3 / thetas,
-        setup_s=setup_s, peak_mib=peak, counts_equal_kernel_a=equal, split=dense_split(eng),
+        setup_s=setup_s, peak_mib=peak, counts_equal_kernel_a=equal, route=eng.route,
+        theta_batch=eng.theta_batch, theta_gram=taken, split=dense_split(eng),
     )
     emit("theta-dense", **fields)
     require(equal, "the dense theta engine's KAT2B counts differ from kernel A's")
+    require(taken == want, f"the exact dense run's products: {taken}, not {want}")
+    return fields
+
+
+def theta_gram_phase(dev, Xtr, Xte, reps: int = 20) -> dict:
+    """Phase 5d: the theta Gram kernel (csrc/theta_gram.cu) at KAT2B's g13
+    m7 shape: one subset's counts (7,020 x 15,625 buckets, the dense
+    engine's own histogram) through the u8 route, held to the exact
+    product (the card's f64 product, integers below 2^53, as int64);
+    each timed with CUDA events, the mean of ``reps`` calls: the kernel,
+    the product the route replaced (bf16 torch.mm with f32 outputs, cast
+    to int32), cuBLAS bf16 with K padded to a multiple of 8 (the
+    library's best), both operand casts, and the kernel's bound."""
+    from fastsk_tpu_torch import KernelConfig
+    from fastsk_tpu_torch.kernel.engine import DenseGkmEngine
+    from fastsk_tpu_torch.ops import gkm
+    from fastsk_tpu_torch.ops.combinatorics import enumerate_combinations
+    from fastsk_tpu_torch.ops.encode import encode_sequences
+    from fastsk_tpu_torch.utils.roofline import theta_gram_bound
+
+    eng = DenseGkmEngine(encode_sequences(Xtr, Xte), 13, 7, KernelConfig(device=dev))
+    require(eng.route == "u8_wgmma", f"KAT2B g13 m7 took the {eng.route} route")
+    theta = eng._batch(enumerate_combinations(13, 6)[:1])
+    counts = gkm._counts_for_batch(eng._ids, eng._lengths, theta, **eng._hash_kwargs())
+    n, b = counts.shape[1], counts.shape[2]
+    c = gkm.theta_operand(counts, "u8_wgmma")
+    before = counters()
+    got = gkm.theta_gram(c, "u8_wgmma")
+    launches = launched(before, ("theta_gram_launch",))["theta_gram_launch"]
+    x = counts[0].to(torch.float64)
+    want = (x @ x.T).to(torch.int64)
+    del x
+    err = int((got.to(torch.int64) - want).abs().max())
+    symmetric = bool(torch.equal(got, got.T))
+    del want, got
+    kernel_ms = mean_ms(gkm.theta_gram, c, "u8_wgmma", reps=reps)
+    cast_u8_ms = mean_ms(gkm.theta_operand, counts, "u8_wgmma", reps=reps)
+    cast_bf16_ms = mean_ms(counts.to, torch.bfloat16, reps=reps)
+    a = counts[0].to(torch.bfloat16)
+    torch_mm_ms = mean_ms(lambda: gkm.gram(a, a).to(torch.int32), reps=reps)
+    ap = torch.nn.functional.pad(a, (0, -b % 8))
+    del a
+    padded_ms = mean_ms(lambda: torch.mm(ap, ap.T, out_dtype=torch.float32), reps=reps)
+    del ap, c, counts
+    torch.cuda.empty_cache()
+    fields = dict(
+        dataset="KAT2B", g=13, m=7, n=n, buckets=b, k_pad=int(-(-b // 128) * 128),
+        route=eng.route, launches=launches, max_abs_err=err, symmetric=symmetric,
+        kernel_ms=kernel_ms, torch_mm_bf16_ms=torch_mm_ms, cublas_bf16_padded_ms=padded_ms,
+        cast_u8_ms=cast_u8_ms, cast_bf16_ms=cast_bf16_ms, **theta_gram_bound(n, b),
+    )
+    emit("theta-gram", **fields)
+    require(launches == 1, f"the theta Gram took {launches} launches")
+    require(err == 0 and symmetric, f"the theta Gram differs from the exact product: {err}")
     return fields
 
 
@@ -854,14 +949,19 @@ def approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte, cpu_iters: int = 8) -> dict:
     device-resident, then fit (C-SVC, C=1, kernel B) and score("auc"): AUC
     within 0.02 of the exact 0.904993. The card is held to the port on the
     CPU: the first ``cpu_iters`` thetas with skip_variance, counts
-    integer-equal; the same Welford call, equal iterations and counts."""
+    integer-equal; the same Welford call, equal iterations and counts. The
+    run's products all take the u8 route, one theta Gram launch a
+    subset."""
     from fastsk_tpu_torch import FastSK, KernelConfig
     from fastsk_tpu_torch.kernel.engine import DenseGkmEngine
+    from fastsk_tpu_torch.ops.combinatorics import nchoosek
     from fastsk_tpu_torch.ops.encode import encode_sequences
 
     fsk = FastSK(8, 4, approx=True, delta=0.025, seed=0,
                  config=KernelConfig(device=dev, device_resident=True))
+    before = counters()
     (_, kernel_s), peak = peak_mib(wall, fsk.compute_kernel, Xtr, Xte, Ytr, Yte)
+    taken = theta_gram_taken(before)
     before = counters()
     _, fit_s = wall(fsk.fit, C=1.0)
     auc, score_s = wall(fsk.score, "auc")
@@ -873,6 +973,11 @@ def approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte, cpu_iters: int = 8) -> dict:
         and float((torch.diagonal(k_dev) - 1).abs().max()) < 1e-6
     )
     enc = encode_sequences(Xtr, Xte)
+    eng = fsk._make_engine(enc)
+    # a batch runs whole: the subsets past the stop in its batch are
+    # computed and masked, so launches round the iterations up to a batch
+    subsets = min(nchoosek(8, 4), -(-fsk.iterations // eng.theta_batch) * eng.theta_batch)
+    want = dict(u8_wgmma=subsets, bf16=0, f32=0, f64=0, launches=subsets)
     card_sv = DenseGkmEngine(enc, 8, 4, KernelConfig(device=dev)).approx(
         max_iters=cpu_iters, skip_variance=True, seed=0)
     cpu_sv, cpu_sv_s = wall(DenseGkmEngine(enc, 8, 4, KernelConfig(device="cpu")).approx,
@@ -889,6 +994,7 @@ def approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte, cpu_iters: int = 8) -> dict:
         kernel_s=kernel_s, ms_a_theta=kernel_s * 1e3 / max(fsk.iterations, 1), peak_mib=peak,
         fit_s=fit_s, score_s=score_s, auc=auc, auc_exact=AUC_KAT2B,
         last_sd=float(sd_card[-1]) if len(sd_card) else None, launches=launches,
+        route=eng.route, theta_batch=eng.theta_batch, theta_gram=taken,
         outputs_ok=outputs_ok, cpu_skip_variance_iters=cpu_iters,
         cpu_skip_variance_s=cpu_sv_s, skip_variance_counts_equal_cpu=sv_equal,
         cpu_welford_s=cpu_w_s, cpu_welford_iterations=cpu_w.iters,
@@ -896,6 +1002,8 @@ def approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte, cpu_iters: int = 8) -> dict:
     )
     emit("approx-kat2b", **fields)
     require(outputs_ok, "the approx KAT2B kernel is malformed")
+    require(isinstance(eng, DenseGkmEngine), f"approx KAT2B took {type(eng).__name__}")
+    require(taken == want, f"the approx run's products: {taken}, not {want}")
     require(launches == dict(smo_solve=2, problems=6),
             f"the approx C-SVC fit did not launch kernel B twice for 6 problems: {launches}")
     require(abs(auc - AUC_KAT2B) <= 0.02, f"approx KAT2B AUC {auc} is off the exact {AUC_KAT2B}")
@@ -2992,9 +3100,10 @@ def main() -> None:
     a_counts = fsk._counts_dev.counts
     del fsk, k_dev
     torch.cuda.empty_cache()
-    theta_dense_phase(dev, a_counts, Xtr, Xte)
-    _, approx_ref = approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte)
+    dense = theta_dense_phase(dev, a_counts, Xtr, Xte)
+    approx, approx_ref = approx_kat2b_phase(dev, Xtr, Xte, Ytr, Yte)
     torch.cuda.empty_cache()
+    theta_gram = theta_gram_phase(dev, Xtr, Xte)
     # the theta mesh, checkpoints and two processes, on the same counts
     theta_mesh_phase(dev, a_counts, Xtr, Xte, Ytr, Yte, approx_ref)
     checkpoint_phase(dev, a_counts, Xtr, Xte, approx_ref)
@@ -3171,6 +3280,21 @@ def main() -> None:
                 **{f"s1_{key}": s1["medium"]["s1"][key] for key in (
                     "ms", "plain_ms", "max_abs_err", "bound_ms")},
                 "s1_launches": mesh["launches"]["packed_s1"],
+            },
+            {
+                # launches: phase 5c's approx run (one a subset) and phase
+                # 5b's exact run (one a batch); the times are phase 5d's.
+                # No plain time: the plain version (an int64 product) runs
+                # on the CPU only; library_ms is cuBLAS bf16 with K padded
+                "name": "theta_gram_launch", "route": "cuda",
+                "source": "fastsk_tpu_torch/csrc/theta_gram.cu", "replaces": None,
+                "launches": approx["theta_gram"]["launches"],
+                "exact_launches": dense["theta_gram"]["launches"],
+                "max_abs_err": theta_gram["max_abs_err"],
+                "ms": theta_gram["kernel_ms"], "plain_ms": None,
+                "bound_ms": theta_gram["bound_ms"], "bound_by": theta_gram["bound_by"],
+                "library_ms": theta_gram["cublas_bf16_padded_ms"],
+                "replaced_ms": theta_gram["torch_mm_bf16_ms"],
             },
             {
                 # the top-level numbers are the `current` variant's at KAT2B;

@@ -22,7 +22,7 @@ from typing import List, Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fastsk_tpu_torch")
 CSRC = os.path.join(_PKG, "csrc")
-KERNEL_SOURCES = ("pairs.cu", "smo.cu", "pairs_packed.cu")
+KERNEL_SOURCES = ("pairs.cu", "smo.cu", "pairs_packed.cu", "theta_gram.cu")
 
 # --fmad=false: kernels B and C must follow their plain twins' f32
 # trajectories op for op, and a contracted multiply-add rounds once where
@@ -143,8 +143,9 @@ def kernels() -> ctypes.CDLL:
         lib.packed_s1_launch.argtypes = [
             vp, vp, vp, ci, ci, vp, vp, ll, ci, ci, ci, ci, vp, vp
         ]
+        lib.theta_gram_launch.argtypes = [vp, vp, ci, ci, ci, vp]
         for fn in (lib.packed_band_launch, lib.packed_block_launch, lib.packed_pairlist_launch,
-                   lib.packed_grouped_launch, lib.packed_s1_launch):
+                   lib.packed_grouped_launch, lib.packed_s1_launch, lib.theta_gram_launch):
             fn.restype = ci
         _KERNELS = lib
         return lib

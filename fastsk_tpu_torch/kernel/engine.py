@@ -103,6 +103,8 @@ class DenseGkmEngine:
         self.theta_batch = cfg.theta_batch or self._auto_theta_batch()
         self.row_chunk = cfg.row_chunk or self._auto_row_chunk()
         self.mesh = cfg.mesh
+        # the count product: the u8 kernel on one card while counts fit u8
+        self.route = gkm.theta_route(self.p_max, self.device, mesh=self.mesh is not None)
         if self.mesh is not None:
             # entry -> its row block, on its device (length-0 padding rows)
             self._ids, self._lengths, self.n_padded = shd.shard_rows(
@@ -115,16 +117,16 @@ class DenseGkmEngine:
             self.n_padded = self.n
 
         # Batches keep sum_t Ks_t < 2^24 for exact f32 products; beyond
-        # 4095 windows a sequence the f64 product takes over (count_split).
-        self.count_split = self.p_max > 4095
-        if not self.count_split:
+        # 4095 windows a sequence the f64 product takes over (route f64).
+        f64 = self.route == "f64"
+        if not f64:
             f32_exact_cap = max(1, (1 << 24) // max(self.p_max**2, 1))
             self.theta_batch = max(1, min(self.theta_batch, f32_exact_cap))
         # Spill the int32 accumulator before int32 could overflow: a run
         # of thetas accumulated on the device keeps sum_t Ks_t <= thetas *
         # p_max^2 < 2^31 (with margin 2).
         int32_safe = max(1, ((1 << 31) - 1) // max(self.p_max**2, 1) // 2)
-        if self.count_split:
+        if f64:
             # one batch's product is cast to int32 whole
             self.theta_batch = max(1, min(self.theta_batch, int32_safe))
         self.spill_every_thetas = max(self.theta_batch, int32_safe)
@@ -152,18 +154,13 @@ class DenseGkmEngine:
         onehot_rows = min(-(-min(rows, self.n) // 8) * 8, -(-self.n // 8) * 8)
         return int(min(hash_rows, onehot_rows))
 
+    def _hash_kwargs(self) -> dict:
+        return dict(g=self.g, base=self.base, code_min=self.code_min, k1=self.k1, b1=self.b1,
+                    b2=self.b2, row_chunk=self.row_chunk)
+
     def _static_kwargs(self) -> dict:
-        return dict(
-            g=self.g,
-            base=self.base,
-            code_min=self.code_min,
-            k1=self.k1,
-            b1=self.b1,
-            b2=self.b2,
-            row_chunk=self.row_chunk,
-            matmul_dtype=self.matmul_dtype,
-            count_split=self.count_split,
-        )
+        """The batch updates' arguments (ops/gkm.py, parallel/sharding.py)."""
+        return dict(self._hash_kwargs(), route=self.route)
 
     def _batch(self, thetas: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(thetas, dtype=np.int64), device=self.device)
@@ -460,8 +457,7 @@ class DenseGkmEngine:
                 counts = self._sum_thetas(stream[:limit])
             return ApproxResult(counts=counts, iters=limit, stdevs=[], converged=False)
 
-        kwargs = dict(self._static_kwargs(), n_train=self.enc.n_train,
-                      conv_delta=conv_delta, max_iters=max_iters)
+        welford = dict(n_train=self.enc.n_train, conv_delta=conv_delta, max_iters=max_iters)
         ckpt = self._checkpoint(f"approx:{seed}:{conv_delta}:{max_iters}")
         saved = ckpt.load() if ckpt is not None else None
         state = self._approx_state(saved)
@@ -474,11 +470,12 @@ class DenseGkmEngine:
             with span("theta.batch"):
                 if self.mesh is None:
                     state, sds = gkm.approx_batch_update(
-                        state, self._ids, self._lengths, self._batch(batch), **kwargs)
+                        state, self._ids, self._lengths, self._batch(batch),
+                        **self._static_kwargs(), **welford)
                 else:
                     state, sds = shd.approx_batch_update_sharded(
                         state, self._ids, self._lengths, np.asarray(batch), mesh=self.mesh,
-                        **kwargs)
+                        **self._static_kwargs(), **welford)
             i += len(batch)
             since_ckpt += len(batch)
             # one sync a batch: the sd trace and the done flag together

@@ -16,15 +16,20 @@ bounding the index tensors as it bounds the JAX one-hot intermediates. A
 theta batch's sum ``sum_t C_t C_t^T`` is one matrix product over the
 batch's concatenated buckets.
 
-Exactness: every product runs on integer-valued operands
-(``matmul_dtype``). bf16 holds counts up to 256 exactly and runs with f32
-outputs (never bf16 ones: ``torch.mm(..., out_dtype=torch.float32)``), f32
-runs in full f32 (no TF32, ``ops/pairs.py:full_f32_matmul``), and both are
-exact while every sum stays below 2^24 — the engine caps the batch at
-``theta_batch * p_max^2 < 2^24`` (``fastsk_tpu/kernel/engine.py:101-116``).
-Beyond 4095 windows a sequence the JAX package splits counts into 8-bit
-digits; here one f64 product is exact below 2^53, and the engine keeps the
-batch below 2^31.
+Exactness: every product runs on integer-valued operands, by the route
+``theta_route`` picks from what the engine observes. On the card without a
+mesh, counts up to 255 take the hand-written u8 kernel
+(``ops/theta_gram_cuda.py``, route ``u8_wgmma``: s32 sums, int32 out,
+exact below 2^31). Otherwise the operand dtype is ``matmul_dtype``'s:
+bf16 holds counts up to 256 exactly and runs with f32 outputs (never bf16
+ones: ``torch.mm(..., out_dtype=torch.float32)``), f32 runs in full f32
+(no TF32, ``ops/pairs.py:full_f32_matmul``), and both are exact while
+every sum stays below 2^24 — the engine caps the batch at ``theta_batch *
+p_max^2 < 2^24`` (``fastsk_tpu/kernel/engine.py:101-116``). Beyond 4095
+windows a sequence the JAX package splits counts into 8-bit digits; here
+one f64 product is exact below 2^53, and the engine keeps the batch below
+2^31. ``gram`` stays the product of the sorted engine's slabs and of the
+meshes' row blocks, whose operands are neither square nor bounded by 255.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from typing import Tuple
 
 import torch
 
+from ..utils.observe import count
 from .pairs import full_f32_matmul
+from .theta_gram_cuda import theta_gram_launch, u8_operand
 
 # Peak bytes a (window, theta) of one row chunk in ``_counts_for_batch``:
 # the two int32 level hashes, the int32 bucket and ones, and the int64
@@ -62,6 +69,45 @@ def matmul_dtype(p_max: int, device: torch.device) -> torch.dtype:
     if p_max <= 256 and device.type == "cuda":
         return torch.bfloat16
     return torch.float32
+
+
+U8_ROUTE = "u8_wgmma"
+ROUTE_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
+_DTYPE_ROUTES = {dt: name for name, dt in ROUTE_DTYPES.items()}
+
+
+def theta_route(p_max: int, device, mesh: bool = False) -> str:
+    """The dense engine's count-product route for at most ``p_max`` windows
+    a sequence: ``u8_wgmma`` on the card without a mesh while every count
+    fits u8 (<= 255), else the name of ``matmul_dtype``'s operand dtype
+    (``bf16``, ``f32`` or ``f64``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and p_max <= 255 and not mesh:
+        return U8_ROUTE
+    return _DTYPE_ROUTES[matmul_dtype(p_max, device)]
+
+
+def theta_operand(counts: torch.Tensor, route: str) -> torch.Tensor:
+    """A ``[T, N, B]`` int32 count batch as ``theta_gram``'s operand: the
+    u8 kernel's padded ``[T, N, K_pad]``, or the counts in the route's
+    dtype."""
+    if route == U8_ROUTE:
+        return u8_operand(counts)
+    return counts.to(ROUTE_DTYPES[route])
+
+
+def theta_gram(c: torch.Tensor, route: str) -> torch.Tensor:
+    """Exact int32 ``sum_t C_t C_t^T`` of a ``theta_operand`` ``[T, N, ·]``,
+    the dense engine's own product: the u8 kernel, or one ``gram`` over the
+    batch's concatenated buckets (``f64`` past 4095 windows a sequence,
+    where the JAX package's 8-bit digit grams give the same integers). The
+    caller keeps every sum below 2^24 (bf16, f32) or 2^31 (u8, f64).
+    Counts ``theta_gram.routes.<route>`` by the batch's subsets."""
+    count(f"theta_gram.routes.{route}", c.shape[0])
+    if route == U8_ROUTE:
+        return theta_gram_launch(c)
+    rows = batch_rows(c, c.dtype)
+    return gram(rows, rows).to(torch.int32)
 
 
 def gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -154,16 +200,6 @@ def batch_rows(counts: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return counts.permute(1, 0, 2).reshape(n, t * b).to(dtype)
 
 
-def count_gram_int32(counts: torch.Tensor, count_split: bool) -> torch.Tensor:
-    """Exact int32 ``sum_t C_t @ C_t^T`` for a ``[T, N, B]`` count batch
-    of an exact operand dtype: one product over the batch's concatenated
-    buckets. ``count_split`` (more than 4095 windows a sequence) takes it
-    in f64, exact below 2^53; the JAX package's 8-bit digit grams give the
-    same integers. The caller keeps the sum below 2^24 (plain) or 2^31."""
-    c = batch_rows(counts, torch.float64 if count_split else counts.dtype)
-    return gram(c, c).to(torch.int32)
-
-
 def exact_batch_update(
     k_acc: torch.Tensor,  # [N, N] int32 accumulator, updated in place
     ids: torch.Tensor,
@@ -177,16 +213,16 @@ def exact_batch_update(
     b1: int,
     b2: int,
     row_chunk: int,
-    matmul_dtype: torch.dtype,
-    count_split: bool = False,
+    route: str,
 ) -> torch.Tensor:
-    """``k_acc += sum_t C_t @ C_t.T`` for one theta batch (exact integers;
-    in place, where the JAX function returns a new array)."""
+    """``k_acc += sum_t C_t @ C_t.T`` for one theta batch by ``route``
+    (``theta_route``; exact integers; in place, where the JAX function
+    returns a new array)."""
     counts = _counts_for_batch(
         ids, lengths, thetas, g=g, base=base, code_min=code_min, k1=k1,
         b1=b1, b2=b2, row_chunk=row_chunk,
-    ).to(matmul_dtype)
-    return k_acc.add_(count_gram_int32(counts, count_split))
+    )
+    return k_acc.add_(theta_gram(theta_operand(counts, route), route))
 
 
 def welford_partial(ks_int: torch.Tensor, mean: torch.Tensor, it_new: torch.Tensor, *,
@@ -259,11 +295,10 @@ def approx_batch_update(
     b1: int,
     b2: int,
     row_chunk: int,
-    matmul_dtype: torch.dtype,
+    route: str,
     n_train: int,
     conv_delta: float,
     max_iters: int,
-    count_split: bool = False,
 ):
     """One theta batch of Monte-Carlo sampling with the reference stop rule.
 
@@ -273,17 +308,19 @@ def approx_batch_update(
     consumed equal a batch-size-1 run's. ``k_sum`` is the exact integer
     sum (the approx kernel); the Welford mean and variance are f32.
 
+    Each theta's product is ``theta_gram`` by ``route``.
+
     Returns ``(state, sds)``, ``sds [T]`` f32 the per-iteration sd trace
     (NaN for masked iterations).
     """
-    counts = _counts_for_batch(
+    c = theta_operand(_counts_for_batch(
         ids, lengths, thetas, g=g, base=base, code_min=code_min, k1=k1,
         b1=b1, b2=b2, row_chunk=row_chunk,
-    ).to(torch.float64 if count_split else matmul_dtype)
+    ), route)
     sds = []
-    for c_t in counts:
+    for t in range(c.shape[0]):
         state, sd = welford_step(
-            state, gram(c_t, c_t).to(torch.int32), n_train=n_train, conv_delta=conv_delta,
+            state, theta_gram(c[t : t + 1], route), n_train=n_train, conv_delta=conv_delta,
             max_iters=max_iters,
         )
         sds.append(sd)

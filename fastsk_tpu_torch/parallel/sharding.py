@@ -299,8 +299,7 @@ def exact_batch_update_sharded(
     b1: int,
     b2: int,
     row_chunk: int,
-    matmul_dtype: torch.dtype,
-    count_split: bool = False,
+    route: str,
 ) -> Dict[int, torch.Tensor]:
     """``k_acc += sum_theta C_theta @ C_theta^T`` over a (rows, theta) mesh.
 
@@ -314,8 +313,8 @@ def exact_batch_update_sharded(
     tl = thetas.shape[0] // mesh.n_theta
     n_local = next(iter(ids.values())).shape[0]
     b = b1 * b2
-    # f64 past 4095 windows a sequence (gkm.count_gram_int32's count split)
-    dt = torch.float64 if count_split else matmul_dtype
+    # the route's operand dtype (gkm.theta_route: never u8 on a mesh)
+    dt = gkm.ROUTE_DTYPES[route]
     kw = dict(g=g, base=base, code_min=code_min, k1=k1, b1=b1, b2=b2, row_chunk=row_chunk)
     for t in range(mesh.n_theta):
         own = {}
@@ -358,11 +357,10 @@ def approx_batch_update_sharded(
     b1: int,
     b2: int,
     row_chunk: int,
-    matmul_dtype: torch.dtype,
+    route: str,
     n_train: int,
     conv_delta: float,
     max_iters: int,
-    count_split: bool = False,
 ):
     """Rows-sharded Monte-Carlo batch with the reference stop rule.
 
@@ -389,8 +387,7 @@ def approx_batch_update_sharded(
     blocks = gather_rows(own, mesh, (thetas.shape[0], mesh.n_rows * n_local, b1 * b2), 1,
                          torch.int32)
     del own
-    dt = torch.float64 if count_split else matmul_dtype
-    blocks = [blk.to(dt) for blk in blocks]
+    blocks = [blk.to(gkm.ROUTE_DTYPES[route]) for blk in blocks]
     lead = it.device
     sds = []
     for j in range(thetas.shape[0]):

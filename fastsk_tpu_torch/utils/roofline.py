@@ -14,7 +14,7 @@ limit):
   pairs its triangle walk visits on the code planes (one LOP3 a plane and
   one POPC a pair), with the int8 operations of the same pairs' one-hot
   product for the bound;
-- ``bound``, ``count_bound`` and ``smo_bound``: the least time the card
+- ``bound``, ``count_bound``, ``theta_gram_bound`` and ``smo_bound``: the least time the card
   could take for a piece of work, the larger of its operations over the
   peak rate and its bytes over the memory rate (``chip_smoke.py``'s kernel
   record takes its ``bound_ms`` from here).
@@ -61,6 +61,15 @@ def count_bound(windows: int, width: int, nbytes: float) -> dict:
     unordered window pair once, as an int8 product of ``width``-byte
     one-hot rows (2 * width operations a pair)."""
     return bound(2.0 * width * windows * (windows + 1) / 2, nbytes, PEAK_INT8_OPS)
+
+
+def theta_gram_bound(n: int, k: int) -> dict:
+    """Bound of the theta Gram kernel (``csrc/theta_gram.cu``) on ``n``
+    rows of ``k`` u8 counts (a batch's buckets side by side): the upper
+    triangle's n (n + 1) / 2 entries of k int8 multiply-adds at the int8
+    peak, against the operand read once and the int32 [n, n] written
+    once."""
+    return bound(n * (n + 1) * k, n * k + 4 * n * n, PEAK_INT8_OPS)
 
 
 def smo_bound(n: int, iters: int) -> dict:

@@ -1,9 +1,11 @@
 """Kernels A to H against their plain PyTorch versions, on the card
 (kernel A with both of its bodies and its body's four layouts, kernel H's
 variants of that body in each layout, D to G's one kernel at every code
-width, E in both landings, kernel C at every cluster size), and the theta
-engines' card path (bf16 products with f32 outputs) against the CPU's,
-and the baselines' training repeating bit for bit.
+width, E in both landings, kernel C at every cluster size), the theta
+Gram kernel against int64 products, the theta engines' card path (the
+dense engine's u8 kernel, the sorted engine's bf16 products with f32
+outputs) against the CPU's and the dense engine's bf16 route, and the
+baselines' training repeating bit for bit.
 
 Marked ``cuda``; each test skips (from the ``cuda`` fixture, not at
 import) where ``torch.cuda.is_available()`` is false. Run on a machine
@@ -23,7 +25,8 @@ from fastsk_tpu_torch.kernel.pairs_engine import PackedPairsEngine, PairsGkmEngi
 from fastsk_tpu_torch.kernel.config import KernelConfig
 from fastsk_tpu_torch.kernel.engine import DenseGkmEngine
 from fastsk_tpu_torch.kernel.sorted_engine import SortedGkmEngine
-from fastsk_tpu_torch.ops import pairs, pairs_cuda, pairs_packed, pairs_packed_cuda
+from fastsk_tpu_torch.ops import gkm, pairs, pairs_cuda, pairs_packed, pairs_packed_cuda
+from fastsk_tpu_torch.ops import theta_gram_cuda
 from fastsk_tpu_torch.ops.encode import encode_sequences
 from fastsk_tpu_torch.parallel import make_mesh
 from fastsk_tpu_torch.svm import smo_cuda
@@ -836,8 +839,9 @@ def test_training_repeats_bit_for_bit(cuda, tmp_path, kind):
 
 @pytest.mark.parametrize("engine,alpha", [(DenseGkmEngine, 4), (SortedGkmEngine, 24)])
 def test_theta_engines_on_the_card_match_the_cpu(cuda, engine, alpha):
-    """The theta engines take bf16 products with f32 outputs only on the
-    card (the CPU takes f32): exact counts equal the oracle's, in both
+    """On the card the dense engine takes the u8 theta Gram kernel (counts
+    up to 255) and the sorted engine bf16 products with f32 outputs (the
+    CPU takes f32): exact counts equal the oracle's, in both
     accumulations; approx mode's iterations and counts equal the CPU run's
     and its sd trace is within rtol 1e-4 (f32 sums in another order)."""
     rng = np.random.default_rng(alpha)
@@ -846,7 +850,7 @@ def test_theta_engines_on_the_card_match_the_cpu(cuda, engine, alpha):
     card = engine(enc, 8, 4, KernelConfig(device=cuda))
     cpu = engine(enc, 8, 4, KernelConfig(device="cpu"))
     if engine is DenseGkmEngine:
-        assert card.matmul_dtype == torch.bfloat16
+        assert card.matmul_dtype == torch.bfloat16 and card.route == "u8_wgmma"
     want = oracle.exact_counts(X, 8, 4)
     np.testing.assert_array_equal(card.exact(), want)
     np.testing.assert_array_equal(card.exact_device().to_host_int64(), want)
@@ -854,3 +858,87 @@ def test_theta_engines_on_the_card_match_the_cpu(cuda, engine, alpha):
     assert got.iters == ref.iters and got.converged == ref.converged
     np.testing.assert_array_equal(got.counts, ref.counts)
     np.testing.assert_allclose(got.stdevs, ref.stdevs, rtol=1e-4)
+
+
+def _exact_gram(counts: np.ndarray) -> torch.Tensor:
+    """``sum_t C_t C_t^T`` of ``[T, N, K]`` counts as int64: an int64 torch
+    product on the CPU, or past 10^10 multiply-adds the card's f64 product
+    (every entry an integer below 2^53), as int64."""
+    t, n, k = counts.shape
+    x = torch.as_tensor(counts).permute(1, 0, 2).reshape(n, t * k)
+    if n * n * t * k <= 10**10:
+        x = x.to(torch.int64)
+        return x @ x.T
+    x = x.cuda().to(torch.float64)
+    return (x @ x.T).to(torch.int64).cpu()
+
+
+@pytest.mark.parametrize("k", [1, 31, 33, 15625])
+@pytest.mark.parametrize("n", [1, 63, 64, 129, 7020])
+def test_theta_gram_kernel_matches_int64(cuda, n, k):
+    """The theta Gram kernel, bit-equal to an int64 product over random u8
+    counts (a row of 255 and a row of 0), its lower triangle the upper's
+    transpose, one launch counted."""
+    rng = np.random.default_rng(n * 100_000 + k)
+    counts = rng.integers(0, 256, size=(1, n, k), dtype=np.uint8)
+    counts[0, 0] = 255
+    counts[0, -1] = 0 if n > 1 else 255
+    c = theta_gram_cuda.u8_operand(torch.as_tensor(counts, device=cuda).to(torch.int32))
+    before = counters()["theta_gram_launch.launches"]
+    got = theta_gram_cuda.theta_gram_launch(c)
+    torch.cuda.synchronize()
+    assert counters()["theta_gram_launch.launches"] == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n, n)
+    torch.testing.assert_close(got, got.T, rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu().to(torch.int64), _exact_gram(counts), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t,n,b,fill", [
+    (3, 129, 625, None),  # a batch's buckets side by side, as the exact path sums them
+    (8, 7020, 625, None),  # KAT2B at g8 m4, one batch of 8 subsets
+    (7, 64, 33, None),
+    (1, 129, 33, 0),  # counts of 0
+    (1, 300, 15625, 255),  # counts of 255: 1,015,995,625 an entry
+    (2, 64, 15625, 255),  # 2,031,991,250 an entry, just below 2^31
+])
+def test_theta_gram_kernel_batches_and_extremes(cuda, t, n, b, fill):
+    """A [T, N, B] batch summed over its subsets in one launch, and
+    constant counts of 0 and 255, bit-equal to the int64 product."""
+    rng = np.random.default_rng(t * 7 + n + b)
+    counts = (rng.integers(0, 256, size=(t, n, b), dtype=np.uint8) if fill is None
+              else np.full((t, n, b), fill, dtype=np.uint8))
+    got = gkm.theta_gram(gkm.theta_operand(torch.as_tensor(counts, device=cuda).to(torch.int32),
+                                           "u8_wgmma"), "u8_wgmma")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, got.T, rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu().to(torch.int64), _exact_gram(counts), rtol=0, atol=0)
+
+
+def test_dense_engine_u8_route_equals_bf16_route(cuda):
+    """A DNA set with p_max <= 255 through DenseGkmEngine on the card: the
+    u8 route's exact counts, approx iterations, counts and sd trace equal
+    the bf16 route's (both hand welford_step the same int32 matrix);
+    ``theta_gram.routes.u8_wgmma`` counts every subset multiplied and
+    ``bf16`` none, one launch a batch in exact mode and a subset in
+    approx mode."""
+    rng = np.random.default_rng(22)
+    X = [rng.integers(1, 5, size=rng.integers(40, 200)).tolist() for _ in range(90)]
+    enc = encode_sequences(X)
+    cfg = KernelConfig(device=cuda, theta_batch=8)
+    u8, bf16 = DenseGkmEngine(enc, 8, 4, cfg), DenseGkmEngine(enc, 8, 4, cfg)
+    assert u8.route == "u8_wgmma" and u8.p_max <= 255
+    bf16.route = "bf16"
+    before = counters()
+    exact = u8.exact()
+    got = u8.approx(conv_delta=0.1, seed=3)
+    delta = counters() - before
+    computed = min(70, -(-got.iters // 8) * 8)  # the batches' subsets, to the stop
+    assert delta["theta_gram.routes.u8_wgmma"] == 70 + computed
+    assert delta["theta_gram.routes.bf16"] == 0
+    assert delta["theta_gram_launch.launches"] == -(-70 // 8) + computed
+    np.testing.assert_array_equal(exact, oracle.exact_counts(X, 8, 4))
+    np.testing.assert_array_equal(exact, bf16.exact())
+    ref = bf16.approx(conv_delta=0.1, seed=3)
+    assert (got.iters, got.converged) == (ref.iters, ref.converged)
+    np.testing.assert_array_equal(got.counts, ref.counts)
+    np.testing.assert_array_equal(got.stdevs, ref.stdevs)

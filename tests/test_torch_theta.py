@@ -31,6 +31,7 @@ from fastsk_tpu_torch.kernel.engine import DenseGkmEngine as TDense
 from fastsk_tpu_torch.kernel.sorted_engine import SortedGkmEngine as TSorted
 from fastsk_tpu_torch.ops import combinatorics as tcomb
 from fastsk_tpu_torch.ops import gkm as tgkm
+from fastsk_tpu_torch.utils.observe import counters
 
 import oracle
 from conftest import random_ragged_seqs
@@ -95,9 +96,9 @@ def test_hashes_histograms_and_grams_equal_jax(g, m, alphabet):
                                 jnp.asarray(thetas), row_chunk=16, count_dtype=jnp.float32, **kw)
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb).astype(np.int64))
 
-    for split in (False, True):
+    for split, route in ((False, "f32"), (True, "f64")):
         want = np.asarray(jgkm.count_gram_int32(jb, split))
-        got = tgkm.count_gram_int32(tb.to(torch.float32), split)
+        got = tgkm.theta_gram(tgkm.theta_operand(tb, route), route)
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
 
@@ -109,7 +110,7 @@ def test_count_split_gram_past_f32():
     counts = rng.integers(0, 6000, size=(3, 5, 7)).astype(np.float32)
     want = np.einsum("tnb,tmb->nm", counts.astype(np.int64), counts.astype(np.int64))
     assert want.max() > 1 << 24
-    got = tgkm.count_gram_int32(torch.as_tensor(counts), True).numpy()
+    got = tgkm.theta_gram(tgkm.theta_operand(torch.as_tensor(counts), "f64"), "f64").numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.asarray(jgkm.count_gram_int32(jnp.asarray(counts), True)))
 
@@ -140,7 +141,7 @@ def test_dense_sizing_matches_jax():
                         ({}, 1 << 22), ({"max_theta_batch": 5}, 1 << 30)):
         j = JDense(enc, 8, 4, J.KernelConfig(**cfg))
         t = TDense(enc, 8, 4, T.KernelConfig(device="cpu", hash_budget_bytes=budget, **cfg))
-        assert (t.theta_batch, t.spill_every_thetas, t.count_split) == (
+        assert (t.theta_batch, t.spill_every_thetas, t.route == "f64") == (
             j.theta_batch, j.spill_every_thetas, j.count_split)
         per_row = t.p * t.theta_batch * tgkm.HASH_BYTES
         assert t.row_chunk == max(1, min(t.n, budget // per_row))
@@ -156,7 +157,7 @@ def test_dense_count_split_exact_and_approx(rng):
     enc = encode_sequences(X)
     t = TDense(enc, g, m, CPU)
     j = JDense(enc, g, m)
-    assert t.count_split and j.count_split and t.matmul_dtype == torch.float64
+    assert t.route == "f64" and j.count_split and t.matmul_dtype == torch.float64
     thetas = tcomb.enumerate_combinations(g, g - m)[:4]
     want = oracle.counts_for_thetas(X, g, thetas)
     np.testing.assert_array_equal(t._sum_thetas(thetas), want)
@@ -247,6 +248,115 @@ def test_theta_engines_on_a_mesh_match_jax():
     for engine, j_engine in ((TDense, JDense), (TSorted, JSorted)):
         np.testing.assert_array_equal(engine(enc, 6, 3, cfg).exact(),
                                       j_engine(enc, 6, 3, j_cfg).exact())
+
+
+# ------------------------------------------------------------ the count product's route
+
+
+@pytest.mark.parametrize("p_max,device,mesh,route", [
+    (188, "cuda", False, "u8_wgmma"),  # KAT2B's windows
+    (255, "cuda", False, "u8_wgmma"),
+    (256, "cuda", False, "bf16"),  # one past u8: bf16 still holds it
+    (257, "cuda", False, "f32"),
+    (4095, "cuda", False, "f32"),
+    (4096, "cuda", False, "f64"),  # the count split
+    (188, "cuda", True, "bf16"),  # a mesh keeps today's path
+    (255, "cpu", False, "f32"),
+    (188, "cpu", True, "f32"),
+    (4096, "cpu", False, "f64"),
+])
+def test_theta_route_rule(p_max, device, mesh, route):
+    """The u8 kernel only on the card, without a mesh, while counts fit u8;
+    every other case keeps ``matmul_dtype``'s operand."""
+    assert tgkm.theta_route(p_max, torch.device(device), mesh=mesh) == route
+    if route != tgkm.U8_ROUTE:
+        assert tgkm.ROUTE_DTYPES[route] == tgkm.matmul_dtype(p_max, torch.device(device))
+
+
+@pytest.mark.parametrize("t,n,b", [(1, 1, 1), (1, 9, 31), (1, 12, 33), (3, 7, 200), (2, 5, 625)])
+def test_u8_operand_and_plain_gram(t, n, b):
+    """The u8 route's operand pads each row to a multiple of 128 bytes with
+    zeros, and its product (the plain int64 version on the CPU) equals the
+    f64 route's (exact below 2^53) for counts up to 255, counted by
+    subsets."""
+    rng = np.random.default_rng(t * 1000 + n * 10 + b)
+    counts = torch.as_tensor(rng.integers(0, 256, size=(t, n, b)), dtype=torch.int32)
+    counts[:, 0] = 255
+    c = tgkm.theta_operand(counts, tgkm.U8_ROUTE)
+    assert c.dtype == torch.uint8 and c.shape == (t, n, -(-b // 128) * 128)
+    np.testing.assert_array_equal(c[..., :b].numpy(), counts.numpy())
+    assert not c[..., b:].any()
+    before = counters()
+    got = tgkm.theta_gram(c, tgkm.U8_ROUTE)
+    assert counters()["theta_gram.routes.u8_wgmma"] - before["theta_gram.routes.u8_wgmma"] == t
+    assert got.dtype == torch.int32
+    want = tgkm.theta_gram(tgkm.theta_operand(counts, "f64"), "f64")
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    x = counts.permute(1, 0, 2).reshape(n, -1).numpy().astype(np.int64)
+    np.testing.assert_array_equal(got.numpy(), x @ x.T)
+
+
+def test_dense_engine_routes_what_it_observes(monkeypatch):
+    """The engine asks ``theta_route`` with what it observes (its p_max,
+    device and mesh); on the CPU it keeps today's f32 products with
+    today's results, counted a subset each, and under a mesh no
+    single-device product runs."""
+    from fastsk_tpu_torch.parallel import make_mesh
+
+    asked = []
+    route = tgkm.theta_route
+    monkeypatch.setattr(tgkm, "theta_route", lambda *a, **kw: asked.append((a, kw)) or route(*a, **kw))
+    X = _dna(2)
+    enc = encode_sequences(X)
+    eng = TDense(enc, 6, 3, T.KernelConfig(device="cpu", theta_batch=3))
+    assert eng.route == "f32" and asked[-1] == ((eng.p_max, eng.device), {"mesh": False})
+    before = counters()
+    np.testing.assert_array_equal(eng.exact(), oracle.exact_counts(X, 6, 3))
+    delta = counters() - before
+    assert delta["theta_gram.routes.f32"] == 20 and delta["theta_gram.routes.u8_wgmma"] == 0
+    r = eng.approx(conv_delta=0.6, seed=0)
+    delta = counters() - before
+    assert delta["theta_gram.routes.f32"] == 20 + min(20, -(-r.iters // 3) * 3)
+    np.testing.assert_array_equal(r.counts, JDense(enc, 6, 3).approx(conv_delta=0.6, seed=0).counts)
+
+    mesh = make_mesh(1, 2, devices=["cpu"] * 2)
+    meshed = TDense(enc, 6, 3, T.KernelConfig(device="cpu", mesh=mesh))
+    assert meshed.route == "f32" and asked[-1][1] == {"mesh": True}
+    before = counters()
+    np.testing.assert_array_equal(meshed.exact(), oracle.exact_counts(X, 6, 3))
+    assert not any(k.startswith("theta_gram.") for k in counters() - before)
+
+
+def test_gram_callers_keep_gkm_gram(monkeypatch):
+    """The sorted engine's slab products and the meshes' row blocks still
+    call ``gkm.gram``, never the dense engine's own product."""
+    from fastsk_tpu_torch.ops import sorted_theta
+    from fastsk_tpu_torch.parallel import make_mesh
+
+    calls = {"sorted": 0, "mesh": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def refuse(*a, **kw):
+        raise AssertionError("theta_gram called off the dense engine's single-device path")
+
+    monkeypatch.setattr(sorted_theta, "gram", spy("sorted", sorted_theta.gram))
+    monkeypatch.setattr(tgkm, "gram", spy("mesh", tgkm.gram))
+    monkeypatch.setattr(tgkm, "theta_gram", refuse)
+    X = _dna(3, alphabet=20)
+    enc = encode_sequences(X)
+    want = oracle.exact_counts(X, 5, 2)
+    np.testing.assert_array_equal(TSorted(enc, 5, 2, CPU).exact(), want)
+    assert calls["sorted"] > 0
+    mesh = make_mesh(2, 1, devices=["cpu"] * 2)
+    dense = TDense(enc, 5, 2, T.KernelConfig(device="cpu", mesh=mesh))
+    np.testing.assert_array_equal(dense.exact(), want)
+    dense.approx(max_iters=2, seed=0)
+    assert calls["mesh"] > 0
 
 
 # ------------------------------------------------------------ API and CLI
